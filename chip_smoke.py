@@ -12,19 +12,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    held against its plain PyTorch version on the same inputs with
    ``torch.equal`` (bit-identical), and timed with CUDA events beside its
    bound, the plain version and, where one exists, a single PyTorch call
-   computing the same function;
-3. a small-input reference check: the tiny U-Net trains two optimizer
-   steps with the fp16 codec on the card and on the CPU from the same
-   weights and data, and the losses must agree;
-4. the main path: ``configs/vaihingen_unet_tpu_flagship.json`` through the
-   CLI's own entry (``parse_args`` → ``Trainer.fit``) at full width and
-   512² tiles for three optimizer steps, with the kernels' launch counts
-   read from that run alone.  Every loss must be finite.
+   computing the same function.  The stochastic kernels are also held to
+   each other (a _noise kernel fed the plain Philox field equals the _sr
+   kernel), to the offset-slice property, and to unbiasedness over 64 keys;
+3. small-input reference checks: the tiny U-Net trains two optimizer steps
+   with the fp16 codec, and two with int8 stochastic rounding, on the card
+   and on the CPU from the same weights, data and seed, and must agree;
+4. the main paths, each through the CLI's own entry (``parse_args`` →
+   ``Trainer.fit``) on ``configs/vaihingen_unet_tpu_flagship.json`` at full
+   width and 512² tiles for three optimizer steps, with the kernels'
+   launch counts set to 0 just before and read just after each run: first
+   the config as it is (fp16 codec, nearest rounding), then with
+   ``compression.mode=int8, rounding=stochastic`` (which must warn about
+   its large super-batch).  Every loss must be finite.
 
-With ``--profile`` it then runs one more optimizer step of the flagship
-under ``torch.profiler`` and prints the device time by kernel, the device's
-idle share over that step and the step's FLOPs against the card's bf16
-peak (this phase is for measurement, not part of the plain smoke run).
+With ``--profile``, after each main path (once its launch counts are read)
+it runs one more optimizer step of that path under ``torch.profiler`` and
+prints the device time by kernel, the device's idle share over that step
+and the step's FLOPs against the card's bf16 peak (this phase is for
+measurement, not part of the plain smoke run).
 
 It prints one JSON line with every kernel's numbers, then the card's
 ``nvidia-smi`` line, then the contract line
@@ -41,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -48,7 +55,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(REPO, "configs", "vaihingen_unet_tpu_flagship.json")
 WORKDIR = os.path.join(REPO, "runs", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, published
+# H100 SXM fp32 outside the tensor cores, published; NVIDIA publishes no
+# CUDA-core integer rate, so the Philox kernels' integer operations count at it too.
+FP32_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, published
 EPOCHS = 3  # one optimizer step per epoch on the flagship (97 tiles, super-batch 512)
 MICRO_BATCH = 128  # the flagship's own
@@ -61,6 +70,16 @@ OFF = (
     "data.device_cache=False",
     "data.native_gather=False",
 )
+# The stochastic main path: the flagship recipe's int8-stochastic arm.
+STOCHASTIC = (
+    "compression.mode=int8",
+    "compression.rounding=stochastic",
+    "compression.codec_backend=pallas",
+)
+# Philox4x32-10 per element: 10 rounds of 2 mul.hi + 2 mul.lo + 4 xor +
+# 2 add per 4 elements, plus the 24-bit u (shift, convert, multiply).
+PHILOX_OPS_PER_ELEM = 10 * 10 / 4 + 3
+SNAP_OPS_PER_ELEM = 7  # divide, multiply, add, floor, 2 compares, convert
 
 
 def fail(msg: str) -> None:
@@ -187,38 +206,219 @@ def kernel_phase(n: int) -> list:
         ),
     ]
     for s in specs:
-        bound_bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = s["ops"] / FP32_OPS_PER_S * 1e3
-        row = {
-            "name": s["name"],
-            "route": "cuda",
-            "source": "ddlpc_tpu_torch/kernels/csrc/quantize.cu",
-            "replaces": s["replaces"],
-            "launches": 0,
-            "max_abs_err": float(s["err"]()),
-            "ms": time_ms(s["kernel"]),
-            "plain_ms": time_ms(s["plain"]),
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-            "library_ms": None if s["library"] is None else time_ms(s["library"]),
-        }
-        log(
-            f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-            f"{row['bound_by']}, plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']} ms), max_abs_err {row['max_abs_err']}"
-        )
-        results.append(row)
+        s["source"] = "ddlpc_tpu_torch/kernels/csrc/quantize.cu"
+        results.append(timed_row(s))
     # fake_quantize_fused's time includes the max-abs reduction it runs
-    # before its kernel (as the Pallas path runs one outside its kernel).
-    log(f"fake_quantize_fused: its max-abs reduction alone "
-        f"{time_ms(lambda: x.abs().amax()):.4f} ms")
+    # before its kernel (as the Pallas path runs one outside its kernel);
+    # the kernel alone is timed through its C entry point.
+    amax_ms = time_ms(lambda: x.abs().amax())
+    step = plain.true_div(scale, levels)
+    results[2]["kernel_ms"] = time_ms(lambda: raw_launch(
+        "ddlpc_fake_quantize", x.data_ptr(), fq_out.data_ptr(), n, safe.data_ptr(),
+        step.data_ptr(), levels, 1, stream()))
+    log(f"fake_quantize_fused: its max-abs reduction alone {amax_ms:.4f} ms, "
+        f"its kernel alone {results[2]['kernel_ms']:.4f} ms")
+    # The int8 wire against torch.quantize_per_tensor, which does close to
+    # the same work: it multiplies by the reciprocal of its scale (where the
+    # kernel divides x by the max-abs, then multiplies by the levels) and
+    # clamps to the qint8 range -128..127 (the kernel clips to +-levels).
+    i8 = CompressionConfig(mode="int8")
+    lv8 = float(plain.levels_for(i8))
+    step8 = plain.true_div(scale, lv8)
+    results[0]["int8_wire_ms"] = time_ms(lambda: cq.encode_to_wire(x, safe, i8, torch.int8))
+    qscale = float(step8)  # quantize_per_tensor takes its scale as a Python float
+    results[0]["int8_wire_library_ms"] = time_ms(
+        lambda: torch.quantize_per_tensor(x, qscale, 0, torch.qint8))
+    log(f"encode_to_wire, int8 wire: {results[0]['int8_wire_ms']:.4f} ms, "
+        f"torch.quantize_per_tensor {results[0]['int8_wire_library_ms']:.4f} ms")
     return results
 
 
-def reference_phase() -> None:
-    """Tiny U-Net, fp16 codec, two steps on the card and on the CPU from the
-    same weights and data; losses must agree (fp32 compute, TF32 off, so
-    only summation order differs between the two devices)."""
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def raw_launch(name: str, *args) -> None:
+    """One kernel through its C entry point, bypassing the wrapper (to time
+    a kernel apart from the work its wrapper does around it)."""
+    from ddlpc_tpu_torch.kernels.build import load_library
+
+    status = getattr(load_library(), name)(*args)
+    if status != 0:
+        fail(f"{name} failed to launch (cudaError {status})")
+
+
+def timed_row(s: dict) -> dict:
+    """A kernel's JSON row: its error against the plain version, its time,
+    the plain version's, the bound's and the library call's."""
+    bound_bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = s["ops"] / FP32_OPS_PER_S * 1e3
+    row = {
+        "name": s["name"],
+        "route": "cuda",
+        "source": s["source"],
+        "replaces": s["replaces"],
+        "launches": 0,
+        "max_abs_err": float(s["err"]()),
+        "ms": time_ms(s["kernel"]),
+        "plain_ms": time_ms(s["plain"]),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "library_ms": None if s["library"] is None else time_ms(s["library"]),
+    }
+    log(
+        f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}: bytes {bound_bytes_ms:.4f}, operations {bound_ops_ms:.4f}; "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms), "
+        f"max_abs_err {row['max_abs_err']}"
+    )
+    return row
+
+
+def must_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        fail(f"{what}: differs at {bad} elements")
+
+
+def stochastic_kernel_phase(n: int) -> list:
+    """The four stochastic kernel families at the flagship's size: bit for
+    bit against their plain versions on every wire, _noise fed the plain
+    Philox field against _sr, the offset-slice property at one offset that
+    is a multiple of 4 and one that is not, unbiasedness over 64 keys; then
+    one timed row each at the int8 stochastic main path's settings."""
+    from ddlpc_tpu_torch.config import CompressionConfig
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.ops import philox
+    from ddlpc_tpu_torch.ops import quantize as plain
+
+    x = codec_inputs(n, 100.0)
+    scale = x.abs().amax().reshape(1)
+    safe = plain.safe_divisor(scale)
+    key = philox.rounding_key(0, 0, "local")
+    for mode, wire in (("float16", torch.float16), ("int8", torch.int8), ("int8", torch.int16)):
+        c = CompressionConfig(mode=mode, rounding="stochastic")
+        lv = float(plain.levels_for(c))
+        u = philox.uniform(key, 0, n, device="cuda")
+        q = cq.encode_to_wire(x, safe, c, wire, key=key)
+        must_equal(f"encode_sr ({wire}) vs plain", q, plain.encode_with_scale(x, safe, lv, wire, key=key))
+        must_equal(f"encode_noise ({wire}) vs plain", cq.encode_to_wire(x, safe, c, wire, noise=u),
+                   plain.encode_with_scale(x, safe, lv, wire, noise=u))
+        must_equal(f"encode_noise ({wire}) on the Philox field vs encode_sr", cq.encode_to_wire(x, safe, c, wire, noise=u), q)
+        f = cq.fake_quantize_fused(x, c, key=key)
+        must_equal(f"fake_quantize_sr ({mode}) vs plain", f, cq.fake_quantize_plain(x, c, key=key))
+        must_equal(f"fake_quantize_noise ({mode}) vs plain", cq.fake_quantize_fused(x, c, noise=u),
+                   cq.fake_quantize_plain(x, c, noise=u))
+        must_equal(f"fake_quantize_noise ({mode}) on the Philox field vs fake_quantize_sr",
+                   cq.fake_quantize_fused(x, c, noise=u), f)
+        for o in (4096, 4097):
+            must_equal(f"encode_sr ({wire}) on x[{o}:] at offset {o} vs the full draw's slice",
+                       cq.encode_to_wire(x[o:], safe, c, wire, key=key, offset=o), q[o:])
+            y = x.clone()
+            y[o + 5] = 1.0  # the max-abs inside the slice too, so both scales agree
+            must_equal(f"fake_quantize_sr ({mode}) on y[{o}:] at offset {o} vs the full draw's slice",
+                       cq.fake_quantize_fused(y[o:], c, key=key, offset=o),
+                       cq.fake_quantize_fused(y, c, key=key)[o:])
+        log(f"stochastic kernels == plain versions, bit for bit, and _noise(Philox field) == _sr, "
+            f"and x[o:] at offset o == slice (o = 4096, 4097): {mode} codec, {wire} wire")
+
+    # Unbiased over 64 keys: the mean error over all elements within the
+    # Monte-Carlo tolerance of tests/test_stochastic_rounding.py (4 sigma,
+    # sigma <= step/2 a trial) with trials = 64 keys x n elements; each
+    # element within 6 sigma (the test's 4 sigma would be exceeded by
+    # chance at ~6e-5 of 8.4M elements; 6 sigma at < 2e-9).
+    c = CompressionConfig(mode="int8", rounding="stochastic")
+    keys = 64
+    acc = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for i in range(keys):
+        acc += cq.fake_quantize_fused(x, c, key=philox.rounding_key(0, i, "mean")).double()
+    err = acc / keys - x.double()
+    step_abs = float(scale) / c.int8_levels
+    sigma = (step_abs / 2) / math.sqrt(keys)
+    bias = abs(float(err.mean()))
+    worst = float(err.abs().max())
+    over4 = int((err.abs() > 4 * sigma).sum())
+    log(f"unbiased over {keys} keys: |mean error| {bias:.3e} (tolerance "
+        f"{4 * sigma / math.sqrt(n):.3e}), max |error| {worst:.3e} (6 sigma "
+        f"{6 * sigma:.3e}), elements beyond 4 sigma {over4} of {n}")
+    if bias > 4 * sigma / math.sqrt(n) or worst > 6 * sigma:
+        fail("stochastic fake-quantize is biased over 64 keys")
+
+    cfg = CompressionConfig(mode="int8", rounding="stochastic")  # the main path's
+    levels = float(plain.levels_for(cfg))
+    wire = torch.int8
+    u = philox.uniform(key, 0, n, device="cuda")
+    out = torch.empty_like(x)
+    step = plain.true_div(scale, levels)
+    src = "ddlpc_tpu_torch/kernels/csrc/stochastic.cu"
+    sr_ops = PHILOX_OPS_PER_ELEM + SNAP_OPS_PER_ELEM
+    specs = [
+        dict(
+            name="encode_sr", source=src,
+            replaces="ddlpc_tpu/ops/pallas_quantize.py:142",
+            kernel=lambda: cq.encode_to_wire(x, safe, cfg, wire, key=key),
+            plain=lambda: plain.encode_with_scale(x, safe, levels, wire, key=key),
+            bytes=4 * n + n + 4, ops=sr_ops * n,
+            err=lambda: (cq.encode_to_wire(x, safe, cfg, wire, key=key).float()
+                         - plain.encode_with_scale(x, safe, levels, wire, key=key).float()).abs().max(),
+        ),
+        dict(
+            name="fake_quantize_sr", source=src,
+            replaces="ddlpc_tpu/ops/pallas_quantize.py:50",
+            kernel=lambda: cq.fake_quantize_fused(x, cfg, out=out, key=key),
+            plain=lambda: cq.fake_quantize_plain(x, cfg, key=key),
+            bytes=4 * n + 4 * n + 4, ops=(sr_ops + 3) * n,
+            err=lambda: (cq.fake_quantize_fused(x, cfg, key=key)
+                         - cq.fake_quantize_plain(x, cfg, key=key)).abs().max(),
+        ),
+        dict(
+            name="encode_noise", source=src,
+            replaces="ddlpc_tpu/ops/pallas_quantize.py:163",
+            kernel=lambda: cq.encode_to_wire(x, safe, cfg, wire, noise=u),
+            plain=lambda: plain.encode_with_scale(x, safe, levels, wire, noise=u),
+            bytes=4 * n + 4 * n + n + 4, ops=SNAP_OPS_PER_ELEM * n,
+            err=lambda: (cq.encode_to_wire(x, safe, cfg, wire, noise=u).float()
+                         - plain.encode_with_scale(x, safe, levels, wire, noise=u).float()).abs().max(),
+        ),
+        dict(
+            name="fake_quantize_noise", source=src,
+            replaces="ddlpc_tpu/ops/pallas_quantize.py:71",
+            kernel=lambda: cq.fake_quantize_fused(x, cfg, out=out, noise=u),
+            plain=lambda: cq.fake_quantize_plain(x, cfg, noise=u),
+            bytes=4 * n + 4 * n + 4 * n + 4, ops=(SNAP_OPS_PER_ELEM + 3) * n,
+            err=lambda: (cq.fake_quantize_fused(x, cfg, noise=u)
+                         - cq.fake_quantize_plain(x, cfg, noise=u)).abs().max(),
+        ),
+    ]
+    for s in specs:
+        s["library"] = None
+    log("library_ms is null for the stochastic kernels: no single PyTorch call "
+        "rounds stochastically, with or without a Philox draw")
+    rows = [timed_row(s) for s in specs]
+    k0, k1 = key
+    rows[1]["kernel_ms"] = time_ms(lambda: raw_launch(
+        "ddlpc_fake_quantize_sr", x.data_ptr(), out.data_ptr(), n, safe.data_ptr(),
+        step.data_ptr(), levels, 0, k0, k1, 0, stream()))
+    rows[3]["kernel_ms"] = time_ms(lambda: raw_launch(
+        "ddlpc_fake_quantize_noise", x.data_ptr(), u.data_ptr(), out.data_ptr(), n,
+        safe.data_ptr(), step.data_ptr(), levels, 0, stream()))
+    log(f"fake_quantize_sr kernel alone {rows[1]['kernel_ms']:.4f} ms, "
+        f"fake_quantize_noise kernel alone {rows[3]['kernel_ms']:.4f} ms")
+    return rows
+
+
+def reference_phase(compression: dict, loss_rtol: float, param_share: float) -> None:
+    """Tiny U-Net, two steps on the card and on the CPU from the same
+    weights, data and ``train.seed``; the losses must agree within
+    ``loss_rtol``, and all but ``param_share`` of the parameters within
+    rtol 1e-4 / atol 1e-6.  fp32 compute with TF32 off, so only the
+    convolutions' summation order differs between the devices; the codec
+    kernels equal their plain versions bit for bit (the stochastic ones
+    draw the plain Philox stream), but where the two devices' gradients
+    straddle a rounding boundary they snap to neighbouring lattice points,
+    which moves an Adam update by up to the learning rate (the reasons of
+    tests/test_torch_train_step.py's fp16 case)."""
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.data.datasets import SyntheticTiles
     from ddlpc_tpu_torch.models import build_model
@@ -231,42 +431,61 @@ def reference_phase() -> None:
         "model": {"features": [8, 16], "bottleneck_features": 16, "stem": "s2d",
                   "stem_factor": 2, "detail_head": True, "compute_dtype": "float32",
                   "head_dtype": "float32"},
-        "compression": {"mode": "float16"},
+        "train": {"seed": 3},
+        "compression": compression,
     })
     ds = SyntheticTiles(num_tiles=8, image_size=(32, 32), seed=0)
     images = torch.from_numpy(ds.images.reshape(2, 4, 32, 32, 3))
     labels = torch.from_numpy(ds.labels.reshape(2, 4, 32, 32).astype("int64"))
-    losses = {}
+    losses, params = {}, {}
     for dev in ("cpu", "cuda"):
         model = build_model(cfg.model, seed=0).to(dev)
         tx = Adam(2e-3)
         state = create_train_state(model, tx)
-        step = make_train_step(tx, cfg.compression)
+        step = make_train_step(tx, cfg.compression, seed=cfg.train.seed)
         losses[dev] = [
             float(step(state, images.to(dev), labels.to(dev))["loss"]) for _ in range(2)
         ]
-    for a, b in zip(losses["cpu"], losses["cuda"]):
-        if not (math.isfinite(b) and abs(a - b) <= 1e-4 * abs(a)):
-            fail(f"tiny U-Net losses on the card {losses['cuda']} != CPU {losses['cpu']}")
-    log(f"tiny U-Net 2 steps, card vs CPU losses: {losses['cuda']} vs {losses['cpu']}")
+        params[dev] = state.params.data.cpu()
+    what = f"tiny U-Net 2 steps, {compression}"
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
+    want, got = params["cpu"], params["cuda"]
+    share = float(((got - want).abs() > 1e-4 * want.abs() + 1e-6).float().mean())
+    log(f"{what}, card vs CPU: losses {losses['cuda']} vs {losses['cpu']} (max rel "
+        f"diff {rel:.3e}, limit {loss_rtol}); params off rtol 1e-4: share {share:.5f} "
+        f"(limit {param_share}), max |diff| {float((got - want).abs().max()):.3e}")
+    if not all(math.isfinite(v) for v in losses["cuda"]) or rel > loss_rtol or share > param_share:
+        fail(f"{what}: the card disagrees with the CPU")
 
 
-def main_path_phase() -> dict:
+def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict:
+    """Train the flagship ``EPOCHS`` steps through the CLI's entry with the
+    ``extra`` overrides; the launch counts are set to 0 just before and
+    read just after, and each kernel in ``expect`` must have launched at
+    least that often."""
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
+    workdir = os.path.join(WORKDIR, label)
     argv = ["--config", FLAGSHIP, "--device", "cuda", "--no-resume",
-            "--workdir", WORKDIR, "--set", f"train.epochs={EPOCHS}",
+            "--workdir", workdir, "--set", f"train.epochs={EPOCHS}",
             "--set", f"train.micro_batch_size={MICRO_BATCH}"]
-    for o in OFF:
+    for o in OFF + extra:
         argv += ["--set", o]
-    log("main path: python -m ddlpc_tpu_torch.train " + " ".join(argv))
-    metrics_path = os.path.join(WORKDIR, "metrics.jsonl")
+    log(f"main path [{label}]: python -m ddlpc_tpu_torch.train " + " ".join(argv))
+    metrics_path = os.path.join(workdir, "metrics.jsonl")
     if os.path.exists(metrics_path):
         os.remove(metrics_path)
     cfg, resume, device = parse_args(argv)
-    trainer = Trainer(cfg, resume=resume, device=device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = Trainer(cfg, resume=resume, device=device)
+    for w in caught:
+        log(f"warning: {w.message}")
+    warned = any("global super-batch" in str(w.message) for w in caught)
+    if warned != warns:
+        fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {warned}")
     n_params = trainer.state.params.numel
     log(f"flagship U-Net: {n_params} parameters in one flat buffer, "
         f"{len(trainer.state.params.names)} leaves")
@@ -279,21 +498,21 @@ def main_path_phase() -> dict:
     with open(metrics_path) as f:
         records = [json.loads(line) for line in f]
     for r in records:
-        log(f"step {r['epoch'] + 1}: loss {r['loss']} step_time_s {r['step_time_s']} "
-            f"grad_norm {r['grad_norm']} val_miou {r.get('val_miou')}")
+        log(f"[{label}] step {r['epoch'] + 1}: loss {r['loss']} step_time_s {r['step_time_s']} "
+            f"epoch_time_s {r['epoch_time_s']} grad_norm {r['grad_norm']} val_miou {r.get('val_miou')}")
         if not math.isfinite(r["loss"]) or not math.isfinite(r["grad_norm"]):
-            fail(f"non-finite training metrics {r}")
+            fail(f"[{label}] non-finite training metrics {r}")
     if len(records) != EPOCHS:
-        fail(f"expected {EPOCHS} epoch records, got {len(records)}")
-    log(f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
-    log("kernels " + json.dumps(launches))
-    for name, count in launches.items():
-        if count < EPOCHS:
-            fail(f"kernel {name} launched {count} times in {EPOCHS} steps")
+        fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
+    log(f"[{label}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"[{label}] kernels " + json.dumps(launches))
+    for name, count in expect.items():
+        if launches[name] < count:
+            fail(f"[{label}] kernel {name} launched {launches[name]} times in {EPOCHS} steps")
     return {"launches": launches, "n_params": n_params, "trainer": trainer}
 
 
-def profile_phase(trainer) -> None:
+def profile_phase(trainer, label: str) -> None:
     """One more flagship optimizer step under ``torch.profiler``: device
     time by kernel, the device's idle share over the step (1 − summed
     kernel time / wall time; one stream, so kernels do not overlap), and
@@ -325,13 +544,17 @@ def profile_phase(trainer) -> None:
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
-    log(f"profiled step: wall {wall_s * 1e3:.3f} ms, device busy {busy_s * 1e3:.3f} ms, "
+    log(f"[{label}] profiled step: wall {wall_s * 1e3:.3f} ms, device busy {busy_s * 1e3:.3f} ms, "
         f"idle share {1.0 - busy_s / wall_s:.4f}, {len(kernels)} kernel launches")
-    log(f"profiled step: {step_flops:.6e} FLOP (one tile x {trainer.loader.super_batch}), "
+    log(f"[{label}] profiled step: {step_flops:.6e} FLOP (one tile x {trainer.loader.super_batch}), "
         f"{step_flops / wall_s / 1e12:.2f} TFLOP/s = "
         f"{step_flops / wall_s / BF16_FLOPS_PER_S:.4f} of the bf16 peak")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         log(f"  {ms:10.3f} ms  {ms / (busy_s * 1e3):.4f}  {name[:110]}")
+    codec = {n: ms for n, ms in by_name.items()
+             if any(k in n for k in ("encode_", "decode_kernel", "fake_quantize_"))}
+    log(f"[{label}] codec kernels in the step: {sum(codec.values()):.4f} ms, "
+        + ", ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in sorted(codec.items())))
 
 
 def main() -> int:
@@ -357,14 +580,37 @@ def main() -> int:
         flagship = ExperimentConfig.from_json(f.read())
     n = sum(p.numel() for p in build_model(flagship.model).parameters())
     rows = kernel_phase(n)
-    reference_phase()
-    main = main_path_phase()
-    if main["n_params"] != n:
-        fail(f"main path flat gradient {main['n_params']} != kernel phase size {n}")
-    for row in rows:
-        row["launches"] = main["launches"][row["name"]]
-    if "--profile" in sys.argv[1:]:
-        profile_phase(main["trainer"])
+    sr_rows = stochastic_kernel_phase(n)
+    reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
+    reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
+    main = main_path_phase(
+        "nearest_fp16", (), warns=False,
+        expect={k: EPOCHS for k in ("encode_to_wire", "decode_from_wire", "fake_quantize_fused")},
+    )
+    profile = "--profile" in sys.argv[1:]
+    if profile:
+        profile_phase(main["trainer"], "nearest_fp16")
+    del main["trainer"]  # free its state, so the next run's peak memory is its own
+    torch.cuda.empty_cache()
+    sr = main_path_phase(
+        "stochastic_int8", STOCHASTIC, warns=True,
+        expect={k: EPOCHS for k in ("encode_sr", "decode_from_wire", "fake_quantize_sr")},
+    )
+    if profile:
+        profile_phase(sr["trainer"], "stochastic_int8")
+    del sr["trainer"]
+    for run in (main, sr):
+        if run["n_params"] != n:
+            fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
+    # Each row's launches are read from the path that runs its kernel; the
+    # _noise kernels run on neither main path (the kernel phase drives them).
+    for path_rows, path in ((rows, "nearest_fp16"), (sr_rows, "stochastic_int8")):
+        for row in path_rows:
+            by_path = {"nearest_fp16": main["launches"][row["name"]],
+                       "stochastic_int8": sr["launches"][row["name"]]}
+            row["launches"] = by_path[path]
+            row["launches_by_path"] = by_path
+    rows += sr_rows
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``kernels/csrc/`` are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library
-lands in ``kernels/build/`` (listed in ``.gitignore``) under a name keyed
-by a hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+Each source under ``kernels/csrc/`` is compiled at first use by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c``, all of them started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``.  The library lands in
+``kernels/build/`` (listed in ``.gitignore``) under a name keyed by a hash
+of the sources, the headers and the flags, so an edited source rebuilds
+and an unchanged one loads at once.  There is no fallback: a missing
+``nvcc`` or a failed build raises.
 
 Run ``python -m ddlpc_tpu_torch.kernels.build`` to build ahead of time.
 """
@@ -25,12 +26,12 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("quantize.cu",)
+SOURCES = ("quantize.cu", "stochastic.cu")
+HEADERS = ("codec.cuh",)
 # Never --use_fast_math: the codec's bit-identity needs IEEE division.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -45,6 +46,28 @@ _SIGNATURES = {
     # (x, out, n, scale, step, levels, half_wire, stream)
     "ddlpc_fake_quantize": (
         _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int, _P,
+    ),
+    # (x, q, n, scale, levels, key0, key1, offset, stream)
+    **{
+        f"ddlpc_encode_sr_{w}": (
+            _P, _P, ctypes.c_int64, _P, ctypes.c_float,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, _P,
+        )
+        for w in ("i8", "i16", "f16")
+    },
+    # (x, out, n, scale, step, levels, half_wire, key0, key1, offset, stream)
+    "ddlpc_fake_quantize_sr": (
+        _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, _P,
+    ),
+    # (x, u, q, n, scale, levels, stream)
+    **{
+        f"ddlpc_encode_noise_{w}": (_P, _P, _P, ctypes.c_int64, _P, ctypes.c_float, _P)
+        for w in ("i8", "i16", "f16")
+    },
+    # (x, u, out, n, scale, step, levels, half_wire, stream)
+    "ddlpc_fake_quantize_noise": (
+        _P, _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int, _P,
     ),
 }
 
@@ -69,8 +92,8 @@ def find_nvcc() -> str:
 
 
 def source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -80,6 +103,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libddlpc_kernels_{source_key()}.so")
 
 
+def _run(cmds: list) -> list:
+    """Start every command at once; wait for all; raise on the first that
+    failed, with its output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return outs
+
+
 def build(verbose: bool = False) -> str:
     """Compile the sources if the keyed library is missing; returns its
     path.  Raises ``RuntimeError`` with the compiler's output on failure."""
@@ -87,19 +124,21 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [os.path.join(CSRC, s) for s in SOURCES]
+    nvcc = find_nvcc()
+    tag = f"{out[:-3]}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stdout}{r.stderr}"
-        )
+    logs = _run([
+        [nvcc, *COMPILE_FLAGS, *extra, "-o", obj, os.path.join(CSRC, name)]
+        for name, obj in zip(SOURCES, objs)
+    ])
+    tmp = f"{tag}.tmp"
+    logs += _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+    for obj in objs:
+        os.remove(obj)
     if verbose:
-        print(r.stdout + r.stderr, file=sys.stderr)
+        print("".join(logs), file=sys.stderr)
         print(f"built {out} in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out

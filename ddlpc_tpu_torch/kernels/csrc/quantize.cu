@@ -22,64 +22,17 @@
 // inv) are read through pointers to 1-element device tensors, so the host
 // never waits on the device.
 //
-// Bit-identity with the plain codec (ops/quantize.py, and the XLA codec of
-// the JAX package): x / s is IEEE division (never build with
-// --use_fast_math), then * levels, rintf (half-to-even, as jnp.round and
-// torch.round), then the clip to +-levels written with compares so that a
-// NaN stays NaN (fminf/fmaxf would turn it into a level and hide a
-// diverged gradient), then __float2half_rn, exact for integers <= 2048.
-// Fake-quantize dequantizes as lattice * step with step = scale / levels
-// computed once in fp32, which is decode(encode(x)) exactly; the Pallas
-// kernel's lattice / levels * scale agrees with that only to 1 ulp.
+// Bit-identity with the plain codec: see codec.cuh.  Fake-quantize
+// dequantizes as lattice * step with step = scale / levels computed once
+// in fp32, which is decode(encode(x)) exactly; the Pallas kernel's
+// lattice / levels * scale agrees with that only to 1 ulp.
 //
 // Each entry point returns cudaGetLastError() so the Python wrapper can
 // raise on a launch that was refused.
 
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "codec.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 8192;
-
-__device__ __forceinline__ float snap(float x, float s, float levels) {
-  float v = rintf((x / s) * levels);
-  v = v > levels ? levels : v;
-  v = v < -levels ? -levels : v;
-  return v;
-}
-
-// Wire formats: the storage type and the two exact conversions.  The fp16
-// wire is stored as its raw 16 bits so that every type here is trivial.
-struct WireI8 {
-  using T = int8_t;
-  __device__ static T from_float(float v) { return static_cast<T>(static_cast<int>(v)); }
-  __device__ static float to_float(T q) { return static_cast<float>(q); }
-};
-
-struct WireI16 {
-  using T = int16_t;
-  __device__ static T from_float(float v) { return static_cast<T>(static_cast<int>(v)); }
-  __device__ static float to_float(T q) { return static_cast<float>(q); }
-};
-
-struct WireF16 {
-  using T = unsigned short;
-  __device__ static T from_float(float v) { return __half_as_ushort(__float2half_rn(v)); }
-  __device__ static float to_float(T q) { return __half2float(__ushort_as_half(q)); }
-};
-
-// Elements per 16-byte wire vector.
-template <typename W>
-__host__ __device__ constexpr int vec_elems() { return 16 / static_cast<int>(sizeof(typename W::T)); }
-
-int64_t grid_for(int64_t work_items) {
-  int64_t blocks = (work_items + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
-}
 
 template <typename W>
 __global__ void encode_kernel(const float* __restrict__ x,
@@ -147,11 +100,7 @@ __global__ void decode_kernel(const typename W::T* __restrict__ q,
 // writes them, and no two threads touch the same element.
 __device__ __forceinline__ float fq_one(float x, float s, float step,
                                         float levels, bool half_wire) {
-  float v = snap(x, s, levels);
-  // Round through the fp16 wire as decode(encode(x)) does; the identity for
-  // integers <= 2048, and exactly the codec above that.
-  if (half_wire) v = __half2float(__float2half_rn(v));
-  return v * step;
+  return dequant(snap(x, s, levels), step, half_wire);
 }
 
 __global__ void fake_quantize_kernel(const float* x, float* out, int64_t n,

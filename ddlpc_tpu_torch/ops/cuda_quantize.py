@@ -5,14 +5,19 @@ Each wrapper takes one flat, contiguous fp32 buffer (the whole gradient
 tree, see ``parallel/train_step.FlatParams``) and dispatches on where the
 tensor lies:
 
-- a CUDA tensor launches the kernel from ``kernels/csrc/quantize.cu`` on
-  PyTorch's current stream, or raises — never a silent plain-PyTorch path;
+- a CUDA tensor launches a kernel from ``kernels/csrc/`` on PyTorch's
+  current stream, or raises — never a silent plain-PyTorch path;
 - a CPU tensor takes the plain version beside it (``ops/quantize.py``),
   which is what the CPU tests run and what ``chip_smoke.py`` holds each
   kernel against on the card.
 
+Rounding follows the config: nearest (``quantize.cu``), or stochastic
+(``stochastic.cu``) with either a Philox ``key`` and an element ``offset``
+into its stream, drawn in the kernel, or a given U[0,1) ``noise`` field of
+``x``'s shape.
+
 Every wrapper counts its kernel launches in ``LAUNCHES`` (a count is added
-only where the kernel is launched), so a run can show that its main path
+only where a kernel is launched), so a run can show that its main path
 went through the kernels.
 """
 
@@ -23,9 +28,14 @@ from typing import Optional
 import torch
 
 from ddlpc_tpu_torch.config import CompressionConfig
+from ddlpc_tpu_torch.ops import philox
 from ddlpc_tpu_torch.ops import quantize as plain
+from ddlpc_tpu_torch.ops.philox import PhiloxKey
 
-LAUNCHES = {"encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 0}
+LAUNCHES = {
+    "encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 0,
+    "encode_sr": 0, "fake_quantize_sr": 0, "encode_noise": 0, "fake_quantize_noise": 0,
+}
 
 _WIRE_SUFFIX = {torch.int8: "i8", torch.int16: "i16", torch.float16: "f16"}
 
@@ -76,35 +86,70 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_draw(
+    x: torch.Tensor, key: Optional[PhiloxKey], offset: int, noise: Optional[torch.Tensor]
+) -> None:
+    if key is not None:
+        philox.check_key(key, offset)
+    elif offset != 0:
+        raise ValueError("offset is an index into a key's stream; no key was given")
+    if noise is not None:
+        _check_flat("noise", noise, torch.float32)
+        if noise.shape != x.shape or noise.device != x.device:
+            raise ValueError(
+                f"noise must have shape {tuple(x.shape)} on {x.device}, got "
+                f"{tuple(noise.shape)} on {noise.device}"
+            )
+
+
+def _launch(name: str, counter: str, *args) -> None:
+    from ddlpc_tpu_torch.kernels.build import load_library
+
+    _raise_on(getattr(load_library(), name)(*args), name)
+    LAUNCHES[counter] += 1
+
+
 def encode_to_wire(
     x: torch.Tensor,
     safe_scale: torch.Tensor,
     cfg: CompressionConfig,
     wire: torch.dtype,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Snap ``x`` to ``cfg``'s lattice against the caller-shared
     (zero-guarded) scale and store it in the wire dtype (int8, int16 or
-    fp16).  Replaces ``_encode_kernel`` (pallas_quantize.py:142), nearest
-    rounding; a stochastic config raises (not ported yet)."""
-    plain.check_rounding(cfg)
+    fp16).  Replaces ``_encode_kernel`` (pallas_quantize.py:142): nearest
+    (``ddlpc_encode_*``) or its stochastic branch with ``key``
+    (``ddlpc_encode_sr_*``); and ``_encode_kernel_hostnoise`` (:163) with
+    ``noise`` (``ddlpc_encode_noise_*``)."""
     levels = float(plain.levels_for(cfg))
+    key, noise = plain.rounding_key(cfg, key, noise)
     if wire not in _WIRE_SUFFIX:
         raise TypeError(f"unsupported wire dtype {wire}")
     _check_flat("x", x, torch.float32)
     _check_scalar("safe_scale", safe_scale, x)
+    _check_draw(x, key, offset, noise)
     if not _kernel_device(x):
-        return plain.encode_with_scale(x, safe_scale, levels, wire)
-    _check_aligned("x", x)
-    from ddlpc_tpu_torch.kernels.build import load_library
-
+        return plain.encode_with_scale(
+            x, safe_scale, levels, wire, key=key, offset=offset, noise=noise
+        )
     q = torch.empty(x.shape, dtype=wire, device=x.device)
-    name = f"ddlpc_encode_{_WIRE_SUFFIX[wire]}"
-    status = getattr(load_library(), name)(
-        x.data_ptr(), q.data_ptr(), x.numel(), safe_scale.data_ptr(),
-        levels, _stream(x),
-    )
-    _raise_on(status, name)
-    LAUNCHES["encode_to_wire"] += 1
+    sfx = _WIRE_SUFFIX[wire]
+    n, s = x.numel(), safe_scale.data_ptr()
+    if key is not None:  # any offset and alignment: the kernel picks its loads
+        _launch(f"ddlpc_encode_sr_{sfx}", "encode_sr", x.data_ptr(), q.data_ptr(),
+                n, s, levels, *key, offset, _stream(x))
+        return q
+    _check_aligned("x", x)
+    if noise is None:
+        _launch(f"ddlpc_encode_{sfx}", "encode_to_wire", x.data_ptr(), q.data_ptr(),
+                n, s, levels, _stream(x))
+    else:
+        _check_aligned("noise", noise)
+        _launch(f"ddlpc_encode_noise_{sfx}", "encode_noise", x.data_ptr(),
+                noise.data_ptr(), q.data_ptr(), n, s, levels, _stream(x))
     return q
 
 
@@ -127,56 +172,71 @@ def decode_from_wire(
         return plain.decode_with_inv(q, inv, out=out)
     _check_aligned("q", q)
     _check_aligned("out", out)
-    from ddlpc_tpu_torch.kernels.build import load_library
-
-    name = f"ddlpc_decode_{_WIRE_SUFFIX[q.dtype]}"
-    status = getattr(load_library(), name)(
-        q.data_ptr(), out.data_ptr(), q.numel(), inv.data_ptr(), _stream(q)
-    )
-    _raise_on(status, name)
-    LAUNCHES["decode_from_wire"] += 1
+    _launch(f"ddlpc_decode_{_WIRE_SUFFIX[q.dtype]}", "decode_from_wire",
+            q.data_ptr(), out.data_ptr(), q.numel(), inv.data_ptr(), _stream(q))
     return out
 
 
-def fake_quantize_plain(x: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
+def fake_quantize_plain(
+    x: torch.Tensor,
+    cfg: CompressionConfig,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """Plain version of :func:`fake_quantize_fused`: the codec's
     encode→decode round trip on one buffer."""
-    return plain.fake_quantize([x], cfg)[0]
+    return plain.fake_quantize(
+        [x], cfg, key=key, offset=offset, noise=None if noise is None else [noise]
+    )[0]
 
 
 def fake_quantize_fused(
-    x: torch.Tensor, cfg: CompressionConfig, out: Optional[torch.Tensor] = None
+    x: torch.Tensor,
+    cfg: CompressionConfig,
+    out: Optional[torch.Tensor] = None,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Quantize→dequantize ``x`` against its own max-abs in one pass;
     bit-identical to ``ops.quantize.fake_quantize`` on the one-leaf tree.
     ``out`` may be ``x`` itself (in place).
 
-    Replaces ``_fq_kernel`` (pallas_quantize.py:50), nearest rounding.  The
-    max-abs stays a ``torch.amax`` reduction outside the kernel, as it is
-    an XLA reduction outside the Pallas call in the JAX package."""
+    Replaces ``_fq_kernel`` (pallas_quantize.py:50): nearest
+    (``ddlpc_fake_quantize``) or its stochastic branch with ``key``
+    (``ddlpc_fake_quantize_sr``); and ``_fq_kernel_hostnoise`` (:71) with
+    ``noise`` (``ddlpc_fake_quantize_noise``).  The max-abs stays a
+    ``torch.amax`` reduction outside the kernel, as it is an XLA reduction
+    outside the Pallas call in the JAX package."""
     if cfg.mode == "none":
         return x
-    plain.check_rounding(cfg)
     levels = float(plain.levels_for(cfg))
+    key, noise = plain.rounding_key(cfg, key, noise)
     _check_flat("x", x, torch.float32)
+    _check_draw(x, key, offset, noise)
     if out is None:
         out = torch.empty_like(x)
     _check_flat("out", out, torch.float32)
     if out.shape != x.shape or out.device != x.device:
         raise ValueError(f"out must have shape {tuple(x.shape)} on {x.device}")
     if not _kernel_device(x):
-        return out.copy_(fake_quantize_plain(x, cfg))
-    _check_aligned("x", x)
-    _check_aligned("out", out)
+        return out.copy_(fake_quantize_plain(x, cfg, key=key, offset=offset, noise=noise))
     scale = x.abs().amax().reshape(1) if x.numel() else x.new_zeros(1)
     safe = plain.safe_divisor(scale)
     step = plain.true_div(scale, levels)
-    from ddlpc_tpu_torch.kernels.build import load_library
-
-    status = load_library().ddlpc_fake_quantize(
-        x.data_ptr(), out.data_ptr(), x.numel(), safe.data_ptr(),
-        step.data_ptr(), levels, int(cfg.mode == "float16"), _stream(x),
-    )
-    _raise_on(status, "ddlpc_fake_quantize")
-    LAUNCHES["fake_quantize_fused"] += 1
+    common = (x.numel(), safe.data_ptr(), step.data_ptr(), levels, int(cfg.mode == "float16"))
+    if key is not None:  # any offset and alignment: the kernel picks its loads
+        _launch("ddlpc_fake_quantize_sr", "fake_quantize_sr", x.data_ptr(),
+                out.data_ptr(), *common, *key, offset, _stream(x))
+        return out
+    _check_aligned("x", x)
+    _check_aligned("out", out)
+    if noise is None:
+        _launch("ddlpc_fake_quantize", "fake_quantize_fused", x.data_ptr(),
+                out.data_ptr(), *common, _stream(x))
+    else:
+        _check_aligned("noise", noise)
+        _launch("ddlpc_fake_quantize_noise", "fake_quantize_noise", x.data_ptr(),
+                noise.data_ptr(), out.data_ptr(), *common, _stream(x))
     return out

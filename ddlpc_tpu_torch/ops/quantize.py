@@ -10,17 +10,23 @@ one multiply by the runtime scalar ``scale / levels``.
 
 This module is the plain version of the CUDA kernels in
 ``ops/cuda_quantize.py``: the wrappers there call it for CPU tensors, and
-``chip_smoke.py`` holds each kernel against it on the card.  Stochastic
-rounding is not ported yet and raises.
+``chip_smoke.py`` holds each kernel against it on the card.
+
+Stochastic rounding snaps ``floor(v + u)`` with ``u`` from U[0,1): either a
+field the caller hands in (``noise=``, the JAX package's ``snap_to_lattice
+(noise=)``) or the Philox stream of a key from ``offset`` on (``key=``,
+``ops/philox.py``), which is what the CUDA kernels draw in registers.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ddlpc_tpu_torch.config import CompressionConfig
+from ddlpc_tpu_torch.ops import philox
+from ddlpc_tpu_torch.ops.philox import PhiloxKey
 
 
 class Encoded(NamedTuple):
@@ -50,14 +56,31 @@ def wire_dtype_for(cfg: CompressionConfig) -> torch.dtype:
 
 
 def check_rounding(cfg: CompressionConfig) -> None:
-    """Nearest rounding is ported; stochastic (a Philox draw in the
-    kernels) is not yet, and must not silently become nearest."""
-    if cfg.rounding == "stochastic":
-        raise NotImplementedError(
-            "compression.rounding='stochastic' is not yet ported"
-        )
-    if cfg.rounding != "nearest":
+    """Raise on a rounding the codec does not know."""
+    if cfg.rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown rounding {cfg.rounding!r}")
+
+
+def rounding_key(
+    cfg: CompressionConfig, key: Optional[PhiloxKey], noise
+) -> Tuple[Optional[PhiloxKey], object]:
+    """The ``(key, noise)`` a codec call uses under ``cfg``: neither for
+    nearest rounding (a key is ignored, as in the JAX package); exactly one
+    for stochastic, which raises without either, so a stochastic config
+    can never silently round to nearest."""
+    check_rounding(cfg)
+    if cfg.rounding == "nearest":
+        if noise is not None:
+            raise ValueError("noise given for rounding='nearest'")
+        return None, None
+    if key is not None and noise is not None:
+        raise ValueError("pass either key or noise, not both")
+    if key is None and noise is None:
+        raise ValueError(
+            "rounding='stochastic' needs a key or a noise field (the train "
+            "step derives the key from train.seed and the step counter)"
+        )
+    return key, noise
 
 
 def true_div(t: torch.Tensor, divisor: float) -> torch.Tensor:
@@ -67,17 +90,38 @@ def true_div(t: torch.Tensor, divisor: float) -> torch.Tensor:
     return t / torch.full((), divisor, dtype=t.dtype, device=t.device)
 
 
-def snap_to_lattice(scaled: torch.Tensor, levels: float) -> torch.Tensor:
-    """Round values in lattice units half-to-even, clipped to ±levels."""
-    return torch.clamp(torch.round(scaled), -levels, levels)
+def snap_to_lattice(
+    scaled: torch.Tensor, levels: float, noise: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Snap values in lattice units to integers, clipped to ±levels:
+    half-to-even without ``noise``, ``floor(scaled + noise)`` with it."""
+    snapped = torch.round(scaled) if noise is None else torch.floor(scaled + noise)
+    return torch.clamp(snapped, -levels, levels)
 
 
 def quantize_with_scale(
-    x: torch.Tensor, safe_scale: torch.Tensor, levels: float
+    x: torch.Tensor,
+    safe_scale: torch.Tensor,
+    levels: float,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x/scale·levels`` snapped to the integer lattice, as fp32 lattice
     values.  ``safe_scale`` must already be zero-guarded."""
-    return snap_to_lattice(x.float() / safe_scale * levels, levels)
+    return snap_to_lattice(x.float() / safe_scale * levels, levels, noise)
+
+
+def draw_noise(
+    x: torch.Tensor,
+    key: Optional[PhiloxKey],
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,
+) -> Optional[torch.Tensor]:
+    """The U[0,1) field for ``x``: ``noise`` as given, the key's Philox
+    stream from ``offset`` on (over ``x`` in memory order), or None for
+    nearest rounding."""
+    if key is None:
+        return noise
+    return philox.uniform(key, offset, x.numel(), device=x.device).view(x.shape)
 
 
 def safe_divisor(scale: torch.Tensor) -> torch.Tensor:
@@ -92,18 +136,39 @@ def global_absmax(tree: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([leaf.float().abs().amax() for leaf in tree]).amax()
 
 
-def encode(tree: Sequence[torch.Tensor], cfg: CompressionConfig) -> Encoded:
+def _leaf_noise(tree, key, offset, noise) -> List[Optional[torch.Tensor]]:
+    """One field per leaf: ``noise`` (a sequence, one per leaf) as given, or
+    the key's stream laid over the leaves as over their concatenation."""
+    if noise is not None:
+        if len(noise) != len(tree):
+            raise ValueError(f"{len(noise)} noise fields for {len(tree)} leaves")
+        return list(noise)
+    out = []
+    for leaf in tree:
+        out.append(draw_noise(leaf, key, offset))
+        offset += leaf.numel()
+    return out
+
+
+def encode(
+    tree: Sequence[torch.Tensor],
+    cfg: CompressionConfig,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> Encoded:
     """Quantize a gradient tree.  mode='none' stores fp32 unchanged."""
     scale = global_absmax(tree)
     if cfg.mode == "none":
         return Encoded(scale, [leaf.float() for leaf in tree])
-    check_rounding(cfg)
+    key, noise = rounding_key(cfg, key, noise)
     safe = safe_divisor(scale)
     levels = float(levels_for(cfg))
     wire = wire_dtype_for(cfg)
-    return Encoded(
-        scale, [quantize_with_scale(leaf, safe, levels).to(wire) for leaf in tree]
-    )
+    return Encoded(scale, [
+        quantize_with_scale(leaf, safe, levels, u).to(wire)
+        for leaf, u in zip(tree, _leaf_noise(tree, key, offset, noise))
+    ])
 
 
 def decode(enc: Encoded, cfg: CompressionConfig) -> list:
@@ -115,11 +180,17 @@ def decode(enc: Encoded, cfg: CompressionConfig) -> list:
     return [q.float() * step for q in enc.tree]
 
 
-def fake_quantize(tree: Sequence[torch.Tensor], cfg: CompressionConfig) -> list:
+def fake_quantize(
+    tree: Sequence[torch.Tensor],
+    cfg: CompressionConfig,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> list:
     """encode→decode round trip; identity when mode='none'."""
     if cfg.mode == "none":
         return list(tree)
-    return decode(encode(tree, cfg), cfg)
+    return decode(encode(tree, cfg, key=key, offset=offset, noise=noise), cfg)
 
 
 def quantization_error_bound(cfg: CompressionConfig) -> float:
@@ -136,10 +207,15 @@ def encode_with_scale(
     safe_scale: torch.Tensor,
     levels: float,
     wire: torch.dtype,
+    key: Optional[PhiloxKey] = None,
+    offset: int = 0,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the encode kernel: one tensor to its wire dtype
-    against a caller-shared scale (the fused all-reduce's convention)."""
-    return quantize_with_scale(x, safe_scale, levels).to(wire)
+    """Plain version of the encode kernels: one tensor to its wire dtype
+    against a caller-shared scale (the fused all-reduce's convention),
+    rounding to nearest, or stochastically with ``key`` or ``noise``."""
+    u = draw_noise(x, key, offset, noise)
+    return quantize_with_scale(x, safe_scale, levels, u).to(wire)
 
 
 def decode_with_inv(

@@ -16,7 +16,7 @@ each sweep in one launch — no per-leaf loop, no gather.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +24,7 @@ from torch import nn
 from ddlpc_tpu_torch.config import CompressionConfig
 from ddlpc_tpu_torch.ops.losses import nll_correct_valid, softmax_cross_entropy_sum
 from ddlpc_tpu_torch.ops.metrics import confusion_from_logits
+from ddlpc_tpu_torch.ops.philox import step_key
 from ddlpc_tpu_torch.parallel.grad_sync import sync_gradients
 from ddlpc_tpu_torch.train.optim import Adam, AdamState
 
@@ -130,17 +131,31 @@ def grad_norm(flat_grad: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(flat_grad)
 
 
+def _rounding_rng(
+    compression: CompressionConfig, seed: int, step: int
+) -> Optional[int]:
+    """Stochastic-rounding key: a pure function of (experiment seed, step
+    counter), so a replayed run draws the same noise and another seed other
+    noise; None unless the rounding is stochastic.  ``step`` is a host int,
+    so nothing waits on the card."""
+    if compression.rounding != "stochastic":
+        return None
+    return step_key(seed, step)
+
+
 def make_train_step(
-    tx: Adam, compression: CompressionConfig, axis_size: int = 1
+    tx: Adam, compression: CompressionConfig, axis_size: int = 1, seed: int = 0
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """The train step: ``step(state, images [A,B,H,W,C], labels [A,B,H,W])``
     updates ``state`` in place and returns ``{loss, pixel_acc, grad_norm}``
-    as device scalars (averaged over the A micro-batches)."""
+    as device scalars (averaged over the A micro-batches).  ``seed``
+    (``train.seed``) keys stochastic rounding together with ``state.step``."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         losses, accs = _accumulate_grads(state, images, labels)
         flat = state.params
-        sync_gradients(flat.grad, compression, axis_size=axis_size)
+        key = _rounding_rng(compression, seed, state.step)
+        sync_gradients(flat.grad, compression, axis_size=axis_size, key=key)
         tx.update(flat.grad, state.opt_state, flat.data)
         state.step += 1
         return {

@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -66,6 +67,33 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
     return [f"{key}={value!r}" for key, enabled, value in checks if enabled]
 
 
+def warn_large_batch_stochastic(cfg: ExperimentConfig) -> None:
+    """The JAX trainer's warning, word for word: stochastic rounding's
+    benefit is regime-dependent (docs/QUANTIZATION.md round-3 table) — it
+    closes int8's lag at global super-batch 32 but costs val mIoU at the
+    flagship's 512, where the large batch already averages the rounding
+    error away."""
+    data_size = 1  # one process
+    global_super_batch = cfg.train.micro_batch_size * data_size * cfg.train.sync_period
+    if (
+        cfg.compression.mode != "none"
+        and cfg.compression.rounding == "stochastic"
+        and global_super_batch >= 256
+    ):
+        warnings.warn(
+            f"rounding='stochastic' at global super-batch "
+            f"{global_super_batch} (micro {cfg.train.micro_batch_size} x "
+            f"sync {cfg.train.sync_period} x {data_size} replicas): the "
+            f"committed A/B measured stochastic rounding HELPING at small "
+            f"batch (closes int8's lag at super-batch 32) but COSTING "
+            f"-0.045 val mIoU at super-batch 512 "
+            f"(docs/QUANTIZATION.md round-3 table) — large batches "
+            f"average quantization error away on their own; prefer "
+            f"rounding='nearest' here",
+            stacklevel=3,
+        )
+
+
 class Trainer:
     """One device: data, model, state, the train and eval steps, the loop.
 
@@ -93,6 +121,7 @@ class Trainer:
                 f"data.num_classes={cfg.data.num_classes}"
             )
         check_supported(cfg.compression)
+        warn_large_batch_stochastic(cfg)
         self.cfg = cfg
         self.workdir = cfg.workdir
         if resume and os.path.isdir(os.path.join(self.workdir, "checkpoints")):
@@ -118,7 +147,7 @@ class Trainer:
             shuffle=cfg.data.shuffle,
             seed=cfg.data.seed,
         )
-        self.train_step = make_train_step(self.tx, cfg.compression)
+        self.train_step = make_train_step(self.tx, cfg.compression, seed=cfg.train.seed)
         self.eval_step = make_eval_step(cfg.model.num_classes)
 
     def _sync(self) -> None:

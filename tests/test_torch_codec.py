@@ -106,10 +106,12 @@ def test_plain_codec_zero_tree_and_mode_none():
     assert float(tq.global_absmax([])) == 0.0
 
 
-def _jax_sync(tree: dict, jcfg: JCompression) -> dict:
+def _jax_sync(tree: dict, jcfg: JCompression, key=None) -> dict:
+    """JAX's ``sync_gradients`` in ``shard_map`` on a 1-device mesh; ``key``
+    drives stochastic rounding."""
     mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
     body = shard_map(
-        lambda g: jsync.sync_gradients(g, "data", jcfg, axis_size=1),
+        lambda g: jsync.sync_gradients(g, "data", jcfg, axis_size=1, key=key),
         mesh=mesh, in_specs=(P(),), out_specs=P(), check=False,
     )
     return jax.jit(body)({k: jnp.asarray(v) for k, v in tree.items()})
@@ -193,9 +195,10 @@ def test_wrappers_raise_on_unsupported_input():
     safe = torch.ones(1)
     f16 = CompressionConfig(mode="float16")
     sto = CompressionConfig(mode="float16", rounding="stochastic")
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    # A stochastic config with neither a key nor a noise field raises.
+    with pytest.raises(ValueError, match="stochastic"):
         cq.encode_to_wire(x, safe, sto, torch.float16)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="stochastic"):
         cq.fake_quantize_fused(x, sto)
     with pytest.raises(TypeError, match="float32"):
         cq.encode_to_wire(x.double(), safe, f16, torch.float16)
@@ -215,7 +218,7 @@ def test_wrappers_raise_on_unsupported_input():
         cq.encode_to_wire(x, torch.ones(2), f16, torch.float16)
     with pytest.raises(ValueError, match="unsupported device"):
         cq.encode_to_wire(x.to("meta"), torch.ones(1, device="meta"), f16, torch.float16)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="stochastic"):
         tsync.sync_gradients(x.clone(), sto)
     with pytest.raises(NotImplementedError, match="ring"):
         tsync.sync_gradients(x.clone(), CompressionConfig(mode="int8", transport="ring"))

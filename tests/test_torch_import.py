@@ -24,6 +24,7 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.ops.cuda_quantize",
     "ddlpc_tpu_torch.ops.losses",
     "ddlpc_tpu_torch.ops.metrics",
+    "ddlpc_tpu_torch.ops.philox",
     "ddlpc_tpu_torch.ops.quantize",
     "ddlpc_tpu_torch.parallel.grad_sync",
     "ddlpc_tpu_torch.parallel.train_step",

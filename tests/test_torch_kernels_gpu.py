@@ -8,7 +8,9 @@ machine that has only PyTorch; ``tests/conftest.py`` sets up JAX, so pass
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_gpu.py
 
 Tolerance: none.  Each kernel does the plain version's IEEE operations in
-the same order, so the outputs are compared with ``torch.equal``.
+the same order, and the stochastic kernels draw the plain Philox stream
+(``ops/philox.py``) bit for bit, so the outputs are compared with
+``torch.equal``.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from ddlpc_tpu_torch.config import CompressionConfig
 from ddlpc_tpu_torch.ops import cuda_quantize as cq
+from ddlpc_tpu_torch.ops import philox
 from ddlpc_tpu_torch.ops import quantize as tq
 from ddlpc_tpu_torch.parallel import grad_sync
 
@@ -66,21 +69,65 @@ def test_kernels_equal_plain_versions_on_card(card, n):
     torch.cuda.synchronize()
     assert cq.LAUNCHES == {
         "encode_to_wire": 3, "decode_from_wire": 3, "fake_quantize_fused": 6,
+        "encode_sr": 0, "fake_quantize_sr": 0, "encode_noise": 0, "fake_quantize_noise": 0,
     }
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 4, 5])
+@pytest.mark.parametrize("n", [1, 7, 15, 17, 100_003])
+def test_stochastic_kernels_equal_plain_versions_on_card(card, n, offset):
+    """The _sr and _noise kernels against their plain versions on every
+    wire; the _noise kernel fed the plain Philox field equals the _sr
+    kernel; _sr on the slice ``x[o:]`` at offset ``o`` (unaligned for odd
+    ``o``) equals the slice of the full draw."""
+    key = (0x0BADC0DE, n)
+    big = _grads(n + offset, card)
+    x = big[offset:].clone()  # 16-byte aligned
+    safe = tq.safe_divisor(x.abs().amax().reshape(1))
+    u = philox.uniform(key, offset, n, device=card)
+    cq.reset_launch_counts()
+    for mode, wire in WIRES:
+        cfg = CompressionConfig(mode=mode, rounding="stochastic")
+        levels = float(tq.levels_for(cfg))
+        q = cq.encode_to_wire(x, safe, cfg, wire, key=key, offset=offset)
+        assert q.dtype == wire
+        assert torch.equal(q, tq.encode_with_scale(x, safe, levels, wire, key=key, offset=offset))
+        assert torch.equal(q, cq.encode_to_wire(x, safe, cfg, wire, noise=u))
+        assert torch.equal(q, tq.encode_with_scale(x, safe, levels, wire, noise=u))
+        q_big = cq.encode_to_wire(big, safe, cfg, wire, key=key)
+        assert torch.equal(q, cq.encode_to_wire(big[offset:], safe, cfg, wire, key=key, offset=offset))
+        assert torch.equal(q_big[offset:], q)
+        f = cq.fake_quantize_fused(x, cfg, key=key, offset=offset)
+        assert torch.equal(f, cq.fake_quantize_plain(x, cfg, key=key, offset=offset))
+        assert torch.equal(f, cq.fake_quantize_fused(x, cfg, noise=u))
+        assert torch.equal(f, cq.fake_quantize_plain(x, cfg, noise=u))
+        inplace = x.clone()
+        cq.fake_quantize_fused(inplace, cfg, out=inplace, key=key, offset=offset)
+        assert torch.equal(inplace, f)
+    torch.cuda.synchronize()
+    assert cq.LAUNCHES == {
+        "encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 0,
+        "encode_sr": 9, "fake_quantize_sr": 6, "encode_noise": 3, "fake_quantize_noise": 3,
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
 @pytest.mark.parametrize(
     "mode,local,mean",
     [("float16", True, True), ("int8", True, True), ("float16", False, True)],
 )
-def test_sync_on_card_equals_sync_on_cpu(card, mode, local, mean):
+def test_sync_on_card_equals_sync_on_cpu(card, mode, local, mean, rounding):
     """The N=1 sync through the kernels equals the CPU sync through the
-    plain versions, bit for bit."""
-    cfg = CompressionConfig(mode=mode, quantize_local=local, quantize_mean=mean)
+    plain versions, bit for bit (with a step key when stochastic)."""
+    cfg = CompressionConfig(
+        mode=mode, quantize_local=local, quantize_mean=mean, rounding=rounding
+    )
+    key = philox.step_key(3, 17) if rounding == "stochastic" else None
     x = _grads(4099, "cpu")
-    want = grad_sync.sync_gradients(x.clone(), cfg)
-    got = grad_sync.sync_gradients(x.to(card), cfg)
+    want = grad_sync.sync_gradients(x.clone(), cfg, key=key)
+    got = grad_sync.sync_gradients(x.to(card), cfg, key=key)
     assert torch.equal(got.cpu(), want)
 
 
@@ -93,5 +140,5 @@ def test_kernels_refuse_what_they_cannot_take_on_card(card):
         cq.encode_to_wire(x[1:], safe, f16, torch.float16)
     with pytest.raises(ValueError, match="1-element"):
         cq.encode_to_wire(x, torch.ones(1), f16, torch.float16)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="stochastic"):
         cq.fake_quantize_fused(x, CompressionConfig(mode="float16", rounding="stochastic"))
