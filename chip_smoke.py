@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    held against its plain PyTorch version on the same inputs with
    ``torch.equal`` (bit-identical), and timed with CUDA events beside its
    bound, the plain version and, where one exists, a single PyTorch call
-   computing the same function.  The stochastic kernels are also held to
+   computing the same function.  The max-abs pass is also held against
+   ``x.abs().amax()`` on NaN, ±inf, -0.0, subnormal, empty, odd-size and
+   unaligned inputs.  The fake-quantize rows are timed as the main path
+   calls them (in place: the max-abs pass, then the kernel) and the kernel
+   alone.  The stochastic kernels are also held to
    each other (a _noise kernel fed the plain Philox field equals the _sr
    kernel), to the offset-slice property, and to unbiasedness over 64 keys;
 3. small-input reference checks: the tiny U-Net trains two optimizer steps
@@ -21,7 +25,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 4. the main paths, each through the CLI's own entry (``parse_args`` →
    ``Trainer.fit``) on ``configs/vaihingen_unet_tpu_flagship.json`` at full
    width and 512² tiles for three optimizer steps, with the kernels'
-   launch counts set to 0 just before and read just after each run: first
+   launch counts set to 0 just before and read just after each run (each
+   must equal the path's expected count: one launch a step of each codec
+   kernel, two of the max-abs pass): first
    the config as it is (fp16 codec, nearest rounding), then with
    ``compression.mode=int8, rounding=stochastic`` (which must warn about
    its large super-batch).  Every loss must be finite.
@@ -132,6 +138,45 @@ def codec_inputs(n: int, levels: float) -> torch.Tensor:
     return x
 
 
+def same_absmax(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN by position (its payload may differ), anything else bit for bit
+    (so -0.0 against +0.0 fails)."""
+    if bool(torch.isnan(want).item()):
+        return bool(torch.isnan(got).item())
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def absmax_checks(x: torch.Tensor) -> None:
+    """``cq.absmax`` against its plain version ``x.abs().amax()`` (0 for an
+    empty buffer) on the codec inputs and on edge inputs."""
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+
+    n = x.numel()
+    cases = {"codec inputs": x, "x[1:]": x[1:], "empty": x[:0]}
+    for m in (1, 7, 15, 17, 100_003):
+        cases[f"x[:{m}]"] = x[:m]
+        cases[f"x[1:{m + 1}]"] = x[1 : m + 1]
+    for name, value, at in (("NaN", float("nan"), n // 3), ("+inf", float("inf"), n - 1),
+                            ("-inf", float("-inf"), 0), ("NaN and inf", float("nan"), n - 2)):
+        y = x.clone()
+        y[at] = value
+        if name == "NaN and inf":
+            y[5] = float("inf")
+        cases[name] = y
+    cases["-0.0"] = torch.full((1025,), -0.0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases["subnormals"] = torch.randint(
+        1, 0x007FFFFF, (100_003,), generator=g, device="cuda", dtype=torch.int32
+    ).view(torch.float32)
+    for name, t in cases.items():
+        got = cq.absmax(t)
+        want = t.abs().amax().reshape(1) if t.numel() else torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        if got.shape != (1,) or not same_absmax(got, want):
+            fail(f"absmax on {name}: {got.tolist()} != plain {want.tolist()}")
+    log(f"absmax == x.abs().amax() (NaN by position, else bit for bit) on: {', '.join(cases)}")
+
+
 def kernel_phase(n: int) -> list:
     from ddlpc_tpu_torch.config import CompressionConfig
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
@@ -140,6 +185,7 @@ def kernel_phase(n: int) -> list:
     cfg = CompressionConfig(mode="float16")  # the flagship's codec
     levels = float(plain.levels_for(cfg))
     x = codec_inputs(n, levels)
+    absmax_checks(x)
     scale = x.abs().amax().reshape(1)
     safe = plain.safe_divisor(scale)
     inv = plain.true_div(scale, levels)
@@ -167,7 +213,8 @@ def kernel_phase(n: int) -> list:
     q = cq.encode_to_wire(x, safe, cfg, wire)
     out = torch.empty_like(x)
     fq_out = torch.empty_like(x)
-    results = []
+    fq_in = x.clone()  # the main path fake-quantizes its buffer in place
+    src = "ddlpc_tpu_torch/kernels/csrc/quantize.cu"
     specs = [
         dict(
             name="encode_to_wire",
@@ -176,7 +223,7 @@ def kernel_phase(n: int) -> list:
             plain=lambda: plain.encode_with_scale(x, safe, levels, wire),
             library=None,
             bytes=4 * n + 2 * n + 4,
-            ops=5 * n,
+            ops=5 * n, source=src,
             err=lambda: (cq.encode_to_wire(x, safe, cfg, wire).float()
                          - plain.encode_with_scale(x, safe, levels, wire).float()).abs().max(),
         ),
@@ -187,13 +234,13 @@ def kernel_phase(n: int) -> list:
             plain=lambda: plain.decode_with_inv(q, inv),
             library=lambda: torch.mul(q, inv),
             bytes=2 * n + 4 * n + 4,
-            ops=n,
+            ops=n, source=src,
             err=lambda: (cq.decode_from_wire(q, inv) - plain.decode_with_inv(q, inv)).abs().max(),
         ),
         dict(
             name="fake_quantize_fused",
             replaces="ddlpc_tpu/ops/pallas_quantize.py:50",
-            kernel=lambda: cq.fake_quantize_fused(x, cfg, out=fq_out),
+            kernel=lambda: cq.fake_quantize_fused(fq_in, cfg, out=fq_in),
             plain=lambda: cq.fake_quantize_plain(x, cfg),
             library=lambda: torch.fake_quantize_per_tensor_affine(
                 x, plain.true_div(x.abs().amax().reshape(1), levels),
@@ -201,23 +248,41 @@ def kernel_phase(n: int) -> list:
                 -int(levels), int(levels),
             ),
             bytes=4 * n + 4 * n + 4,
-            ops=6 * n,
+            ops=6 * n, source=src,
             err=lambda: (cq.fake_quantize_fused(x, cfg) - cq.fake_quantize_plain(x, cfg)).abs().max(),
         ),
+        dict(
+            name="absmax",
+            source="ddlpc_tpu_torch/kernels/csrc/absmax.cu",
+            # Not a Pallas kernel: XLA's reduction global_absmax, which runs
+            # before the fake-quantize Pallas call.
+            replaces="ddlpc_tpu/ops/quantize.py:119",
+            kernel=lambda: cq.absmax(x),
+            plain=lambda: plain.global_absmax([x]).reshape(1),
+            library=lambda: torch.linalg.vector_norm(x, float("inf")),
+            bytes=4 * n + 4,
+            ops=2 * n,  # an AND and an integer max an element
+            err=lambda: (cq.absmax(x) - x.abs().amax()).abs().max(),
+        ),
     ]
-    for s in specs:
-        s["source"] = "ddlpc_tpu_torch/kernels/csrc/quantize.cu"
-        results.append(timed_row(s))
-    # fake_quantize_fused's time includes the max-abs reduction it runs
-    # before its kernel (as the Pallas path runs one outside its kernel);
-    # the kernel alone is timed through its C entry point.
-    amax_ms = time_ms(lambda: x.abs().amax())
-    step = plain.true_div(scale, levels)
+    results = [timed_row(s) for s in specs]
+    # The fake-quantize row times the wrapper as the main path calls it (the
+    # max-abs pass, then the kernel, in place); the kernel alone is timed
+    # through its C entry point with the max-abs ready.
+    amax = cq.absmax(x)
     results[2]["kernel_ms"] = time_ms(lambda: raw_launch(
-        "ddlpc_fake_quantize", x.data_ptr(), fq_out.data_ptr(), n, safe.data_ptr(),
-        step.data_ptr(), levels, 1, stream()))
-    log(f"fake_quantize_fused: its max-abs reduction alone {amax_ms:.4f} ms, "
-        f"its kernel alone {results[2]['kernel_ms']:.4f} ms")
+        "ddlpc_fake_quantize", x.data_ptr(), fq_out.data_ptr(), n, amax.data_ptr(),
+        levels, 1, stream()))
+    results[2]["out_of_place_ms"] = time_ms(lambda: cq.fake_quantize_fused(x, cfg, out=fq_out))
+    # x.sum() reads the same 33.5 MB in one PyTorch reduction: not the same
+    # function, but what one read pass over x costs on this card.
+    results[3]["abs_amax_ms"] = time_ms(lambda: x.abs().amax())
+    results[3]["sum_ms"] = time_ms(lambda: x.sum())
+    log(f"fake_quantize_fused: in place {results[2]['ms']:.4f} ms, out of place "
+        f"{results[2]['out_of_place_ms']:.4f} ms, its kernel alone {results[2]['kernel_ms']:.4f} ms; "
+        f"absmax {results[3]['ms']:.4f} ms against x.abs().amax() "
+        f"{results[3]['abs_amax_ms']:.4f} ms, torch.linalg.vector_norm(x, inf) "
+        f"{results[3]['library_ms']:.4f} ms and x.sum() {results[3]['sum_ms']:.4f} ms")
     # The int8 wire against torch.quantize_per_tensor, which does close to
     # the same work: it multiplies by the reciprocal of its scale (where the
     # kernel divides x by the max-abs, then multiplies by the levels) and
@@ -231,6 +296,15 @@ def kernel_phase(n: int) -> list:
         lambda: torch.quantize_per_tensor(x, qscale, 0, torch.qint8))
     log(f"encode_to_wire, int8 wire: {results[0]['int8_wire_ms']:.4f} ms, "
         f"torch.quantize_per_tensor {results[0]['int8_wire_library_ms']:.4f} ms")
+    # Decode on the int8 wire (the stochastic main path's) as well as fp16.
+    q8 = cq.encode_to_wire(x, safe, i8, torch.int8)
+    inv8 = plain.true_div(scale, lv8)
+    results[1]["int8_wire_ms"] = time_ms(lambda: cq.decode_from_wire(q8, inv8, out=out))
+    results[1]["int8_wire_plain_ms"] = time_ms(lambda: plain.decode_with_inv(q8, inv8))
+    results[1]["int8_wire_library_ms"] = time_ms(lambda: torch.mul(q8, inv8))
+    log(f"decode_from_wire, int8 wire: {results[1]['int8_wire_ms']:.4f} ms (bound "
+        f"{(n + 4 * n + 4) / HBM_BYTES_PER_S * 1e3:.4f} ms), plain "
+        f"{results[1]['int8_wire_plain_ms']:.4f} ms, torch.mul {results[1]['int8_wire_library_ms']:.4f} ms")
     return results
 
 
@@ -350,7 +424,7 @@ def stochastic_kernel_phase(n: int) -> list:
     wire = torch.int8
     u = philox.uniform(key, 0, n, device="cuda")
     out = torch.empty_like(x)
-    step = plain.true_div(scale, levels)
+    fq_in = x.clone()  # the main path fake-quantizes its buffer in place
     src = "ddlpc_tpu_torch/kernels/csrc/stochastic.cu"
     sr_ops = PHILOX_OPS_PER_ELEM + SNAP_OPS_PER_ELEM
     specs = [
@@ -366,7 +440,7 @@ def stochastic_kernel_phase(n: int) -> list:
         dict(
             name="fake_quantize_sr", source=src,
             replaces="ddlpc_tpu/ops/pallas_quantize.py:50",
-            kernel=lambda: cq.fake_quantize_fused(x, cfg, out=out, key=key),
+            kernel=lambda: cq.fake_quantize_fused(fq_in, cfg, out=fq_in, key=key),
             plain=lambda: cq.fake_quantize_plain(x, cfg, key=key),
             bytes=4 * n + 4 * n + 4, ops=(sr_ops + 3) * n,
             err=lambda: (cq.fake_quantize_fused(x, cfg, key=key)
@@ -384,7 +458,7 @@ def stochastic_kernel_phase(n: int) -> list:
         dict(
             name="fake_quantize_noise", source=src,
             replaces="ddlpc_tpu/ops/pallas_quantize.py:71",
-            kernel=lambda: cq.fake_quantize_fused(x, cfg, out=out, noise=u),
+            kernel=lambda: cq.fake_quantize_fused(fq_in, cfg, out=fq_in, noise=u),
             plain=lambda: cq.fake_quantize_plain(x, cfg, noise=u),
             bytes=4 * n + 4 * n + 4 * n + 4, ops=(SNAP_OPS_PER_ELEM + 3) * n,
             err=lambda: (cq.fake_quantize_fused(x, cfg, noise=u)
@@ -397,14 +471,18 @@ def stochastic_kernel_phase(n: int) -> list:
         "rounds stochastically, with or without a Philox draw")
     rows = [timed_row(s) for s in specs]
     k0, k1 = key
+    amax = cq.absmax(x)
     rows[1]["kernel_ms"] = time_ms(lambda: raw_launch(
-        "ddlpc_fake_quantize_sr", x.data_ptr(), out.data_ptr(), n, safe.data_ptr(),
-        step.data_ptr(), levels, 0, k0, k1, 0, stream()))
+        "ddlpc_fake_quantize_sr", x.data_ptr(), out.data_ptr(), n, amax.data_ptr(),
+        levels, 0, k0, k1, 0, stream()))
     rows[3]["kernel_ms"] = time_ms(lambda: raw_launch(
         "ddlpc_fake_quantize_noise", x.data_ptr(), u.data_ptr(), out.data_ptr(), n,
-        safe.data_ptr(), step.data_ptr(), levels, 0, stream()))
-    log(f"fake_quantize_sr kernel alone {rows[1]['kernel_ms']:.4f} ms, "
-        f"fake_quantize_noise kernel alone {rows[3]['kernel_ms']:.4f} ms")
+        amax.data_ptr(), levels, 0, stream()))
+    rows[1]["out_of_place_ms"] = time_ms(lambda: cq.fake_quantize_fused(x, cfg, out=out, key=key))
+    rows[3]["out_of_place_ms"] = time_ms(lambda: cq.fake_quantize_fused(x, cfg, out=out, noise=u))
+    for r in (rows[1], rows[3]):
+        log(f"{r['name']}: in place {r['ms']:.4f} ms, out of place {r['out_of_place_ms']:.4f} ms, "
+            f"kernel alone {r['kernel_ms']:.4f} ms")
     return rows
 
 
@@ -461,8 +539,8 @@ def reference_phase(compression: dict, loss_rtol: float, param_share: float) -> 
 def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict:
     """Train the flagship ``EPOCHS`` steps through the CLI's entry with the
     ``extra`` overrides; the launch counts are set to 0 just before and
-    read just after, and each kernel in ``expect`` must have launched at
-    least that often."""
+    read just after, and must equal ``expect`` (0 for a kernel it does not
+    name)."""
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
@@ -506,9 +584,9 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
         fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
     log(f"[{label}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     log(f"[{label}] kernels " + json.dumps(launches))
-    for name, count in expect.items():
-        if launches[name] < count:
-            fail(f"[{label}] kernel {name} launched {launches[name]} times in {EPOCHS} steps")
+    want = {name: expect.get(name, 0) for name in launches}
+    if launches != want:
+        fail(f"[{label}] kernel launches in {EPOCHS} steps: {launches}, expected {want}")
     return {"launches": launches, "n_params": n_params, "trainer": trainer}
 
 
@@ -552,7 +630,7 @@ def profile_phase(trainer, label: str) -> None:
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         log(f"  {ms:10.3f} ms  {ms / (busy_s * 1e3):.4f}  {name[:110]}")
     codec = {n: ms for n, ms in by_name.items()
-             if any(k in n for k in ("encode_", "decode_kernel", "fake_quantize_"))}
+             if any(k in n for k in ("encode_", "decode_kernel", "fake_quantize_", "absmax"))}
     log(f"[{label}] codec kernels in the step: {sum(codec.values()):.4f} ms, "
         + ", ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in sorted(codec.items())))
 
@@ -585,7 +663,8 @@ def main() -> int:
     reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
     main = main_path_phase(
         "nearest_fp16", (), warns=False,
-        expect={k: EPOCHS for k in ("encode_to_wire", "decode_from_wire", "fake_quantize_fused")},
+        expect={"encode_to_wire": EPOCHS, "decode_from_wire": EPOCHS,
+                "fake_quantize_fused": EPOCHS, "absmax": 2 * EPOCHS},
     )
     profile = "--profile" in sys.argv[1:]
     if profile:
@@ -594,7 +673,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sr = main_path_phase(
         "stochastic_int8", STOCHASTIC, warns=True,
-        expect={k: EPOCHS for k in ("encode_sr", "decode_from_wire", "fake_quantize_sr")},
+        expect={"encode_sr": EPOCHS, "decode_from_wire": EPOCHS,
+                "fake_quantize_sr": EPOCHS, "absmax": 2 * EPOCHS},
     )
     if profile:
         profile_phase(sr["trainer"], "stochastic_int8")

@@ -26,7 +26,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("quantize.cu", "stochastic.cu")
+SOURCES = ("quantize.cu", "stochastic.cu", "absmax.cu")
 HEADERS = ("codec.cuh",)
 # Never --use_fast_math: the codec's bit-identity needs IEEE division.
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -43,10 +43,10 @@ _SIGNATURES = {
     "ddlpc_decode_i8": (_P, _P, ctypes.c_int64, _P, _P),
     "ddlpc_decode_i16": (_P, _P, ctypes.c_int64, _P, _P),
     "ddlpc_decode_f16": (_P, _P, ctypes.c_int64, _P, _P),
-    # (x, out, n, scale, step, levels, half_wire, stream)
-    "ddlpc_fake_quantize": (
-        _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int, _P,
-    ),
+    # (x, out, n, amax, levels, half_wire, stream)
+    "ddlpc_fake_quantize": (_P, _P, ctypes.c_int64, _P, ctypes.c_float, ctypes.c_int, _P),
+    # (x, n, out, scratch, scratch_words, stream)
+    "ddlpc_absmax": (_P, ctypes.c_int64, _P, _P, ctypes.c_int64, _P),
     # (x, q, n, scale, levels, key0, key1, offset, stream)
     **{
         f"ddlpc_encode_sr_{w}": (
@@ -55,9 +55,9 @@ _SIGNATURES = {
         )
         for w in ("i8", "i16", "f16")
     },
-    # (x, out, n, scale, step, levels, half_wire, key0, key1, offset, stream)
+    # (x, out, n, amax, levels, half_wire, key0, key1, offset, stream)
     "ddlpc_fake_quantize_sr": (
-        _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int,
+        _P, _P, ctypes.c_int64, _P, ctypes.c_float, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, _P,
     ),
     # (x, u, q, n, scale, levels, stream)
@@ -65,9 +65,9 @@ _SIGNATURES = {
         f"ddlpc_encode_noise_{w}": (_P, _P, _P, ctypes.c_int64, _P, ctypes.c_float, _P)
         for w in ("i8", "i16", "f16")
     },
-    # (x, u, out, n, scale, step, levels, half_wire, stream)
+    # (x, u, out, n, amax, levels, half_wire, stream)
     "ddlpc_fake_quantize_noise": (
-        _P, _P, _P, ctypes.c_int64, _P, _P, ctypes.c_float, ctypes.c_int, _P,
+        _P, _P, _P, ctypes.c_int64, _P, ctypes.c_float, ctypes.c_int, _P,
     ),
 }
 

@@ -18,14 +18,16 @@
 // pass over the whole gradient tree as a single flat contiguous buffer, so
 // a sync launches each kernel once.  Every thread moves 16 bytes per load
 // and per store (float4 in; 8 halfs, 8 int16s or 16 int8s out), the ragged
-// tail is handled by a masked scalar loop, and the scalars (scale, step,
-// inv) are read through pointers to 1-element device tensors, so the host
-// never waits on the device.
+// tail is handled by a masked scalar loop, and the scalars (scale, inv,
+// and fake-quantize's raw max-abs from ddlpc_absmax, absmax.cu) are read
+// through pointers to 1-element device tensors, so the host never waits on
+// the device.  Fake-quantize is two launches, the max-abs pass and this
+// kernel, with nothing enqueued between them (fq_scalars, codec.cuh).
 //
 // Bit-identity with the plain codec: see codec.cuh.  Fake-quantize
-// dequantizes as lattice * step with step = scale / levels computed once
-// in fp32, which is decode(encode(x)) exactly; the Pallas kernel's
-// lattice / levels * scale agrees with that only to 1 ulp.
+// dequantizes as lattice * step with step = scale / levels in fp32, which
+// is decode(encode(x)) exactly; the Pallas kernel's lattice / levels *
+// scale agrees with that only to 1 ulp.
 //
 // Each entry point returns cudaGetLastError() so the Python wrapper can
 // raise on a launch that was refused.
@@ -103,14 +105,16 @@ __device__ __forceinline__ float fq_one(float x, float s, float step,
   return dequant(snap(x, s, levels), step, half_wire);
 }
 
+// kVec: x and out are 16-byte aligned and move as float4s; otherwise (a
+// slice such as x[1:]) every element takes the scalar loop.
+template <bool kVec>
 __global__ void fake_quantize_kernel(const float* x, float* out, int64_t n,
-                                     const float* __restrict__ scale,
-                                     const float* __restrict__ step_ptr,
+                                     const float* __restrict__ amax,
                                      float levels, int half_wire) {
-  const float s = *scale;
-  const float step = *step_ptr;
+  const FqScalars c = fq_scalars(amax, levels);
+  const float s = c.safe, step = c.step;
   const bool hw = half_wire != 0;
-  const int64_t n_vec = n / 4;
+  const int64_t n_vec = kVec ? n / 4 : 0;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   for (int64_t v = i; v < n_vec; v += stride) {
@@ -182,15 +186,19 @@ int ddlpc_decode_f16(const void* q, void* out, int64_t n, const void* inv,
   return launch_decode<WireF16>(q, out, n, inv, stream);
 }
 
-int ddlpc_fake_quantize(const void* x, void* out, int64_t n, const void* scale,
-                        const void* step, float levels, int half_wire,
-                        void* stream) {
-  const int64_t blocks = grid_for(n / 4 + 1);
-  fake_quantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n,
-      static_cast<const float*>(scale), static_cast<const float*>(step),
-      levels, half_wire);
+int ddlpc_fake_quantize(const void* x, void* out, int64_t n, const void* amax,
+                        float levels, int half_wire, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto of = static_cast<float*>(out);
+  auto af = static_cast<const float*>(amax);
+  if (aligned16(x) && aligned16(out)) {
+    const unsigned blocks = static_cast<unsigned>(grid_for(n / 4 + 1));
+    fake_quantize_kernel<true><<<blocks, kThreads, 0, st>>>(xf, of, n, af, levels, half_wire);
+  } else {
+    const unsigned blocks = static_cast<unsigned>(grid_for(n));
+    fake_quantize_kernel<false><<<blocks, kThreads, 0, st>>>(xf, of, n, af, levels, half_wire);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

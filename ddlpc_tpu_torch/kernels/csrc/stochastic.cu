@@ -34,8 +34,10 @@
 // one grid-stride pass over the flat buffer, 16-byte float4 loads of x
 // (and of u), the generator in registers so the stream never touches
 // memory, the scalars read through device pointers so the host never
-// waits.  When the offset is not a multiple of 4, or a pointer is not
-// 16-byte aligned, the same kernel runs with scalar loads (kVec = false).
+// waits (the fake-quantize kernels read the raw max-abs that ddlpc_absmax
+// wrote and derive the divisor and step themselves, codec.cuh).  When the
+// offset is not a multiple of 4, or a pointer is not 16-byte aligned, the
+// same kernel runs with scalar loads (kVec = false).
 //
 // Bit-identity with the plain versions (ops/quantize.py): see codec.cuh;
 // the add of u is __fadd_rn, never contracted into an FMA.  Each entry
@@ -128,12 +130,11 @@ __global__ void encode_sr_kernel(const float* __restrict__ x,
 // writes them, and no two threads touch the same element.
 template <bool kVec>
 __global__ void fake_quantize_sr_kernel(const float* x, float* out, int64_t n,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ step_ptr,
+                                        const float* __restrict__ amax,
                                         float levels, int half_wire,
                                         uint32_t k0, uint32_t k1, int64_t offset) {
-  const float s = *scale;
-  const float step = *step_ptr;
+  const FqScalars c = fq_scalars(amax, levels);
+  const float s = c.safe, step = c.step;
   const bool hw = half_wire != 0;
   const int64_t c0 = first_counter(offset);
   const int64_t n_ctr = counter_count(n, offset);
@@ -197,11 +198,10 @@ __global__ void encode_noise_kernel(const float* __restrict__ x,
 
 __global__ void fake_quantize_noise_kernel(const float* x, const float* __restrict__ u,
                                            float* out, int64_t n,
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ step_ptr,
+                                           const float* __restrict__ amax,
                                            float levels, int half_wire) {
-  const float s = *scale;
-  const float step = *step_ptr;
+  const FqScalars c = fq_scalars(amax, levels);
+  const float s = c.safe, step = c.step;
   const bool hw = half_wire != 0;
   const int64_t n_vec = n / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -219,8 +219,6 @@ __global__ void fake_quantize_noise_kernel(const float* x, const float* __restri
     out[e] = dequant(snap_sr(x[e], s, levels, u[e]), step, hw);
   }
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename W>
 int launch_encode_sr(const void* x, void* q, int64_t n, const void* scale,
@@ -269,21 +267,20 @@ int ddlpc_encode_sr_f16(const void* x, void* q, int64_t n, const void* scale, fl
   return launch_encode_sr<WireF16>(x, q, n, scale, levels, k0, k1, offset, stream);
 }
 
-int ddlpc_fake_quantize_sr(const void* x, void* out, int64_t n, const void* scale,
-                           const void* step, float levels, int half_wire,
-                           uint32_t k0, uint32_t k1, int64_t offset, void* stream) {
+int ddlpc_fake_quantize_sr(const void* x, void* out, int64_t n, const void* amax,
+                           float levels, int half_wire, uint32_t k0, uint32_t k1,
+                           int64_t offset, void* stream) {
   const unsigned blocks = static_cast<unsigned>(grid_for(counter_count(n, offset)));
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
   auto of = static_cast<float*>(out);
-  auto sf = static_cast<const float*>(scale);
-  auto pf = static_cast<const float*>(step);
+  auto af = static_cast<const float*>(amax);
   if (offset % 4 == 0 && aligned16(x) && aligned16(out)) {
     fake_quantize_sr_kernel<true><<<blocks, kThreads, 0, st>>>(
-        xf, of, n, sf, pf, levels, half_wire, k0, k1, offset);
+        xf, of, n, af, levels, half_wire, k0, k1, offset);
   } else {
     fake_quantize_sr_kernel<false><<<blocks, kThreads, 0, st>>>(
-        xf, of, n, sf, pf, levels, half_wire, k0, k1, offset);
+        xf, of, n, af, levels, half_wire, k0, k1, offset);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -304,14 +301,13 @@ int ddlpc_encode_noise_f16(const void* x, const void* u, void* q, int64_t n,
 }
 
 int ddlpc_fake_quantize_noise(const void* x, const void* u, void* out, int64_t n,
-                              const void* scale, const void* step, float levels,
-                              int half_wire, void* stream) {
+                              const void* amax, float levels, int half_wire,
+                              void* stream) {
   const int64_t blocks = grid_for(n / 4 + 1);
   fake_quantize_noise_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(u),
-      static_cast<float*>(out), n, static_cast<const float*>(scale),
-      static_cast<const float*>(step), levels, half_wire);
+      static_cast<float*>(out), n, static_cast<const float*>(amax), levels, half_wire);
   return static_cast<int>(cudaGetLastError());
 }
 

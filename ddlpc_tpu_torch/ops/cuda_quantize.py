@@ -16,6 +16,10 @@ Rounding follows the config: nearest (``quantize.cu``), or stochastic
 into its stream, drawn in the kernel, or a given U[0,1) ``noise`` field of
 ``x``'s shape.
 
+Fake-quantize is two launches and nothing between them: :func:`absmax`
+(``absmax.cu``), whose raw max-abs the fake-quantize kernel reads by
+pointer.  The fused all-reduce takes its shared scale from the same pass.
+
 Every wrapper counts its kernel launches in ``LAUNCHES`` (a count is added
 only where a kernel is launched), so a run can show that its main path
 went through the kernels.
@@ -35,7 +39,14 @@ from ddlpc_tpu_torch.ops.philox import PhiloxKey
 LAUNCHES = {
     "encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 0,
     "encode_sr": 0, "fake_quantize_sr": 0, "encode_noise": 0, "fake_quantize_noise": 0,
+    "absmax": 0,
 }
+# ddlpc_absmax's scratch: one word per block for its partial maximum and a
+# last word for the counter that picks the block finishing them.  Zeroed
+# once; every launch leaves the counter at 0 again.  Kept per device and
+# stream: two launches in flight at once must not share a counter.
+_ABSMAX_SCRATCH_WORDS = 1025
+_ABSMAX_SCRATCH: dict = {}
 
 _WIRE_SUFFIX = {torch.int8: "i8", torch.int16: "i16", torch.float16: "f16"}
 
@@ -102,11 +113,38 @@ def _check_draw(
             )
 
 
+def _absmax_scratch(x: torch.Tensor, stream: int) -> torch.Tensor:
+    key = (x.device, stream)
+    if key not in _ABSMAX_SCRATCH:
+        _ABSMAX_SCRATCH[key] = torch.zeros(
+            _ABSMAX_SCRATCH_WORDS, dtype=torch.int32, device=x.device
+        )
+    return _ABSMAX_SCRATCH[key]
+
+
 def _launch(name: str, counter: str, *args) -> None:
     from ddlpc_tpu_torch.kernels.build import load_library
 
     _raise_on(getattr(load_library(), name)(*args), name)
     LAUNCHES[counter] += 1
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """``max |x|`` of a flat fp32 buffer as a 1-element fp32 tensor on
+    ``x``'s device, in one pass (``ddlpc_absmax``) with no temporary and no
+    host sync: 0 for an empty ``x``; NaN where any element is NaN.  Equal
+    to ``x.abs().amax()`` bit for bit except in a NaN's payload.  In the
+    JAX package this is ``global_absmax`` (``ddlpc_tpu/ops/quantize.py:119``),
+    an XLA reduction outside the Pallas calls."""
+    _check_flat("x", x, torch.float32)
+    if not _kernel_device(x):
+        return plain.global_absmax([x] if x.numel() else []).reshape(1)
+    out = torch.empty(1, dtype=torch.float32, device=x.device)
+    stream = _stream(x)
+    scratch = _absmax_scratch(x, stream)
+    _launch("ddlpc_absmax", "absmax", x.data_ptr(), x.numel(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), stream)
+    return out
 
 
 def encode_to_wire(
@@ -199,16 +237,16 @@ def fake_quantize_fused(
     offset: int = 0,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Quantize→dequantize ``x`` against its own max-abs in one pass;
-    bit-identical to ``ops.quantize.fake_quantize`` on the one-leaf tree.
-    ``out`` may be ``x`` itself (in place).
+    """Quantize→dequantize ``x`` against its own max-abs; bit-identical to
+    ``ops.quantize.fake_quantize`` on the one-leaf tree.  ``out`` may be
+    ``x`` itself (in place).
 
     Replaces ``_fq_kernel`` (pallas_quantize.py:50): nearest
     (``ddlpc_fake_quantize``) or its stochastic branch with ``key``
     (``ddlpc_fake_quantize_sr``); and ``_fq_kernel_hostnoise`` (:71) with
-    ``noise`` (``ddlpc_fake_quantize_noise``).  The max-abs stays a
-    ``torch.amax`` reduction outside the kernel, as it is an XLA reduction
-    outside the Pallas call in the JAX package."""
+    ``noise`` (``ddlpc_fake_quantize_noise``).  On the card it is two
+    launches: :func:`absmax`, then the kernel, which reads the raw max-abs
+    by pointer and derives the zero-guarded divisor and the step itself."""
     if cfg.mode == "none":
         return x
     levels = float(plain.levels_for(cfg))
@@ -222,21 +260,21 @@ def fake_quantize_fused(
         raise ValueError(f"out must have shape {tuple(x.shape)} on {x.device}")
     if not _kernel_device(x):
         return out.copy_(fake_quantize_plain(x, cfg, key=key, offset=offset, noise=noise))
-    scale = x.abs().amax().reshape(1) if x.numel() else x.new_zeros(1)
-    safe = plain.safe_divisor(scale)
-    step = plain.true_div(scale, levels)
-    common = (x.numel(), safe.data_ptr(), step.data_ptr(), levels, int(cfg.mode == "float16"))
-    if key is not None:  # any offset and alignment: the kernel picks its loads
+    if noise is not None:  # nearest and _sr take any alignment; _noise moves float4s
+        _check_aligned("x", x)
+        _check_aligned("out", out)
+        _check_aligned("noise", noise)
+    # The max-abs pass reads x whole before the kernel, the next launch on
+    # the stream, writes out: so out may be x.
+    amax = absmax(x)
+    common = (x.numel(), amax.data_ptr(), levels, int(cfg.mode == "float16"))
+    if key is not None:
         _launch("ddlpc_fake_quantize_sr", "fake_quantize_sr", x.data_ptr(),
                 out.data_ptr(), *common, *key, offset, _stream(x))
-        return out
-    _check_aligned("x", x)
-    _check_aligned("out", out)
-    if noise is None:
+    elif noise is None:
         _launch("ddlpc_fake_quantize", "fake_quantize_fused", x.data_ptr(),
                 out.data_ptr(), *common, _stream(x))
     else:
-        _check_aligned("noise", noise)
         _launch("ddlpc_fake_quantize_noise", "fake_quantize_noise", x.data_ptr(),
                 noise.data_ptr(), out.data_ptr(), *common, _stream(x))
     return out

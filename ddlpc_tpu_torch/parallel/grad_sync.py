@@ -114,7 +114,7 @@ def _fused_allreduce_mean(
     shared scale (rounding with the local stage's ``draw``), sum the
     lattice, decode with ``inv = scale / (levels · axis_size)`` into
     ``out``."""
-    scale = _allreduce_max(flat.abs().amax().reshape(1), axis_size)
+    scale = _allreduce_max(cuda_quantize.absmax(flat), axis_size)
     safe = safe_divisor(scale)
     levels = float(levels_for(compression))
     q = cuda_quantize.encode_to_wire(flat, safe, compression, wire, **draw)

@@ -70,6 +70,7 @@ def test_kernels_equal_plain_versions_on_card(card, n):
     assert cq.LAUNCHES == {
         "encode_to_wire": 3, "decode_from_wire": 3, "fake_quantize_fused": 6,
         "encode_sr": 0, "fake_quantize_sr": 0, "encode_noise": 0, "fake_quantize_noise": 0,
+        "absmax": 6,
     }
 
 
@@ -109,6 +110,97 @@ def test_stochastic_kernels_equal_plain_versions_on_card(card, n, offset):
     assert cq.LAUNCHES == {
         "encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 0,
         "encode_sr": 9, "fake_quantize_sr": 6, "encode_noise": 3, "fake_quantize_noise": 3,
+        "absmax": 9,
+    }
+
+
+def _plain_absmax(x: torch.Tensor) -> torch.Tensor:
+    return x.abs().amax().reshape(1) if x.numel() else torch.zeros(1, device=x.device)
+
+
+def _same_absmax(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN by position (its payload may differ), anything else bit for bit
+    (so -0.0 against +0.0 fails)."""
+    if torch.isnan(want).item():
+        return bool(torch.isnan(got).item())
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 7, 15, 17, 100_003])
+def test_absmax_equals_plain_version_on_card(card, n, offset):
+    """ddlpc_absmax against ``x.abs().amax()`` on edge inputs: NaN, ±inf,
+    -0.0, subnormals, the max in the first or the last element; on an
+    aligned buffer and on the 4-byte aligned slice ``x[1:]``."""
+    rng = np.random.default_rng(n)
+    sub = (rng.integers(1, 0x007FFFFF, size=n + offset, dtype=np.uint32)
+           | (rng.integers(0, 2, size=n + offset, dtype=np.uint32) << 31)).view(np.float32)
+    variants = {"grads": _grads(n + offset, card),
+                "neg_zero": torch.full((n + offset,), -0.0, device=card),
+                "subnormals": torch.from_numpy(sub).to(card)}
+    if n:
+        for name, value, at in (("nan", float("nan"), n // 2), ("inf", float("inf"), n - 1),
+                                ("neg_inf", float("-inf"), 0), ("max_first", -2.0, 0),
+                                ("max_last", 2.0, n - 1)):
+            big = _grads(n + offset, card)
+            big[offset + at] = value
+            variants[name] = big
+    cq.reset_launch_counts()
+    for name, big in variants.items():
+        x = big[offset:]
+        got = cq.absmax(x)
+        torch.cuda.synchronize()
+        assert got.shape == (1,) and got.dtype == torch.float32
+        assert _same_absmax(got, _plain_absmax(x)), (name, got, _plain_absmax(x))
+        assert _same_absmax(cq.absmax(x), got), name  # the counter was reset
+    assert cq.LAUNCHES["absmax"] == 2 * len(variants)
+
+
+@pytest.mark.gpu
+def test_absmax_on_a_second_stream_on_card(card):
+    """Each stream has its own scratch: launches in flight on two streams
+    at once do not share a counter."""
+    xs = [_grads(1_000_003, card) * (i + 1) for i in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [cq.absmax(xs[1]) for _ in range(8)]
+    on_main = [cq.absmax(xs[0]) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, _plain_absmax(xs[0])) for a in on_main)
+    assert all(torch.equal(a, _plain_absmax(xs[1])) for a in on_side)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 4, 5])
+@pytest.mark.parametrize("n", [1, 7, 17, 100_003])
+def test_fake_quantize_kernels_at_any_alignment_on_card(card, n, offset):
+    """Nearest and _sr fake-quantize (max-abs pass, then the kernel) on
+    ``x = big[o:]`` (not 16-byte aligned for o = 1, 5; o is the Philox
+    offset too) equal their plain versions bit for bit: out of place into a
+    new buffer, into an unaligned one, and in place."""
+    key = (0x5EED, n)
+    big = _grads(n + offset, card)
+    x = big[offset:]
+    cq.reset_launch_counts()
+    for mode in ("float16", "int8"):
+        for rounding in ("nearest", "stochastic"):
+            cfg = CompressionConfig(mode=mode, rounding=rounding)
+            kw = {"key": key, "offset": offset} if rounding == "stochastic" else {}
+            want = cq.fake_quantize_plain(x, cfg, **kw)
+            assert torch.equal(cq.fake_quantize_fused(x, cfg, **kw), want), (mode, rounding)
+            out = torch.empty(n + 3, device=card)[3:]
+            cq.fake_quantize_fused(x, cfg, out=out, **kw)
+            assert torch.equal(out, want), (mode, rounding)
+            inplace = big.clone()[offset:]
+            assert cq.fake_quantize_fused(inplace, cfg, out=inplace, **kw) is inplace
+            assert torch.equal(inplace, want), (mode, rounding)
+    torch.cuda.synchronize()
+    assert cq.LAUNCHES == {
+        "encode_to_wire": 0, "decode_from_wire": 0, "fake_quantize_fused": 6,
+        "encode_sr": 0, "fake_quantize_sr": 6, "encode_noise": 0, "fake_quantize_noise": 0,
+        "absmax": 12,
     }
 
 
@@ -142,3 +234,8 @@ def test_kernels_refuse_what_they_cannot_take_on_card(card):
         cq.encode_to_wire(x, torch.ones(1), f16, torch.float16)
     with pytest.raises(ValueError, match="stochastic"):
         cq.fake_quantize_fused(x, CompressionConfig(mode="float16", rounding="stochastic"))
+    cq.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):  # before the max-abs pass launches
+        cq.fake_quantize_fused(x[1:], CompressionConfig(mode="float16", rounding="stochastic"),
+                               noise=torch.zeros(1023, device=card))
+    assert cq.LAUNCHES == {k: 0 for k in cq.LAUNCHES}
