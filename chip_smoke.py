@@ -11,12 +11,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. each gradient-codec kernel at the flagship U-Net's flat gradient size,
    held against its plain PyTorch version on the same inputs with
    ``torch.equal`` (bit-identical), and timed with CUDA events beside its
-   bound, the plain version and, where one exists, a single PyTorch call
-   computing the same function.  The max-abs pass is also held against
-   ``x.abs().amax()`` on NaN, ±inf, -0.0, subnormal, empty, odd-size and
-   unaligned inputs.  The fake-quantize rows are timed as the main path
-   calls them (in place: the max-abs pass, then the kernel) and the kernel
-   alone.  The stochastic kernels are also held to
+   bound, its achieved GB/s, the plain version and, where one exists, a
+   single PyTorch call computing the same function.  The clock
+   (``time_ms``) takes the median of 25 launches, each on a cold and clean
+   L2: a 256 MB buffer written once is read whole before each launch, so
+   the previous launch's dirty lines are written back outside the timed
+   window, and a short spin then holds the stream so that the launch is
+   queued before the window opens, which keeps host time out of the
+   window; each wrapper's host time per call is measured apart
+   (``host_ms``).  Beside the kernels it times the floor of plain data
+   movement on the same clock, ``y.copy_(x)`` and ``x.sum()`` over the
+   flagship's fp32 buffer.  Decode is timed on the fp16, int8 and int16
+   wires.  ``encode_sr``'s operations bound counts the instructions of its
+   main loop in this build's SASS (``cuobjdump -sass``).  The max-abs pass
+   is also held against ``x.abs().amax()`` on NaN, ±inf, -0.0, subnormal,
+   empty, odd-size and unaligned inputs.  The fake-quantize rows are timed
+   as the main path calls them (in place: the max-abs pass, then the
+   kernel) and the kernel alone.  The stochastic kernels are also held to
    each other (a _noise kernel fed the plain Philox field equals the _sr
    kernel), to the offset-slice property, and to unbiasedness over 64 keys;
 3. small-input reference checks: the tiny U-Net trains two optimizer steps
@@ -38,8 +49,8 @@ prints the device time by kernel, the device's idle share over that step
 and the step's FLOPs against the card's bf16 peak (this phase is for
 measurement, not part of the plain smoke run).
 
-It prints one JSON line with every kernel's numbers, then the card's
-``nvidia-smi`` line, then the contract line
+It prints one JSON line with every kernel's numbers and the floor, then
+the card's ``nvidia-smi`` line, then the contract line
 ``{"ok": true, "device": {...}}`` last.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -49,6 +60,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,9 +95,18 @@ STOCHASTIC = (
     "compression.codec_backend=pallas",
 )
 # Philox4x32-10 per element: 10 rounds of 2 mul.hi + 2 mul.lo + 4 xor +
-# 2 add per 4 elements, plus the 24-bit u (shift, convert, multiply).
+# 2 add per 4 elements, plus the 24-bit u (shift, convert, multiply).  An
+# estimate, used where no SASS count is kept (fake_quantize_sr).
 PHILOX_OPS_PER_ELEM = 10 * 10 / 4 + 3
 SNAP_OPS_PER_ELEM = 7  # divide, multiply, add, floor, 2 compares, convert
+# Instruction rates of an H100 SXM (132 SMs at the published 1,980 MHz
+# boost clock): an SM issues 4 warp instructions a clock; a 32-bit integer
+# multiply (IMAD.HI, IMAD.WIDE) runs at 64 lanes a clock an SM, the CUDA C++
+# Programming Guide's throughput for compute capability 9.0.
+INSTR_LANES_PER_S = 132 * 4 * 32 * 1.98e9
+IMUL_LANES_PER_S = 132 * 64 * 1.98e9
+# Bytes a SASS store instruction writes, by its width suffix (none: 4).
+STORE_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
 
 
 def fail(msg: str) -> None:
@@ -108,13 +129,22 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 25) -> float:
-    """Median device time of ``fn()`` with the 50 MB L2 flushed before each
-    launch (the codec meets its gradients cold after a backward pass)."""
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    """Median device time of ``fn()`` over ``reps`` launches, each timed
+    with CUDA events on a cold and clean 50 MB L2 (the codec meets its
+    gradients cold after a backward pass): a 256 MB buffer, written once
+    here, is read whole before each launch.  That read evicts whatever the
+    previous launch left dirty in L2 and pays its write-back outside the
+    timed window, so the window holds the kernel's own traffic alone.  A
+    spin of about 0.5 ms on the stream follows the flush, so that ``fn``'s
+    launches are queued before the start event fires and the window holds
+    no host time (a wrapper's Python and launch calls), however slow the
+    host; ``host_ms`` measures that time apart."""
+    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
     fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(1_000_000)  # cycles; touches no memory
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,6 +153,83 @@ def time_ms(fn, reps: int = 25) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 50, batches: int = 10) -> float:
+    """Host time of one call of ``fn`` (a wrapper's Python, its checks and
+    its launches): the wall clock over ``calls`` calls issued back to back
+    from an idle device, over the call count, the least of ``batches``
+    such batches (other work on the host's cores only adds time).  The
+    launch queue holds more than ``calls`` calls' launches, so the host
+    does not wait on the device inside a batch."""
+    fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
+    return min(times)
+
+
+def encode_sr_sass(lib_path: str) -> dict:
+    """The main loop of ``encode_sr_kernel<WireI8, kVec = true>`` in the
+    SASS of the library at ``lib_path`` (``cuobjdump -sass``): among the
+    kernel's loops (a backward branch and the instructions from its target
+    to it), the one with the fewest instructions per element stored,
+    counted statically, an element being one byte stored to the int8 wire.
+    Integer multiplies (``IMAD.HI``, ``IMAD.WIDE``) are counted apart:
+    Hopper issues them at half the rate of the rest."""
+    from ddlpc_tpu_torch.kernels.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump failed: {r.stderr}")
+    code, labels, pending, inside = [], {}, [], False
+    for line in r.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if inside:
+                break
+            inside = re.search(r"encode_sr_kernelINS_\d+WireI8ELb1E", m.group(1)) is not None
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            text = re.sub(r"^@!?U?P[T\d]+\s+", "", m.group(2))
+            code.append((addr, text.split()[0], text))
+    best = None
+    for addr, op, text in code:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b", text)
+        target = labels.get(m.group(1)) if m and m.group(1) else (int(m.group(2), 16) if m else None)
+        if target is None or target > addr:
+            continue
+        body = [c for c in code if target <= c[0] <= addr]
+        stored = sum(STORE_BYTES.get(c[1].split(".")[-1], 4) for c in body if c[1].startswith("STG"))
+        if stored and (best is None or len(body) / stored < best["per_elem"]):
+            imul = sum(1 for c in body if c[1].startswith(("IMAD.HI", "IMAD.WIDE")))
+            best = {"loop_instructions": len(body), "elements": stored,
+                    "per_elem": len(body) / stored, "imul_per_elem": imul / stored}
+    if best is None:
+        fail("no loop that stores in the SASS of encode_sr_kernel<WireI8, vec>")
+    log(f"SASS of encode_sr_kernel<WireI8, vec>'s main loop: {best['loop_instructions']} "
+        f"instructions for {best['elements']} elements, {best['per_elem']:.3f} an element "
+        f"({best['imul_per_elem']:.3f} IMAD.HI/IMAD.WIDE)")
+    return best
 
 
 def codec_inputs(n: int, levels: float) -> torch.Tensor:
@@ -274,15 +381,12 @@ def kernel_phase(n: int) -> list:
         "ddlpc_fake_quantize", x.data_ptr(), fq_out.data_ptr(), n, amax.data_ptr(),
         levels, 1, stream()))
     results[2]["out_of_place_ms"] = time_ms(lambda: cq.fake_quantize_fused(x, cfg, out=fq_out))
-    # x.sum() reads the same 33.5 MB in one PyTorch reduction: not the same
-    # function, but what one read pass over x costs on this card.
     results[3]["abs_amax_ms"] = time_ms(lambda: x.abs().amax())
-    results[3]["sum_ms"] = time_ms(lambda: x.sum())
     log(f"fake_quantize_fused: in place {results[2]['ms']:.4f} ms, out of place "
         f"{results[2]['out_of_place_ms']:.4f} ms, its kernel alone {results[2]['kernel_ms']:.4f} ms; "
         f"absmax {results[3]['ms']:.4f} ms against x.abs().amax() "
-        f"{results[3]['abs_amax_ms']:.4f} ms, torch.linalg.vector_norm(x, inf) "
-        f"{results[3]['library_ms']:.4f} ms and x.sum() {results[3]['sum_ms']:.4f} ms")
+        f"{results[3]['abs_amax_ms']:.4f} ms and torch.linalg.vector_norm(x, inf) "
+        f"{results[3]['library_ms']:.4f} ms")
     # The int8 wire against torch.quantize_per_tensor, which does close to
     # the same work: it multiplies by the reciprocal of its scale (where the
     # kernel divides x by the max-abs, then multiplies by the levels) and
@@ -291,20 +395,28 @@ def kernel_phase(n: int) -> list:
     lv8 = float(plain.levels_for(i8))
     step8 = plain.true_div(scale, lv8)
     results[0]["int8_wire_ms"] = time_ms(lambda: cq.encode_to_wire(x, safe, i8, torch.int8))
+    results[0]["int8_wire_gb_per_s"] = gb_per_s(5 * n + 4, results[0]["int8_wire_ms"])
     qscale = float(step8)  # quantize_per_tensor takes its scale as a Python float
     results[0]["int8_wire_library_ms"] = time_ms(
         lambda: torch.quantize_per_tensor(x, qscale, 0, torch.qint8))
     log(f"encode_to_wire, int8 wire: {results[0]['int8_wire_ms']:.4f} ms, "
         f"torch.quantize_per_tensor {results[0]['int8_wire_library_ms']:.4f} ms")
-    # Decode on the int8 wire (the stochastic main path's) as well as fp16.
-    q8 = cq.encode_to_wire(x, safe, i8, torch.int8)
+    # Decode on the int8 wire (the stochastic main path's) and the int16
+    # wire as well as fp16.
     inv8 = plain.true_div(scale, lv8)
-    results[1]["int8_wire_ms"] = time_ms(lambda: cq.decode_from_wire(q8, inv8, out=out))
-    results[1]["int8_wire_plain_ms"] = time_ms(lambda: plain.decode_with_inv(q8, inv8))
-    results[1]["int8_wire_library_ms"] = time_ms(lambda: torch.mul(q8, inv8))
-    log(f"decode_from_wire, int8 wire: {results[1]['int8_wire_ms']:.4f} ms (bound "
-        f"{(n + 4 * n + 4) / HBM_BYTES_PER_S * 1e3:.4f} ms), plain "
-        f"{results[1]['int8_wire_plain_ms']:.4f} ms, torch.mul {results[1]['int8_wire_library_ms']:.4f} ms")
+    for wire8 in (torch.int8, torch.int16):
+        tag = str(wire8).replace("torch.", "")
+        q8 = cq.encode_to_wire(x, safe, i8, wire8)
+        n_bytes = q8.element_size() * n + 4 * n + 4
+        ms = results[1][f"{tag}_wire_ms"] = time_ms(lambda: cq.decode_from_wire(q8, inv8, out=out))
+        results[1][f"{tag}_wire_gb_per_s"] = gb_per_s(n_bytes, ms)
+        results[1][f"{tag}_wire_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        results[1][f"{tag}_wire_plain_ms"] = time_ms(lambda: plain.decode_with_inv(q8, inv8))
+        results[1][f"{tag}_wire_library_ms"] = time_ms(lambda: torch.mul(q8, inv8))
+        log(f"decode_from_wire, {tag} wire: {ms:.4f} ms, {gb_per_s(n_bytes, ms):.0f} GB/s (bound "
+            f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), plain "
+            f"{results[1][f'{tag}_wire_plain_ms']:.4f} ms, torch.mul "
+            f"{results[1][f'{tag}_wire_library_ms']:.4f} ms")
     return results
 
 
@@ -326,7 +438,7 @@ def timed_row(s: dict) -> dict:
     """A kernel's JSON row: its error against the plain version, its time,
     the plain version's, the bound's and the library call's."""
     bound_bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = s["ops"] / FP32_OPS_PER_S * 1e3
+    bound_ops_ms = s["ops_ms"] if "ops_ms" in s else s["ops"] / FP32_OPS_PER_S * 1e3
     row = {
         "name": s["name"],
         "route": "cuda",
@@ -339,14 +451,39 @@ def timed_row(s: dict) -> dict:
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None if s["library"] is None else time_ms(s["library"]),
+        "host_ms": host_ms(s["kernel"]),
     }
+    row["gb_per_s"] = gb_per_s(s["bytes"], row["ms"])
     log(
-        f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}: bytes {bound_bytes_ms:.4f}, operations {bound_ops_ms:.4f}; "
-        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms), "
-        f"max_abs_err {row['max_abs_err']}"
+        f"{row['name']}: {row['ms']:.4f} ms, host {row['host_ms']:.4f} ms a call, "
+        f"{row['gb_per_s']:.0f} GB/s (bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}: bytes {bound_bytes_ms:.4f}, "
+        f"operations {bound_ops_ms:.4f}; plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']} ms), max_abs_err {row['max_abs_err']}"
     )
     return row
+
+
+def gb_per_s(n_bytes: float, ms: float) -> float:
+    """Achieved rate: the bytes a row counts (each input read once, each
+    output written once) over its measured time."""
+    return n_bytes / ms / 1e6
+
+
+def floor_phase(n: int) -> dict:
+    """What plain data movement costs on this card and clock, beside the
+    kernel rows: ``y.copy_(x)`` of an n-element fp32 buffer (8n bytes) and
+    ``x.sum()`` (4n bytes read)."""
+    x = codec_inputs(n, 100.0)
+    y = torch.empty_like(x)
+    runs = {"copy": (lambda: y.copy_(x), 8 * n), "sum": (lambda: x.sum(), 4 * n)}
+    floor = {}
+    for name, (fn, n_bytes) in runs.items():
+        ms = time_ms(fn)
+        floor[name] = {"bytes": n_bytes, "ms": ms, "gb_per_s": gb_per_s(n_bytes, ms)}
+        log(f"floor {name}: {ms:.4f} ms, {gb_per_s(n_bytes, ms):.0f} GB/s over {n_bytes} "
+            f"bytes (bytes bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return floor
 
 
 def must_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -356,12 +493,13 @@ def must_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
         fail(f"{what}: differs at {bad} elements")
 
 
-def stochastic_kernel_phase(n: int) -> list:
+def stochastic_kernel_phase(n: int, sass: dict) -> list:
     """The four stochastic kernel families at the flagship's size: bit for
     bit against their plain versions on every wire, _noise fed the plain
     Philox field against _sr, the offset-slice property at one offset that
     is a multiple of 4 and one that is not, unbiasedness over 64 keys; then
-    one timed row each at the int8 stochastic main path's settings."""
+    one timed row each at the int8 stochastic main path's settings.
+    ``sass`` is ``encode_sr_sass``'s count, for ``encode_sr``'s bound."""
     from ddlpc_tpu_torch.config import CompressionConfig
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops import philox
@@ -433,7 +571,9 @@ def stochastic_kernel_phase(n: int) -> list:
             replaces="ddlpc_tpu/ops/pallas_quantize.py:142",
             kernel=lambda: cq.encode_to_wire(x, safe, cfg, wire, key=key),
             plain=lambda: plain.encode_with_scale(x, safe, levels, wire, key=key),
-            bytes=4 * n + n + 4, ops=sr_ops * n,
+            bytes=4 * n + n + 4,
+            ops_ms=n * max(sass["per_elem"] / INSTR_LANES_PER_S,
+                           sass["imul_per_elem"] / IMUL_LANES_PER_S) * 1e3,
             err=lambda: (cq.encode_to_wire(x, safe, cfg, wire, key=key).float()
                          - plain.encode_with_scale(x, safe, levels, wire, key=key).float()).abs().max(),
         ),
@@ -470,6 +610,7 @@ def stochastic_kernel_phase(n: int) -> list:
     log("library_ms is null for the stochastic kernels: no single PyTorch call "
         "rounds stochastically, with or without a Philox draw")
     rows = [timed_row(s) for s in specs]
+    rows[0]["sass_per_elem"], rows[0]["sass_imul_per_elem"] = sass["per_elem"], sass["imul_per_elem"]
     k0, k1 = key
     amax = cq.absmax(x)
     rows[1]["kernel_ms"] = time_ms(lambda: raw_launch(
@@ -650,6 +791,7 @@ def main() -> int:
     path = kbuild.build(verbose=True)
     kbuild.load_library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
+    sass = encode_sr_sass(path)
 
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.models import build_model
@@ -657,8 +799,9 @@ def main() -> int:
     with open(FLAGSHIP) as f:
         flagship = ExperimentConfig.from_json(f.read())
     n = sum(p.numel() for p in build_model(flagship.model).parameters())
+    floor = floor_phase(n)
     rows = kernel_phase(n)
-    sr_rows = stochastic_kernel_phase(n)
+    sr_rows = stochastic_kernel_phase(n, sass)
     reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
     reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
     main = main_path_phase(
@@ -691,7 +834,7 @@ def main() -> int:
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,15 +112,6 @@ absmax_kernel(const float* __restrict__ x, int64_t n, int64_t head,
   }
 }
 
-int sm_count() {
-  int dev = 0, count = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 1;
-  }
-  return count;
-}
-
 }  // namespace
 
 extern "C" {

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -92,5 +94,48 @@ __device__ __forceinline__ FqScalars fq_scalars(const float* amax, float levels)
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// A per-device value looked up on the first launch on that device and
+// kept, so a launch costs one cudaGetDevice and no other runtime query.
+// 0 means not looked up yet (static storage starts zeroed).
+constexpr int kMaxDevices = 64;
+struct PerDevice {
+  std::atomic<int> value[kMaxDevices];
+
+  template <typename Lookup>
+  int get(Lookup lookup) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return lookup(dev);
+    int v = value[dev].load(std::memory_order_relaxed);
+    if (v == 0) {
+      v = lookup(dev);
+      value[dev].store(v, std::memory_order_relaxed);
+    }
+    return v;
+  }
+};
+
+int sm_count() {
+  static PerDevice cache;
+  return cache.get([](int dev) {
+    int count = 0;
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  });
+}
+
+// A grid of kThreads-thread blocks for work_items threads' work, cut to
+// as many blocks of `kernel` as the card holds at once; the blocks then
+// stride over the buffer.  `cache` is the caller's, one for each kernel.
+template <typename Kernel>
+unsigned resident_grid(PerDevice& cache, Kernel kernel, int64_t work_items) {
+  const int64_t resident = cache.get([kernel](int) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    return sm_count() * (per_sm > 0 ? per_sm : 1);
+  });
+  const int64_t blocks = (work_items + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks < 1 ? 1 : blocks < resident ? blocks : resident);
+}
 
 }  // namespace

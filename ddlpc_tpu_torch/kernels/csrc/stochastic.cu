@@ -39,6 +39,22 @@
 // offset is not a multiple of 4, or a pointer is not 16-byte aligned, the
 // same kernel runs with scalar loads (kVec = false).
 //
+// encode_sr, on the int8 stochastic main path, is laid out for hiding the
+// load latency behind the generator.  Its main loop issues 39
+// instructions an element (312 for 8 elements in the SASS of the sm_90a
+// build, 38 of them IMAD.HI or IMAD.WIDE; chip_smoke.py counts them
+// with cuobjdump -sass): over 8,372,422 elements at 4 warp instructions a
+// clock on 132 SMs at 1.98 GHz that is 9.8 us, below its 12.5 us of bytes,
+// so bytes still bound it, but not by much.  One counter a thread (the
+// earlier layout) left each thread a single 16-byte load whose latency the
+// Philox rounds and four IEEE divides could not overlap, and made 2.09 M
+// threads each pay the scale's load, the key set-up and an exit for four
+// elements.  Now each lane takes kSrTiles counters a pass, 32 counters
+// apart (so a warp load reads 512 contiguous bytes and a warp store on the
+// int8 wire writes 128), issues all kSrTiles loads of x, computes the
+// kSrTiles Philox blocks while they are in flight, then snaps and stores;
+// a resident grid strides over the buffer.
+//
 // Bit-identity with the plain versions (ops/quantize.py): see codec.cuh;
 // the add of u is __fadd_rn, never contracted into an FMA.  Each entry
 // point returns cudaGetLastError().
@@ -96,27 +112,67 @@ __host__ __device__ __forceinline__ int64_t counter_count(int64_t n, int64_t off
   return n > 0 ? (offset + n - 1) / 4 - offset / 4 + 1 : 0;
 }
 
+// Counters a lane takes per pass of encode_sr_kernel's main loop: 2 ran
+// faster than 1, 4 or 8 on every wire on an H100 (PERF.md; 4 needs 64
+// registers and 8 120, which cut the warps resident).
+constexpr int kSrTiles = 2;
+
+template <typename W>
+__device__ __forceinline__ void encode_sr4(typename W::T* q, float4 f, uint4 r, float s,
+                                           float levels) {
+  store4<W>(q, snap_sr(f.x, s, levels, u24(r.x)), snap_sr(f.y, s, levels, u24(r.y)),
+            snap_sr(f.z, s, levels, u24(r.z)), snap_sr(f.w, s, levels, u24(r.w)));
+}
+
+// Counter j of the launch is stream counter c0 + j.  A warp's tile is 32
+// consecutive counters, one a lane; each warp takes kSrTiles consecutive
+// tiles per pass and strides over the buffer by the whole grid's.
 // kVec: offset % 4 == 0 and every pointer 16-byte aligned, so counter j
-// covers x[4j .. 4j + 3] and they load as one float4.
+// covers x[4j .. 4j + 3] and loads as one float4: a warp load instruction
+// reads one contiguous 512 B span, and a store one contiguous 128 B (int8)
+// or 256 B span.  The main loop takes the passes whose counters are all
+// whole: it issues its kSrTiles float4 loads, then computes the kSrTiles
+// Philox blocks (which need no load) while they are in flight, then snaps
+// and stores.  The rest (the ragged end, and every counter when !kVec, for
+// a slice at any offset) takes the same layout one counter at a time.
 template <typename W, bool kVec>
-__global__ void encode_sr_kernel(const float* __restrict__ x,
-                                 typename W::T* __restrict__ q, int64_t n,
-                                 const float* __restrict__ scale, float levels,
-                                 uint32_t k0, uint32_t k1, int64_t offset) {
+__global__ void __launch_bounds__(kThreads)
+encode_sr_kernel(const float* __restrict__ x, typename W::T* __restrict__ q, int64_t n,
+                 const float* __restrict__ scale, float levels, uint32_t k0, uint32_t k1,
+                 int64_t offset) {
   const float s = *scale;
   const int64_t c0 = first_counter(offset);
   const int64_t n_ctr = counter_count(n, offset);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n_ctr; j += stride) {
-    const uint4 r = philox4x32_10(static_cast<uint64_t>(c0 + j), k0, k1);
-    const float u[4] = {u24(r.x), u24(r.y), u24(r.z), u24(r.w)};
-    const int64_t i0 = 4 * (c0 + j) - offset;  // x index of the counter's word 0
-    if (kVec && i0 + 4 <= n) {
-      const float4 f = reinterpret_cast<const float4*>(x)[j];
-      store4<W>(q + i0, snap_sr(f.x, s, levels, u[0]), snap_sr(f.y, s, levels, u[1]),
-                snap_sr(f.z, s, levels, u[2]), snap_sr(f.w, s, levels, u[3]));
-    } else {
+  const int64_t n_whole = kVec ? n / 4 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  constexpr int64_t kSpan = 32 * kSrTiles;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t step = (static_cast<int64_t>(gridDim.x) * blockDim.x >> 5) * kSpan;
+  int64_t j = (tid >> 5) * kSpan + (threadIdx.x & 31);
+  for (; j + 32 * (kSrTiles - 1) < n_whole; j += step) {
+    float4 f[kSrTiles];
+    uint4 r[kSrTiles];
+#pragma unroll
+    for (int t = 0; t < kSrTiles; ++t) f[t] = x4[j + 32 * t];
+#pragma unroll
+    for (int t = 0; t < kSrTiles; ++t) {
+      r[t] = philox4x32_10(static_cast<uint64_t>(c0 + j + 32 * t), k0, k1);
+    }
+#pragma unroll
+    for (int t = 0; t < kSrTiles; ++t) encode_sr4<W>(q + 4 * (j + 32 * t), f[t], r[t], s, levels);
+  }
+  for (; j < n_ctr; j += step) {
+#pragma unroll
+    for (int t = 0; t < kSrTiles; ++t) {
+      const int64_t jt = j + 32 * t;
+      if (jt >= n_ctr) break;
+      const uint4 r = philox4x32_10(static_cast<uint64_t>(c0 + jt), k0, k1);
+      if (jt < n_whole) {
+        encode_sr4<W>(q + 4 * jt, x4[jt], r, s, levels);
+        continue;
+      }
+      const float u[4] = {u24(r.x), u24(r.y), u24(r.z), u24(r.w)};
+      const int64_t i0 = 4 * (c0 + jt) - offset;  // x index of the counter's word 0
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int64_t e = i0 + k;
@@ -224,14 +280,17 @@ template <typename W>
 int launch_encode_sr(const void* x, void* q, int64_t n, const void* scale,
                      float levels, uint32_t k0, uint32_t k1, int64_t offset,
                      void* stream) {
-  const unsigned blocks = static_cast<unsigned>(grid_for(counter_count(n, offset)));
+  const int64_t work = counter_count(n, offset) / kSrTiles;
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
   auto qw = static_cast<typename W::T*>(q);
   auto sf = static_cast<const float*>(scale);
+  static PerDevice vec_grid, scalar_grid;
   if (offset % 4 == 0 && aligned16(x) && aligned16(q)) {
+    const unsigned blocks = resident_grid(vec_grid, encode_sr_kernel<W, true>, work);
     encode_sr_kernel<W, true><<<blocks, kThreads, 0, st>>>(xf, qw, n, sf, levels, k0, k1, offset);
   } else {
+    const unsigned blocks = resident_grid(scalar_grid, encode_sr_kernel<W, false>, work);
     encode_sr_kernel<W, false><<<blocks, kThreads, 0, st>>>(xf, qw, n, sf, levels, k0, k1, offset);
   }
   return static_cast<int>(cudaGetLastError());

@@ -196,7 +196,9 @@ def decode_from_wire(
 ) -> torch.Tensor:
     """``float(q) · inv`` into ``out`` (a new fp32 tensor when None), where
     ``inv = scale / (levels · world_size)`` folds the mean into the one
-    multiply.  Replaces ``_decode_kernel`` (pallas_quantize.py:170)."""
+    multiply.  ``q`` and ``out`` may be slices at any alignment (the kernel
+    takes a scalar path where either is not 16-byte aligned).  Replaces
+    ``_decode_kernel`` (pallas_quantize.py:170)."""
     if q.dtype not in _WIRE_SUFFIX:
         raise TypeError(f"unsupported wire dtype {q.dtype}")
     _check_flat("q", q, q.dtype)
@@ -208,8 +210,6 @@ def decode_from_wire(
         raise ValueError(f"out must have shape {tuple(q.shape)} on {q.device}")
     if not _kernel_device(q):
         return plain.decode_with_inv(q, inv, out=out)
-    _check_aligned("q", q)
-    _check_aligned("out", out)
     _launch(f"ddlpc_decode_{_WIRE_SUFFIX[q.dtype]}", "decode_from_wire",
             q.data_ptr(), out.data_ptr(), q.numel(), inv.data_ptr(), _stream(q))
     return out

@@ -190,6 +190,40 @@ def test_wrappers_on_cpu_match_pallas_interpret(mode):
     assert torch.equal(inplace, tfq)
 
 
+_DECODE_WIRES = {"int8": (np.int8, torch.int8), "int16": (np.int16, torch.int16),
+                 "float16": (np.float16, torch.float16)}
+
+
+# Around the decode kernel's edges: four elements a 16-byte store, a
+# warp's pass of 1024 elements on every wire, a few passes and one more.
+# On the CPU the wrapper runs the plain version; the card tests
+# (test_torch_kernels_gpu.py) hold the kernel itself at these sizes.
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 1025, 3 * 1024 + 1])
+@pytest.mark.parametrize("wire", sorted(_DECODE_WIRES))
+def test_decode_at_tile_edges_bit_exact_against_pallas_interpret(wire, n):
+    """The decode wrapper equals ``decode_from_wire_pallas`` (interpreter)
+    on a one-leaf tree bit for bit, on the whole wire buffer and on the
+    slice ``q[1:]`` decoded into the slice ``out[1:]`` of a larger buffer
+    (neither 16-byte aligned on the card)."""
+    npw, tw = _DECODE_WIRES[wire]
+    rng = np.random.default_rng(n)
+    q = rng.integers(-127, 128, size=n + 1).astype(npw)
+    qt = torch.from_numpy(q.copy())
+    assert qt.dtype == tw
+    inv = np.float32(0.0371) / np.float32(10)
+    inv_t = torch.tensor([inv])
+    for lo in (0, 1):
+        want = jpallas.decode_from_wire_pallas(
+            {"q": jnp.asarray(q[lo : lo + n])}, jnp.float32(inv), interpret=True
+        )["q"]
+        _exact(want, cq.decode_from_wire(qt[lo : lo + n], inv_t).numpy())
+        out = torch.full((n + 1,), float("nan"))
+        tail = out[1:]
+        assert cq.decode_from_wire(qt[lo : lo + n], inv_t, out=tail) is tail
+        _exact(want, tail.numpy())
+        assert np.isnan(out[0].item())
+
+
 def test_wrappers_raise_on_unsupported_input():
     x = torch.randn(64)
     safe = torch.ones(1)

@@ -114,6 +114,76 @@ def test_stochastic_kernels_equal_plain_versions_on_card(card, n, offset):
     }
 
 
+# Around the decode and encode_sr kernels' edges.  Decode: a warp's tile
+# is 512 wire bytes (512 int8 or 256 16-bit elements), a warp's pass 1024
+# elements on every wire, a block's 8192.  encode_sr: four elements a
+# counter, a warp's tile of 32 counters (128 elements), a pass of two tiles
+# (256), a block's 2048.  And past one pass of the whole resident grid (at
+# most 132 SMs x 8 blocks x 8192 elements for decode), so the grid-stride
+# loops wrap.
+EDGE_SIZES = [1, 3, 4, 5, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+              2047, 2048, 2049, 8191, 8192, 8193, 3 * 8192 + 1, 9_000_003]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_decode_at_tile_edges_and_any_alignment_on_card(card, n):
+    """Decode equals its plain version bit for bit on every wire, for the
+    wire buffer and the slice ``q[1:]`` (not 16-byte aligned), each into an
+    aligned ``out`` and into the slice ``out[1:]``; one launch a call."""
+    x = _grads(n + 1, card)
+    scale = x.abs().amax().reshape(1)
+    safe = tq.safe_divisor(scale)
+    cq.reset_launch_counts()
+    calls = 0
+    for mode, wire in WIRES:
+        cfg = CompressionConfig(mode=mode)
+        inv = tq.true_div(scale, float(tq.levels_for(cfg)))
+        q_all = cq.encode_to_wire(x, safe, cfg, wire)
+        for lo in (0, 1):
+            q = q_all[lo : lo + n]
+            want = tq.decode_with_inv(q, inv)
+            for out_lo in (0, 1):
+                buf = torch.full((n + out_lo,), float("nan"), device=card)
+                out = buf[out_lo:]
+                assert cq.decode_from_wire(q, inv, out=out) is out
+                calls += 1
+                assert cq.LAUNCHES["decode_from_wire"] == calls
+                assert torch.equal(out, want), (wire, lo, out_lo)
+                if out_lo:
+                    assert torch.isnan(buf[0]).item()
+    torch.cuda.synchronize()
+    assert cq.LAUNCHES["encode_to_wire"] == len(WIRES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_encode_sr_at_tile_edges_and_any_offset_on_card(card, n):
+    """encode_sr of ``x = big[o:o + n]`` at offset ``o`` (not 16-byte
+    aligned for o = 1, 5) equals its plain version bit for bit on every
+    wire, and equals the slice of the encode of ``big`` drawn from 0; one
+    launch a call."""
+    key = (0xC0FFEE, n)
+    big = _grads(n + 5, card)
+    safe = tq.safe_divisor(big.abs().amax().reshape(1))
+    cq.reset_launch_counts()
+    calls = 0
+    for mode, wire in WIRES:
+        cfg = CompressionConfig(mode=mode, rounding="stochastic")
+        levels = float(tq.levels_for(cfg))
+        full = cq.encode_to_wire(big, safe, cfg, wire, key=key)
+        calls += 1
+        assert torch.equal(full, tq.encode_with_scale(big, safe, levels, wire, key=key))
+        for o in (0, 1, 4, 5):
+            x = big[o : o + n]
+            q = cq.encode_to_wire(x, safe, cfg, wire, key=key, offset=o)
+            calls += 1
+            assert cq.LAUNCHES["encode_sr"] == calls
+            assert torch.equal(q, full[o : o + n]), (wire, o)
+            assert torch.equal(q, tq.encode_with_scale(x, safe, levels, wire, key=key, offset=o))
+    torch.cuda.synchronize()
+
+
 def _plain_absmax(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax().reshape(1) if x.numel() else torch.zeros(1, device=x.device)
 

@@ -132,10 +132,30 @@ def _lattice_case(mode: str, zero: bool):
     return x, u, float(levels)
 
 
+# Around the encode_sr kernel's edges: four elements a Philox counter, a
+# warp's pass of two 32-counter tiles (256 elements), a few passes and one
+# more; at offsets that are and are not multiples of 4.  On the CPU the
+# wrappers run the plain versions; the card tests hold the kernel itself.
+_EDGES = [(n, o) for n in (1, 3, 4, 5, 255, 256, 257, 3 * 256 + 1) for o in (0, 1, 4, 5)]
+
+
+@pytest.mark.parametrize("n,offset", [(None, 0)] + _EDGES)
 @pytest.mark.parametrize("zero", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_plain_stochastic_bit_exact_against_jax_noise(mode, zero):
+def test_plain_stochastic_bit_exact_against_jax_noise(mode, zero, n, offset):
+    """The plain codec and the wrappers given a noise field equal JAX's
+    ``snap_to_lattice(noise=)`` bit for bit.  With ``n``, x is ``n``
+    elements at ``offset`` into the case's values and the noise is a key's
+    draw at ``offset``: the encode drawn from that key at that offset
+    equals JAX given the same draw, and the slice of the encode of the
+    whole buffer drawn from 0."""
     x, u, levels = _lattice_case(mode, zero)
+    key = (0x2545F491, n or 0)
+    big = x
+    if n is not None:
+        big = np.resize(x, n + offset)
+        x = big[offset:]
+        u = philox.uniform(key, offset, n).numpy()
     jcfg, tcfg = _sto(mode)
     jwire, twire = _WIRES[mode]
     scale = jq.global_absmax({"x": jnp.asarray(x)})
@@ -148,7 +168,12 @@ def test_plain_stochastic_bit_exact_against_jax_noise(mode, zero):
     _exact(q, cq.encode_to_wire(_t(x), tsafe, tcfg, twire, noise=_t(u)).numpy())
     _exact(dec, tq.fake_quantize([_t(x)], tcfg, noise=[_t(u)])[0].numpy())
     _exact(dec, cq.fake_quantize_fused(_t(x), tcfg, noise=_t(u)).numpy())
-    if not zero:
+    if n is not None:
+        tbig = _t(big)
+        got = cq.encode_to_wire(tbig[offset:], tsafe, tcfg, twire, key=key, offset=offset)
+        _exact(q, got.numpy())
+        assert torch.equal(cq.encode_to_wire(tbig, tsafe, tcfg, twire, key=key)[offset:], got)
+    elif not zero:
         # Exact lattice points and the largest u exercise the add's rounding.
         assert (np.asarray(q) != np.round(x / 2.0 * levels)).any()
 
