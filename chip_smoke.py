@@ -43,6 +43,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``compression.mode=int8, rounding=stochastic`` (which must warn about
    its large super-batch).  Every loss must be finite.
 
+5. the data-parallel paths, each a world of W processes of this script
+   (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
+   kills the world) through the CLI's entry on
+   ``configs/vaihingen_unet_v5e8.json`` at full width, 512² tiles,
+   micro-batch 128 a replica and three optimizer steps:
+   ``dp4_zero2_fp16`` (4 replicas, ZeRO-2, the f16 wire) and
+   ``dp2_off_int8_sr`` (2 replicas, the replicated fused all-reduce on the
+   int8 wire with stochastic rounding).  One card runs every rank on
+   ``cuda:0`` over gloo; a host with a card a rank runs NCCL.  Each rank's
+   launch counts must equal the path's (one launch a step of each codec
+   kernel, two of the max-abs pass), every rank's params must hash alike,
+   the losses be finite, and the world's sync of seeded gradient buffers
+   must equal the plain single-process simulation of the same sync over
+   all W buffers, bit for bit.  Each phase prints its backend and devices,
+   each rank's peak memory and the card's use, the step times, and the
+   sync's wall time a step beside its collectives alone and its codec
+   kernels alone.  The W ranks time-share one card here: their step time
+   is no scaling number.
+
+Before the main paths it also times the zero2 path's chunk-size kernels
+(decode, the max-abs pass, the fake-quantize against a given max-abs) at
+the chunk of 4 and of 8 replicas, on the card's clock and the host's.
+
 With ``--profile``, after each main path (once its launch counts are read)
 it runs one more optimizer step of that path under ``torch.profiler`` and
 prints the device time by kernel, the device's idle share over that step
@@ -71,6 +94,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(REPO, "configs", "vaihingen_unet_tpu_flagship.json")
+V5E8 = os.path.join(REPO, "configs", "vaihingen_unet_v5e8.json")
 WORKDIR = os.path.join(REPO, "runs", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # H100 SXM fp32 outside the tensor cores, published; NVIDIA publishes no
@@ -94,6 +118,22 @@ STOCHASTIC = (
     "compression.rounding=stochastic",
     "compression.codec_backend=pallas",
 )
+# The data-parallel paths: (replicas, extra overrides, expected launches a
+# step of each kernel, whether the large-batch warning fires).  v5e8 at 4
+# replicas (8 do not fit one card) is fp16 nearest at 100 levels on the f16
+# wire (4 x 100 <= 2048) and resolves to zero2; its int8-stochastic arm
+# (codec_backend=pallas, with quantize_mean) resolves to the replicated
+# fused all-reduce on the int8 wire (2 x 10 <= 127).
+DP_PHASES = {
+    "dp4_zero2_fp16": (4, (), "zero2",
+                       {"encode_to_wire": 1, "decode_from_wire": 1, "fake_quantize_fused": 1, "absmax": 2},
+                       False),
+    "dp2_off_int8_sr": (2, STOCHASTIC, "off",
+                        {"encode_sr": 1, "decode_from_wire": 1, "fake_quantize_sr": 1, "absmax": 2},
+                        True),
+}
+DP_DEADLINE_S = 420  # a world still running then is killed, and the run fails
+SYNC_STEP = 7  # the step whose key the sync-level check's stochastic rounding uses
 # Philox4x32-10 per element: 10 rounds of 2 mul.hi + 2 mul.lo + 4 xor +
 # 2 add per 4 elements, plus the 24-bit u (shift, convert, multiply).  An
 # estimate, used where no SASS count is kept (fake_quantize_sr).
@@ -696,10 +736,10 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     metrics_path = os.path.join(workdir, "metrics.jsonl")
     if os.path.exists(metrics_path):
         os.remove(metrics_path)
-    cfg, resume, device = parse_args(argv)
+    cfg, resume, device, backend = parse_args(argv)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        trainer = Trainer(cfg, resume=resume, device=device)
+        trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
     for w in caught:
         log(f"warning: {w.message}")
     warned = any("global super-batch" in str(w.message) for w in caught)
@@ -776,6 +816,291 @@ def profile_phase(trainer, label: str) -> None:
         + ", ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in sorted(codec.items())))
 
 
+def shard_kernel_rows(n: int) -> list:
+    """The zero2 path's kernels on one replica's chunk of the flagship's
+    flat buffer at 4 and 8 replicas (K = ``flat_chunk_rows(n, N)``):
+    decode from the f16 wire, the max-abs pass, and the fake-quantize
+    wrapper in place against a given max-abs (the mean stage), each held
+    against its plain version bit for bit, then timed on the card's clock
+    (``time_ms``) and on the host's (``host_ms``, a wrapper's time a
+    call).  Where a row's host time exceeds its device time, the host
+    bounds that call."""
+    from ddlpc_tpu_torch.config import CompressionConfig
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.ops import quantize as plain
+    from ddlpc_tpu_torch.parallel.shard_update import flat_chunk_rows
+
+    cfg = CompressionConfig(mode="float16")
+    levels = float(plain.levels_for(cfg))
+    rows = []
+    for shards in (4, 8):
+        k = flat_chunk_rows(n, shards)
+        x = codec_inputs(k, levels)
+        amax = cq.absmax(x)
+        safe = plain.safe_divisor(amax)
+        inv = plain.times_reciprocal(amax, levels * shards)
+        q = cq.encode_to_wire(x, safe, cfg, torch.float16)
+        out = torch.empty_like(x)
+        fq_in = x.clone()
+        must_equal(f"decode at K={k}", cq.decode_from_wire(q, inv), plain.decode_with_inv(q, inv))
+        must_equal(f"absmax at K={k}", cq.absmax(x), x.abs().amax().reshape(1))
+        must_equal(f"fake_quantize(amax=) at K={k}", cq.fake_quantize_fused(x, cfg, amax=amax),
+                   cq.fake_quantize_plain(x, cfg, amax=amax))
+        for name, fn, n_bytes in (
+            ("decode_from_wire", lambda: cq.decode_from_wire(q, inv, out=out), 6 * k + 4),
+            ("absmax", lambda: cq.absmax(x), 4 * k + 4),
+            ("fake_quantize_fused", lambda: cq.fake_quantize_fused(fq_in, cfg, out=fq_in, amax=amax),
+             8 * k + 4),
+        ):
+            row = {"name": name, "shards": shards, "k": k, "ms": time_ms(fn), "host_ms": host_ms(fn),
+                   "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+            row["host_bound"] = row["host_ms"] > row["ms"]
+            rows.append(row)
+            log(f"chunk K={k} ({shards} replicas) {name}: {row['ms']:.4f} ms on the card, host "
+                f"{row['host_ms']:.4f} ms a call, bound {row['bound_ms']:.4f} ms"
+                + (" — the host bounds it" if row["host_bound"] else ""))
+    return rows
+
+
+def simulate_sync(bufs: list, compression, key) -> torch.Tensor:
+    """The whole world's sync of ``bufs`` (one flat buffer a replica) in
+    plain PyTorch, in one process: the shared scale, each replica's
+    encode with its own local draw, the exact integer (or fp16-lattice)
+    sum, the decode, the mean stage — what every replica must hold after
+    ``sync_gradients`` (``off``) or the all-gathered chunks of
+    ``sync_gradients_scatter`` (``zero2``)."""
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.ops import philox
+    from ddlpc_tpu_torch.ops import quantize as plain
+    from ddlpc_tpu_torch.parallel.grad_sync import simulate_wire_dtype
+
+    world = len(bufs)
+    levels = float(plain.levels_for(compression))
+    wire = simulate_wire_dtype(world, compression)
+    if wire is None:
+        fail(f"[sync check] {compression} has no narrow wire at {world} replicas")
+    scale = torch.stack([plain.global_absmax([b]) for b in bufs]).amax().reshape(1)
+    total = torch.zeros(bufs[0].shape, dtype=torch.float64, device=bufs[0].device)
+    for r, b in enumerate(bufs):
+        local = None if key is None else philox.stage_key(key, "local", replica=r)
+        total += plain.encode_with_scale(b, plain.safe_divisor(scale), levels, wire, key=local).double()
+    mean = plain.decode_with_inv(total.float(), plain.times_reciprocal(scale, levels * world))
+    if compression.quantize_mean:
+        mean = cq.fake_quantize_plain(mean, compression,
+                                      key=None if key is None else philox.stage_key(key, "mean"))
+    return mean
+
+
+def _timed_ms(fn, reps: int = 5) -> float:
+    """Median wall time of ``fn()`` in the world, ranks lined up by a
+    barrier before each rep and the card drained after it."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
+    """One rank of a data-parallel phase (``mesh.spawn_world`` starts it
+    with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``): the CLI's entry on v5e8
+    for ``EPOCHS`` steps with the launch counts set to 0 just before and
+    read just after, the params' hash all-gathered, the sync-level check,
+    and the sync's cost; writes ``rank<r>.json`` for the parent."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.ops.philox import step_key
+    from ddlpc_tpu_torch.parallel import grad_sync, mesh
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    world, extra, level = DP_PHASES[label][:3]
+    mesh.initialize_distributed(backend, f"file://{os.path.join(workdir, 'rendezvous')}")
+    rank = mesh.replica_index()
+    argv = ["--config", V5E8, "--device", device, "--dist-backend", backend, "--no-resume",
+            "--workdir", os.path.join(workdir, "run"), "--set", f"train.epochs={EPOCHS}",
+            "--set", f"train.micro_batch_size={MICRO_BATCH}",
+            "--set", f"parallel.data_axis_size={world}"]
+    for o in OFF + extra:
+        argv += ["--set", o]
+    cfg, resume, dev, backend_arg = parse_args(argv)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = Trainer(cfg, resume=resume, device=dev, dist_backend=backend_arg)
+    warned = any("global super-batch" in str(w.message) for w in caught)
+    flat = trainer.state.params
+    torch.cuda.reset_peak_memory_stats()
+    cq.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(cq.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    digest = hashlib.sha256(flat.data.cpu().numpy().tobytes()).hexdigest()
+    hashes = [None] * world
+    dist.all_gather_object(hashes, digest)
+
+    # The sync-level check: each rank's gradient buffer from its own seed
+    # (the zero tail kept), synced by the path's own function; rank 0 holds
+    # the world's result against the plain simulation over all W buffers.
+    n = flat.numel
+
+    def seeded(r: int) -> torch.Tensor:
+        g = torch.Generator(device=flat.grad.device).manual_seed(1000 + r)
+        buf = torch.zeros_like(flat.grad)
+        buf[:n] = torch.randn(n, generator=g, device=buf.device) * (0.01 * (1 + r))
+        return buf
+
+    key = step_key(cfg.train.seed, SYNC_STEP) if cfg.compression.rounding == "stochastic" else None
+
+    def sync(buf: torch.Tensor) -> torch.Tensor:
+        if level == "zero2":
+            grad_sync.sync_gradients_scatter(buf, cfg.compression, world, key=key)
+            return mesh.all_gather_(buf)
+        return grad_sync.sync_gradients(buf, cfg.compression, axis_size=world, key=key)
+
+    synced = sync(seeded(rank))
+    torch.cuda.synchronize()
+    sync_digest = hashlib.sha256(synced.cpu().numpy().tobytes()).hexdigest()
+    sync_hashes = [None] * world
+    dist.all_gather_object(sync_hashes, sync_digest)
+    sync_equal = None
+    if rank == 0:
+        want = simulate_sync([seeded(r) for r in range(world)], cfg.compression, key)
+        torch.cuda.synchronize()
+        sync_equal = bool(torch.equal(synced, want))
+        if not sync_equal:
+            log(f"[{label}] sync check: {int((synced != want).sum())} elements differ from the plain simulation")
+
+    # The sync's cost a step: the whole sync, then its collectives alone on
+    # buffers of the same sizes and dtypes, then its codec kernels alone.
+    from ddlpc_tpu_torch.parallel.grad_sync import simulate_wire_dtype
+
+    buf = seeded(rank)
+    wire = simulate_wire_dtype(world, cfg.compression)
+    q = torch.zeros(buf.numel(), dtype=wire, device=buf.device)
+    one = torch.ones(1, device=buf.device)
+    k = flat.shard
+
+    def collectives():
+        mesh.all_reduce_(one, "max")
+        if level == "zero2":
+            mesh.reduce_scatter(q)
+            mesh.all_reduce_(one, "max")
+            mesh.all_gather_(flat.data)
+        else:
+            mesh.all_reduce_(q)
+
+    def codec():
+        from ddlpc_tpu_torch.ops import quantize as plain
+
+        scale = cq.absmax(buf)
+        draw = {} if key is None else {"key": (1, 2)}
+        qq = cq.encode_to_wire(buf, plain.safe_divisor(scale), cfg.compression, wire, **draw)
+        part = qq if level == "off" else qq[:k]
+        out = buf if level == "off" else buf[:k]
+        cq.decode_from_wire(part, scale, out=out)
+        if level == "off":
+            cq.fake_quantize_fused(out, cfg.compression, out=out, **draw)
+        else:
+            cq.fake_quantize_fused(out, cfg.compression, out=out, amax=cq.absmax(out))
+
+    cost = {"sync_ms": _timed_ms(lambda: sync(buf)), "collectives_ms": _timed_ms(collectives),
+            "codec_ms": _timed_ms(codec)}
+    result = {
+        "rank": rank, "world": world, "level": trainer.shard_update, "backend": backend,
+        "device": str(trainer.device), "launches": launches, "warned": warned,
+        "params_hashes": hashes, "sync_hashes": sync_hashes, "sync_equal": sync_equal,
+        "peak_bytes": peak, "card_used_bytes": total - free, "fit_s": fit_s,
+        "last": last, "n_params": n, "padded": flat.data.numel(), "shard": k, **cost,
+    }
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.destroy_distributed()
+
+
+def dp_phase(label: str) -> dict:
+    """A data-parallel phase: ``W`` ranks of this script (``dp_rank``) as
+    one world under ``DP_DEADLINE_S``, NCCL with a card a rank where the
+    host has ``W`` cards, else gloo with every rank on ``cuda:0``; then
+    every rank's checks."""
+    import shutil
+
+    from ddlpc_tpu_torch.parallel import mesh
+
+    world, _, level, per_step, warns = DP_PHASES[label]
+    workdir = os.path.join(WORKDIR, label)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    if torch.cuda.device_count() >= world:
+        backend, device = "nccl", "cuda"
+    else:
+        backend, device = "gloo", "cuda:0"
+    log(f"[{label}] {world} ranks, backend {backend}, device {device} "
+        f"({torch.cuda.device_count()} card(s) on this host)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--dp-rank", label, workdir,
+                      backend, device], world, DP_DEADLINE_S, cwd=REPO)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(workdir, "run", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    want = {name: EPOCHS * per_step.get(name, 0) for name in ranks[0]["launches"]}
+    for rr in ranks:
+        log(f"[{label}] rank {rr['rank']} on {rr['device']}: level {rr['level']}, kernels "
+            f"{json.dumps(rr['launches'])}, peak {rr['peak_bytes'] / 2**30:.2f} GiB, card in use "
+            f"{rr['card_used_bytes'] / 2**30:.2f} GiB; sync a step {rr['sync_ms']:.3f} ms "
+            f"(collectives alone {rr['collectives_ms']:.3f} ms, codec kernels alone "
+            f"{rr['codec_ms']:.3f} ms)")
+        if rr["level"] != level:
+            fail(f"[{label}] rank {rr['rank']} resolved shard_update to {rr['level']}, expected {level}")
+        if rr["launches"] != want:
+            fail(f"[{label}] rank {rr['rank']} kernel launches in {EPOCHS} steps: "
+                 f"{rr['launches']}, expected {want}")
+        if rr["warned"] != warns:
+            fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {rr['warned']}")
+    if len(set(ranks[0]["params_hashes"])) != 1:
+        fail(f"[{label}] the replicas' params differ: {ranks[0]['params_hashes']}")
+    if len(set(ranks[0]["sync_hashes"])) != 1 or not ranks[0]["sync_equal"]:
+        fail(f"[{label}] the synced gradient differs between replicas or from the plain simulation")
+    for rec in records:
+        log(f"[{label}] step {rec['epoch'] + 1}: loss {rec['loss']} step_time_s {rec['step_time_s']} "
+            f"grad_norm {rec['grad_norm']} val_miou {rec.get('val_miou')}")
+        if not math.isfinite(rec["loss"]) or not math.isfinite(rec["grad_norm"]):
+            fail(f"[{label}] non-finite training metrics {rec}")
+    if len(records) != EPOCHS:
+        fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
+    log(f"[{label}] replicas bit-identical ({ranks[0]['params_hashes'][0][:16]}), synced gradient "
+        f"== plain simulation bit for bit; world wall {wall_s:.1f} s")
+    return {
+        "world": world, "backend": backend, "device": device, "level": level,
+        "launches": ranks[0]["launches"], "wall_s": wall_s,
+        "step_time_s": [rec["step_time_s"] for rec in records],
+        "losses": [rec["loss"] for rec in records],
+        "peak_bytes": [rr["peak_bytes"] for rr in ranks],
+        "card_used_bytes": max(rr["card_used_bytes"] for rr in ranks),
+        "sync_ms": [rr["sync_ms"] for rr in ranks],
+        "collectives_ms": [rr["collectives_ms"] for rr in ranks],
+        "codec_ms": [rr["codec_ms"] for rr in ranks],
+        "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -785,6 +1110,9 @@ def main() -> int:
         from ddlpc_tpu_torch.kernels import build as kbuild
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of a data-parallel phase
+        dp_rank(*sys.argv[2:6])
+        return 0
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -802,6 +1130,7 @@ def main() -> int:
     floor = floor_phase(n)
     rows = kernel_phase(n)
     sr_rows = stochastic_kernel_phase(n, sass)
+    chunk_rows = shard_kernel_rows(n)
     reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
     reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
     main = main_path_phase(
@@ -822,19 +1151,24 @@ def main() -> int:
     if profile:
         profile_phase(sr["trainer"], "stochastic_int8")
     del sr["trainer"]
-    for run in (main, sr):
+    dp = {label: dp_phase(label) for label in DP_PHASES}
+    for run in (main, sr, *dp.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
-    # Each row's launches are read from the path that runs its kernel; the
-    # _noise kernels run on neither main path (the kernel phase drives them).
+    # Each row's launches are read from the single-process path that runs
+    # its kernel, with every path's count beside it (rank 0's for the
+    # data-parallel ones); the _noise kernels run on no main path (the
+    # kernel phase drives them).
     for path_rows, path in ((rows, "nearest_fp16"), (sr_rows, "stochastic_int8")):
         for row in path_rows:
             by_path = {"nearest_fp16": main["launches"][row["name"]],
-                       "stochastic_int8": sr["launches"][row["name"]]}
+                       "stochastic_int8": sr["launches"][row["name"]],
+                       **{label: run["launches"][row["name"]] for label, run in dp.items()}}
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
-    print(json.dumps({"kernels": rows, "floor": floor}))
+    print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
+                      "data_parallel": dp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

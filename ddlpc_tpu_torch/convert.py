@@ -149,3 +149,52 @@ def flax_from_torch(
             "nu": _params_to_flax(adam["nu"]),
         }
     return _params_to_flax(params), _unflatten(stats), opt
+
+
+def _full_buffer(flat, named: Mapping[str, torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """A buffer of ``flat``'s padded layout holding ``named`` (zero tail)."""
+    buf = torch.zeros_like(like)
+    for view, name in zip(flat.views(buf), flat.names):
+        view.copy_(named[name])
+    return buf
+
+
+def load_canonical(state, state_dict: Mapping[str, torch.Tensor], adam: Optional[Mapping] = None) -> None:
+    """Carry a canonical (full, unsharded) state — as
+    :func:`torch_state_from_flax` gives it — into a train state
+    (``parallel.train_step.TrainState``) in place: the model's params and
+    BatchNorm statistics whole, and the Adam moments whole under
+    ``shard_update='off'`` or as this replica's chunk under ``zero2``."""
+    state.model.load_state_dict(state_dict, strict=True)
+    if adam is None:
+        return
+    flat, opt = state.params, state.opt_state
+    opt.count = int(adam["count"])
+    for key in ("mu", "nu"):
+        full = _full_buffer(flat, adam[key], flat.data)
+        mine = getattr(opt, key)
+        if mine.numel() != full.numel():  # zero2: this replica's chunk
+            from ddlpc_tpu_torch.parallel.mesh import replica_index
+
+            full = flat.local(full, replica_index())
+        mine.copy_(full)
+
+
+def gather_canonical(state) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """The canonical state of a train state: ``(state_dict, adam)`` on the
+    CPU, the Adam moments all-gathered from the replicas' chunks under
+    ``zero2`` (every replica must call it)."""
+    from ddlpc_tpu_torch.parallel.mesh import all_gather_, replica_index
+
+    flat, opt = state.params, state.opt_state
+    adam: dict = {"count": opt.count}
+    for key in ("mu", "nu"):
+        mine = getattr(opt, key)
+        full = mine
+        if mine.numel() != flat.data.numel():
+            full = torch.zeros_like(flat.data)
+            flat.local(full, replica_index()).copy_(mine)
+            all_gather_(full)
+        adam[key] = {k: v.detach().cpu().clone() for k, v in flat.named_views(full).items()}
+    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    return sd, adam

@@ -82,15 +82,17 @@ __device__ __forceinline__ float dequant(float v, float step, bool half_wire) {
 // Fake-quantize's two scalars, from the raw max-abs s that ddlpc_absmax
 // wrote, by the plain codec's own IEEE operations: the zero-guarded
 // divisor (safe_divisor: s > 0 ? s : 1, so a zero or NaN max divides by 1)
-// and step = s / levels (true_div).  Every thread derives them itself, so
-// nothing is enqueued between the max-abs pass and the kernel.
+// and step = s * rn(1 / levels) (times_reciprocal: XLA compiles the JAX
+// codec's division by the constant levels into that multiply).  Every
+// thread derives them itself, so nothing is enqueued between the max-abs
+// pass and the kernel.
 struct FqScalars {
   float safe, step;
 };
 
 __device__ __forceinline__ FqScalars fq_scalars(const float* amax, float levels) {
   const float s = *amax;
-  return {s > 0.0f ? s : 1.0f, __fdiv_rn(s, levels)};
+  return {s > 0.0f ? s : 1.0f, __fmul_rn(s, __frcp_rn(levels))};
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -1,12 +1,15 @@
 """Model registry: ``build_model`` with the reference's validation
 (``ddlpc_tpu/models/__init__.py``).  This slice ports ``unet``; the other
-models raise ``NotImplementedError``."""
+models raise ``NotImplementedError``.  ``build_model_from_experiment``
+switches sync-BN on from ``parallel.sync_batch_norm`` in a world of more
+than one replica."""
 
 from __future__ import annotations
 
 import torch
 
-from ddlpc_tpu_torch.config import ModelConfig
+from ddlpc_tpu_torch.config import ExperimentConfig, ModelConfig
+from ddlpc_tpu_torch.models.layers import BatchNorm
 from ddlpc_tpu_torch.models.unet import UNet
 
 _KNOWN_MODELS = ("unet", "unetpp", "deeplabv3p")
@@ -21,7 +24,12 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r} (float32 | bfloat16)") from None
 
 
-def build_model(cfg: ModelConfig, in_channels: int = 3, seed: int = 0) -> UNet:
+def build_model(
+    cfg: ModelConfig, in_channels: int = 3, seed: int = 0, norm_axis_size: int = 1
+) -> UNet:
+    """The model, its weights drawn from ``seed``; ``norm_axis_size > 1``
+    averages BatchNorm's batch statistics over a process group of that
+    size (the JAX package's ``norm_axis_name``)."""
     if cfg.name not in _KNOWN_MODELS:
         raise ValueError(f"unknown model {cfg.name!r}; registered: {sorted(_KNOWN_MODELS)}")
     if cfg.detail_head and cfg.name not in _DETAIL_HEAD_MODELS:
@@ -69,7 +77,7 @@ def build_model(cfg: ModelConfig, in_channels: int = 3, seed: int = 0) -> UNet:
         raise NotImplementedError(
             f"model.detail_head_kind={cfg.detail_head_kind!r} is not yet ported"
         )
-    return UNet(
+    model = UNet(
         num_classes=cfg.num_classes,
         features=tuple(cfg.features),
         bottleneck_features=cfg.bottleneck_features,
@@ -83,4 +91,20 @@ def build_model(cfg: ModelConfig, in_channels: int = 3, seed: int = 0) -> UNet:
         head_dtype=torch_dtype(cfg.head_dtype),
         in_channels=in_channels,
         seed=seed,
+    )
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_size = norm_axis_size
+    return model
+
+
+def build_model_from_experiment(
+    ecfg: ExperimentConfig, in_channels: int, data_size: int
+) -> UNet:
+    """``build_model`` with sync-BN over ``data_size`` replicas where
+    ``parallel.sync_batch_norm`` holds."""
+    sync = ecfg.parallel.sync_batch_norm and data_size > 1
+    return build_model(
+        ecfg.model, in_channels=in_channels, seed=ecfg.train.seed,
+        norm_axis_size=data_size if sync else 1,
     )

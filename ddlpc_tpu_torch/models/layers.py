@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -28,6 +29,26 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the process group, differentiable: the backward sums the
+    cotangents over the group too, which is what the JAX package's
+    ``pmean`` transposes to inside ``shard_map(check=False)`` — each
+    replica's gradient then holds every replica's loss's dependence on its
+    own activations through the shared statistics."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
 def batch_norm(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -35,18 +56,25 @@ def batch_norm(
     running_mean: torch.Tensor,
     running_var: torch.Tensor,
     train: bool,
+    axis_size: int = 1,
 ) -> torch.Tensor:
     """flax ``nn.BatchNorm`` semantics over NCHW (statistics per channel).
 
     Train mode: float32 statistics with the fast variance E[x²]−E[x]²
     clipped at 0, and the running averages updated in place with flax's
     momentum (0.9 on the old value) and the *biased* batch variance — not
-    ``nn.BatchNorm2d``'s rule.  Output in ``x.dtype``."""
+    ``nn.BatchNorm2d``'s rule.  With ``axis_size > 1`` (sync-BN) the batch
+    mean and mean of squares are averaged over the process group of that
+    size in one reduce, as flax's ``axis_name`` does.  Output in
+    ``x.dtype``."""
     shape = (1, -1, 1, 1)
     if train:
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        if axis_size > 1:
+            both = _AllReduceSum.apply(torch.cat([mean, mean2])) / axis_size
+            mean, mean2 = both.split(mean.numel())
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         with torch.no_grad():
             running_mean.copy_(
@@ -63,8 +91,12 @@ def batch_norm(
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, features: int):
+    """``axis_size > 1``: sync-BN over a process group of that size
+    (``models.build_model(norm_axis_size=)`` sets it)."""
+
+    def __init__(self, features: int, axis_size: int = 1):
         super().__init__()
+        self.axis_size = axis_size
         self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -73,7 +105,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            self.training,
+            self.training, self.axis_size,
         )
 
 

@@ -221,11 +221,13 @@ def fake_quantize_plain(
     key: Optional[PhiloxKey] = None,
     offset: int = 0,
     noise: Optional[torch.Tensor] = None,
+    amax: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`fake_quantize_fused`: the codec's
-    encode→decode round trip on one buffer."""
+    encode→decode round trip on one buffer, against ``amax`` where given."""
     return plain.fake_quantize(
-        [x], cfg, key=key, offset=offset, noise=None if noise is None else [noise]
+        [x], cfg, key=key, offset=offset, noise=None if noise is None else [noise],
+        scale=None if amax is None else amax.reshape(()),
     )[0]
 
 
@@ -236,37 +238,46 @@ def fake_quantize_fused(
     key: Optional[PhiloxKey] = None,
     offset: int = 0,
     noise: Optional[torch.Tensor] = None,
+    amax: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Quantize→dequantize ``x`` against its own max-abs; bit-identical to
-    ``ops.quantize.fake_quantize`` on the one-leaf tree.  ``out`` may be
-    ``x`` itself (in place).
+    """Quantize→dequantize ``x`` against its own max-abs, or against
+    ``amax`` (a 1-element fp32 tensor on ``x``'s device) where the caller
+    has reduced it already (a shard of the mean against the whole model's
+    max); bit-identical to ``ops.quantize.fake_quantize`` on the one-leaf
+    tree.  ``out`` may be ``x`` itself (in place).
 
     Replaces ``_fq_kernel`` (pallas_quantize.py:50): nearest
     (``ddlpc_fake_quantize``) or its stochastic branch with ``key``
     (``ddlpc_fake_quantize_sr``); and ``_fq_kernel_hostnoise`` (:71) with
     ``noise`` (``ddlpc_fake_quantize_noise``).  On the card it is two
-    launches: :func:`absmax`, then the kernel, which reads the raw max-abs
-    by pointer and derives the zero-guarded divisor and the step itself."""
+    launches, :func:`absmax` (none when ``amax`` is given), then the
+    kernel, which reads the raw max-abs by pointer and derives the
+    zero-guarded divisor and the step itself."""
     if cfg.mode == "none":
         return x
     levels = float(plain.levels_for(cfg))
     key, noise = plain.rounding_key(cfg, key, noise)
     _check_flat("x", x, torch.float32)
     _check_draw(x, key, offset, noise)
+    if amax is not None:
+        _check_scalar("amax", amax, x)
     if out is None:
         out = torch.empty_like(x)
     _check_flat("out", out, torch.float32)
     if out.shape != x.shape or out.device != x.device:
         raise ValueError(f"out must have shape {tuple(x.shape)} on {x.device}")
     if not _kernel_device(x):
-        return out.copy_(fake_quantize_plain(x, cfg, key=key, offset=offset, noise=noise))
+        return out.copy_(
+            fake_quantize_plain(x, cfg, key=key, offset=offset, noise=noise, amax=amax)
+        )
     if noise is not None:  # nearest and _sr take any alignment; _noise moves float4s
         _check_aligned("x", x)
         _check_aligned("out", out)
         _check_aligned("noise", noise)
     # The max-abs pass reads x whole before the kernel, the next launch on
     # the stream, writes out: so out may be x.
-    amax = absmax(x)
+    if amax is None:
+        amax = absmax(x)
     common = (x.numel(), amax.data_ptr(), levels, int(cfg.mode == "float16"))
     if key is not None:
         _launch("ddlpc_fake_quantize_sr", "fake_quantize_sr", x.data_ptr(),

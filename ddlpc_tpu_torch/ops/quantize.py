@@ -6,7 +6,9 @@ tree into one buffer, which is a one-leaf tree).  The arithmetic is the
 reference's, operation for operation, so encode/decode/fake_quantize are
 bit-identical to it: ``x / scale`` (IEEE division), ``* levels``,
 half-to-even rounding, clip to ±levels, cast to the wire dtype; decode is
-one multiply by the runtime scalar ``scale / levels``.
+one multiply by the runtime scalar ``scale · rn(1/levels)``, the JAX
+package's ``scale / levels`` as XLA compiles it (a division by a constant
+becomes a multiply by its reciprocal).
 
 This module is the plain version of the CUDA kernels in
 ``ops/cuda_quantize.py``: the wrappers there call it for CPU tensors, and
@@ -90,6 +92,16 @@ def true_div(t: torch.Tensor, divisor: float) -> torch.Tensor:
     return t / torch.full((), divisor, dtype=t.dtype, device=t.device)
 
 
+def times_reciprocal(t: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``t · rn(1 / divisor)``, the fp32 reciprocal rounded once: what XLA
+    compiles the JAX codec's ``t / divisor`` into when the divisor is a
+    constant of the program (``levels``, ``levels · axis_size``), as it is
+    in every jitted train step.  (Eager JAX divides; the two agree where
+    ``t`` is a power of two, and may differ by an ulp elsewhere.)"""
+    one = torch.ones((), dtype=torch.float32)
+    return t * float(one / torch.full((), divisor, dtype=torch.float32))
+
+
 def snap_to_lattice(
     scaled: torch.Tensor, levels: float, noise: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -156,9 +168,13 @@ def encode(
     key: Optional[PhiloxKey] = None,
     offset: int = 0,
     noise: Optional[Sequence[torch.Tensor]] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> Encoded:
-    """Quantize a gradient tree.  mode='none' stores fp32 unchanged."""
-    scale = global_absmax(tree)
+    """Quantize a gradient tree against its max-abs, or against ``scale``
+    (0-dim fp32) where the caller gives one.  mode='none' stores fp32
+    unchanged."""
+    if scale is None:
+        scale = global_absmax(tree)
     if cfg.mode == "none":
         return Encoded(scale, [leaf.float() for leaf in tree])
     key, noise = rounding_key(cfg, key, noise)
@@ -172,11 +188,13 @@ def encode(
 
 
 def decode(enc: Encoded, cfg: CompressionConfig) -> list:
-    """Dequantize: ``q · (scale / levels)`` — one multiply by a runtime
-    scalar, so every program rounds it the same way."""
+    """Dequantize: ``q · step`` with ``step = scale · rn(1/levels)``
+    (:func:`times_reciprocal`, the JAX decode's ``scale / levels`` as
+    XLA compiles it) — one multiply by a runtime scalar, so every program
+    rounds it the same way."""
     if cfg.mode == "none":
         return list(enc.tree)
-    step = true_div(enc.scale, float(levels_for(cfg)))
+    step = times_reciprocal(enc.scale, float(levels_for(cfg)))
     return [q.float() * step for q in enc.tree]
 
 
@@ -186,11 +204,13 @@ def fake_quantize(
     key: Optional[PhiloxKey] = None,
     offset: int = 0,
     noise: Optional[Sequence[torch.Tensor]] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> list:
-    """encode→decode round trip; identity when mode='none'."""
+    """encode→decode round trip (against ``scale`` where given); identity
+    when mode='none'."""
     if cfg.mode == "none":
         return list(tree)
-    return decode(encode(tree, cfg, key=key, offset=offset, noise=noise), cfg)
+    return decode(encode(tree, cfg, key=key, offset=offset, noise=noise, scale=scale), cfg)
 
 
 def quantization_error_bound(cfg: CompressionConfig) -> float:

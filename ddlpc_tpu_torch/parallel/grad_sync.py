@@ -1,5 +1,5 @@
 """Gradient synchronization with the optional lossy codec — the port's copy
-of ``ddlpc_tpu/parallel/grad_sync.py`` for one process.
+of ``ddlpc_tpu/parallel/grad_sync.py``.
 
 The gradient tree arrives as ONE flat fp32 buffer (``FlatParams.grad``),
 so each codec stage is a single kernel launch over the whole model.  The
@@ -7,18 +7,29 @@ loss points are the reference's: ``quantize_local`` before the reduce (the
 worker's wire), ``quantize_mean`` on the mean (the server's re-quantized
 broadcast).  When the lattice sums fit a narrow dtype
 (:func:`simulate_wire_dtype`) the local stage FUSES into the reduce: the
-lattice itself is what the all-reduce sums, and one decode multiply by
-``scale / (levels · world_size)`` both dequantizes and takes the mean.
+lattice itself is what the all-reduce sums, against a scale shared by all
+replicas (the max over the world of each one's max-abs), and one decode
+multiply by ``scale / (levels · world_size)`` (as XLA compiles it: by the
+constant's fp32 reciprocal) both dequantizes and takes
+the mean.
+
+Two programs, as in the JAX package: :func:`sync_gradients` all-reduces
+and leaves every replica the whole mean (``shard_update='off'``);
+:func:`sync_gradients_scatter` reduce-scatters and leaves replica ``r``
+only its chunk of the mean (``zero2``, chunk layout in
+``shard_update.py``), its mean stage run on the chunk against the max of
+the chunks' max-abs values, which is the whole mean's.
 
 Stochastic rounding (``compression.rounding='stochastic'``) takes the
 step's key (``ops/philox.step_key``) and splits it as the reference's
 ``_sync_tree`` does: a local key with the replica index folded in, and a
 mean key every replica shares.  Each stage's kernel draws its Philox
-stream from offset 0 of the flat buffer.
+stream from offset 0 of the flat buffer; a chunk of the mean draws from
+its own offset, so that it rounds as the same elements of the whole mean
+would.
 
-This slice runs one process: the reduce over replicas is the identity
-(:func:`_allreduce_sum`), the one place a later slice puts
-``torch.distributed.all_reduce`` (with a MAX reduce for the shared scale).
+The reduces over replicas run over the process group
+(``parallel/mesh.py``); with one replica they are the identity.
 """
 
 from __future__ import annotations
@@ -34,8 +45,11 @@ from ddlpc_tpu_torch.ops.quantize import (
     levels_for,
     rounding_key,
     safe_divisor,
-    true_div,
+    times_reciprocal,
 )
+from ddlpc_tpu_torch.parallel import mesh
+from ddlpc_tpu_torch.parallel.compressed_allreduce import wire_dtype
+from ddlpc_tpu_torch.parallel.shard_update import local_chunk
 
 Codec = Callable[[torch.Tensor, CompressionConfig], torch.Tensor]
 
@@ -69,37 +83,72 @@ def simulate_wire_dtype(
     ):
         return None
     levels = levels_for(compression)
-    peak = axis_size * levels
     if compression.mode == "int8":
-        if peak <= 127:
-            return torch.int8
-        if peak <= 32767:
-            return torch.int16
-        return None
-    if peak <= 2048:
+        try:
+            return wire_dtype(axis_size, levels)
+        except ValueError:
+            return None
+    if axis_size * levels <= 2048:
         return torch.float16
     return None
 
 
 def _allreduce_sum(t: torch.Tensor, axis_size: int) -> torch.Tensor:
-    """Sum over replicas.  One process: the identity."""
-    if axis_size != 1:
-        raise NotImplementedError("gradient sync across processes is not yet ported")
-    return t
+    """Sum over replicas, in place (int16 widened for the collective, see
+    ``mesh.py``); the identity for one."""
+    if axis_size == 1:
+        return t
+    mesh.check_world(axis_size)
+    return mesh.all_reduce_(t, "sum")
 
 
 def _allreduce_max(t: torch.Tensor, axis_size: int) -> torch.Tensor:
-    """Max over replicas (the shared codec scale).  One process: the identity."""
-    if axis_size != 1:
-        raise NotImplementedError("gradient sync across processes is not yet ported")
-    return t
+    """Max over replicas (the shared codec scale), in place."""
+    if axis_size == 1:
+        return t
+    mesh.check_world(axis_size)
+    return mesh.all_reduce_(t, "max")
+
+
+def _reduce_scatter_sum(t: torch.Tensor, axis_size: int) -> torch.Tensor:
+    """This replica's chunk of the sum over replicas (a new tensor)."""
+    if axis_size == 1:
+        return t.clone()
+    mesh.check_world(axis_size)
+    return mesh.reduce_scatter(t)
 
 
 def _replica_index(axis_size: int) -> int:
-    """This process's index among the replicas.  One process: 0."""
-    if axis_size != 1:
-        raise NotImplementedError("gradient sync across processes is not yet ported")
-    return 0
+    """This process's index among the replicas."""
+    if axis_size == 1:
+        return 0
+    mesh.check_world(axis_size)
+    return mesh.replica_index()
+
+
+def _encode_shared(
+    flat: torch.Tensor,
+    compression: CompressionConfig,
+    axis_size: int,
+    wire: torch.dtype,
+    draw: dict,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused path's encode: ``(lattice on the wire, shared scale)``,
+    the scale being the max over replicas of each one's max-abs."""
+    scale = _allreduce_max(cuda_quantize.absmax(flat), axis_size)
+    q = cuda_quantize.encode_to_wire(flat, safe_divisor(scale), compression, wire, **draw)
+    return q, scale
+
+
+def _decode_mean(
+    q: torch.Tensor, scale: torch.Tensor, compression: CompressionConfig,
+    axis_size: int, out: torch.Tensor,
+) -> torch.Tensor:
+    """The summed lattice as the mean: ``inv = scale / (levels · axis_size)``
+    as the JAX program computes it, a multiply by the constant's fp32
+    reciprocal (``times_reciprocal``)."""
+    inv = times_reciprocal(scale, float(levels_for(compression)) * axis_size)
+    return cuda_quantize.decode_from_wire(q, inv, out=out)
 
 
 def _fused_allreduce_mean(
@@ -112,15 +161,9 @@ def _fused_allreduce_mean(
 ) -> torch.Tensor:
     """quantize_local with the narrow dtype on the wire: encode against the
     shared scale (rounding with the local stage's ``draw``), sum the
-    lattice, decode with ``inv = scale / (levels · axis_size)`` into
-    ``out``."""
-    scale = _allreduce_max(cuda_quantize.absmax(flat), axis_size)
-    safe = safe_divisor(scale)
-    levels = float(levels_for(compression))
-    q = cuda_quantize.encode_to_wire(flat, safe, compression, wire, **draw)
-    summed = _allreduce_sum(q, axis_size)
-    inv = true_div(scale, levels * axis_size)
-    return cuda_quantize.decode_from_wire(summed, inv, out=out)
+    lattice, decode the mean into ``out``."""
+    q, scale = _encode_shared(flat, compression, axis_size, wire, draw)
+    return _decode_mean(_allreduce_sum(q, axis_size), scale, compression, axis_size, out)
 
 
 def check_supported(compression: CompressionConfig) -> None:
@@ -162,6 +205,16 @@ def _stage_draws(
     return {"key": local}, {"key": philox.stage_key(key, "mean")}
 
 
+def _chunk_draw(draw: dict, index: int, k: int) -> dict:
+    """The draw of replica ``index``'s K-element chunk of a buffer: the
+    chunk of a given field, or the key's stream from the chunk's offset."""
+    if "noise" in draw:
+        return {"noise": draw["noise"][index * k : (index + 1) * k]}
+    if "key" in draw:
+        return {"key": draw["key"], "offset": index * k}
+    return {}
+
+
 def sync_gradients(
     flat: torch.Tensor,
     compression: CompressionConfig,
@@ -192,3 +245,62 @@ def _sync_tree(flat, compression, axis_size, fq, local: dict, mean: dict) -> tor
     if compression.quantize_mean:
         fq(flat, compression, out=flat, **mean)
     return flat
+
+
+def validate_scatter_compression(compression: CompressionConfig) -> None:
+    """Reject codec settings the sharded update cannot reproduce bit for
+    bit, as the JAX package does (``resolve_shard_update``'s ``auto``
+    avoids them; the ring transport is not ported at all)."""
+    check_supported(compression)
+    if (
+        compression.mode != "none"
+        and compression.quantize_mean
+        and compression.codec_backend == "pallas"
+    ):
+        raise ValueError(
+            "sharded update cannot reproduce the pallas mean-stage codec "
+            "bit-identically (hardware-PRNG noise cannot be sliced to a "
+            "shard) — use codec_backend='xla' or shard_update='off'"
+        )
+
+
+def sync_gradients_scatter(
+    flat: torch.Tensor,
+    compression: CompressionConfig,
+    axis_size: int,
+    key: Optional[int] = None,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Reduce-scatter-mean the flat gradient buffer (``axis_size · K``
+    elements): returns this replica's chunk of the codec-processed mean,
+    written IN PLACE into its chunk of ``flat`` (the rest of ``flat`` is
+    left holding this replica's pre-sync gradient, or its fake-quantized
+    copy).
+
+    Per element it equals :func:`sync_gradients`: the local stage encodes
+    the whole buffer exactly as there, the integer (or fp16) lattice sums
+    are exact in any order, and the mean stage quantizes the chunk against
+    the whole mean's max-abs with the chunk's slice of the mean stage's
+    draw.  ``noise=(local_u, mean_u)`` are full-buffer fields."""
+    validate_scatter_compression(compression)
+    fq = resolve_codec_backend(compression)
+    local, mean = _stage_draws(compression, axis_size, key, noise)
+    return _scatter_tree(flat, compression, axis_size, fq, local, mean)
+
+
+def _scatter_tree(flat, compression, axis_size, fq, local: dict, mean: dict) -> torch.Tensor:
+    index = _replica_index(axis_size)
+    shard = local_chunk(flat, axis_size, index)
+    wire = simulate_wire_dtype(axis_size, compression)
+    if wire is not None:
+        q, scale = _encode_shared(flat, compression, axis_size, wire, local)
+        _decode_mean(_reduce_scatter_sum(q, axis_size), scale, compression, axis_size, shard)
+    else:
+        if compression.quantize_local:
+            fq(flat, compression, out=flat, **local)
+        shard.copy_(_reduce_scatter_sum(flat, axis_size)).div_(axis_size)
+    if compression.quantize_mean and compression.mode != "none":
+        amax = _allreduce_max(cuda_quantize.absmax(shard), axis_size)
+        fq(shard, compression, out=shard, amax=amax,
+           **_chunk_draw(mean, index, shard.numel()))
+    return shard

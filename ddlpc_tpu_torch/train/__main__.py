@@ -1,16 +1,29 @@
 """CLI: ``python -m ddlpc_tpu_torch.train --config cfg.json --set train.epochs=3``.
 
 The same flags as ``python -m ddlpc_tpu.train`` (``--config``, ``--set``,
-``--workdir``, ``--no-resume``) and the same JSON configs, plus the one
-knob only the port has: ``--device cuda|cpu`` (default ``cuda``; without
-CUDA the run raises unless ``--device cpu`` is given).
+``--workdir``, ``--no-resume``) and the same JSON configs, plus the knobs
+only the port has:
+
+- ``--device cuda|cuda:N|cpu`` (default ``cuda``; without CUDA the run
+  raises unless ``--device cpu`` is given).  In a world of several
+  processes ``cuda`` is ``cuda:{LOCAL_RANK}`` and raises where the host
+  has no such card; ``cuda:N`` puts every rank on card N;
+- ``--dist-backend nccl|gloo`` (default ``nccl`` on a card, ``gloo`` on
+  the CPU).  Several ranks on one card need ``gloo``: NCCL refuses them.
+
+A data-parallel world is started by torchrun, one process per replica::
+
+    torchrun --nproc-per-node 4 -m ddlpc_tpu_torch.train --config cfg.json \
+        --set parallel.data_axis_size=4
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import re
 import sys
+from typing import Optional
 
 from ddlpc_tpu_torch.config import ExperimentConfig
 
@@ -30,8 +43,14 @@ def apply_override(d: dict, dotted: str, value: str) -> None:
         cur[keys[-1]] = value  # bare string
 
 
-def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str]:
-    """(config, resume, device) from the command line."""
+def _device_arg(value: str) -> str:
+    if value == "cpu" or re.fullmatch(r"cuda(:\d+)?", value):
+        return value
+    raise argparse.ArgumentTypeError(f"expected cuda, cuda:N or cpu, got {value!r}")
+
+
+def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str, Optional[str]]:
+    """(config, resume, device, dist_backend) from the command line."""
     p = argparse.ArgumentParser(prog="python -m ddlpc_tpu_torch.train", description=__doc__)
     p.add_argument("--config", help="JSON config file, e.g. configs/vaihingen_unet_tpu_flagship.json")
     p.add_argument(
@@ -40,7 +59,10 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str]:
     )
     p.add_argument("--workdir", help="run directory (metrics.jsonl)")
     p.add_argument("--no-resume", action="store_true", help="ignore existing checkpoints")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--device", type=_device_arg, default="cuda",
+                   help="cuda (cuda:LOCAL_RANK in a world), cuda:N or cpu")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="default: nccl on a card, gloo on the CPU")
     args = p.parse_args(argv)
     if args.config:
         with open(args.config) as f:
@@ -56,15 +78,22 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str]:
     cfg = ExperimentConfig.from_dict(d)
     if args.workdir:
         cfg = cfg.replace(workdir=args.workdir)
-    return cfg, not args.no_resume, args.device
+    return cfg, not args.no_resume, args.device, args.dist_backend
 
 
 def main(argv=None) -> int:
-    cfg, resume, device = parse_args(argv)
+    cfg, resume, device, backend = parse_args(argv)
     from ddlpc_tpu_torch.train.trainer import Trainer
 
-    record = Trainer(cfg, resume=resume, device=device).fit()
-    print({k: round(v, 4) if isinstance(v, float) else v for k, v in record.items()})
+    from ddlpc_tpu_torch.parallel.mesh import destroy_distributed
+
+    try:
+        trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
+        record = trainer.fit()
+    finally:
+        destroy_distributed()
+    if trainer.rank == 0:
+        print({k: round(v, 4) if isinstance(v, float) else v for k, v in record.items()})
     return 0
 
 

@@ -1,12 +1,18 @@
-"""The training loop — the port's copy of ``ddlpc_tpu/train/trainer.py``
-for one device.
+"""The training loop — the port's copy of ``ddlpc_tpu/train/trainer.py``.
 
-``Trainer.fit()`` does what the JAX ``Trainer.fit`` does on one device:
-epochs of optimizer steps over the seeded, wrap-filled loader, a held-out
-evaluation every ``eval_every_epochs``, and one logged record per epoch
-(loss, pixel accuracy, grad norm, step time, and the eval's loss, pixel
-accuracy and mIoU).  Records print as JSON lines and append to
+``Trainer.fit()`` does what the JAX ``Trainer.fit`` does: epochs of
+optimizer steps over the seeded, wrap-filled loader, a held-out evaluation
+every ``eval_every_epochs``, and one logged record per epoch (loss, pixel
+accuracy, grad norm, step time, and the eval's loss, pixel accuracy and
+mIoU).  Rank 0 prints the records as JSON lines and appends them to
 ``<workdir>/metrics.jsonl``.
+
+Data parallel across processes: the world that ``RANK``/``WORLD_SIZE``/
+``LOCAL_RANK`` describe (``torchrun``) is joined before the model is
+built, one replica per process.  ``train.micro_batch_size`` is per
+replica, so the global micro-batch is that times the world size, as in the
+JAX trainer; ``parallel.shard_update`` resolves to ``off`` or ``zero2`` as
+it does there.
 
 Settings this slice does not implement raise ``NotImplementedError`` when
 enabled, all of them in one message that names the ``--set`` overrides
@@ -28,9 +34,11 @@ from ddlpc_tpu_torch import resolve_device
 from ddlpc_tpu_torch.config import ExperimentConfig
 from ddlpc_tpu_torch.data.datasets import build_dataset
 from ddlpc_tpu_torch.data.loader import DeviceLoader, eval_batches
-from ddlpc_tpu_torch.models import build_model
+from ddlpc_tpu_torch.models import build_model_from_experiment
 from ddlpc_tpu_torch.ops.metrics import accuracy_from_confusion, iou_per_class, mean_iou
+from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
+from ddlpc_tpu_torch.parallel.shard_update import check_ported, resolve_shard_update
 from ddlpc_tpu_torch.parallel.train_step import (
     create_train_state,
     make_eval_step,
@@ -60,20 +68,18 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
         ("data.mmap_scenes", d.mmap_scenes, False),
         ("data.crops_per_epoch", d.crops_per_epoch != 0, 0),
         ("data.loader_workers", d.loader_workers != 1, 1),
-        ("parallel.data_axis_size", p.data_axis_size not in (-1, 1), 1),
         ("parallel.space_axis_size", p.space_axis_size != 1, 1),
         ("parallel.pipeline_stages", p.pipeline_stages != 1, 1),
     ]
     return [f"{key}={value!r}" for key, enabled, value in checks if enabled]
 
 
-def warn_large_batch_stochastic(cfg: ExperimentConfig) -> None:
+def warn_large_batch_stochastic(cfg: ExperimentConfig, data_size: int) -> None:
     """The JAX trainer's warning, word for word: stochastic rounding's
     benefit is regime-dependent (docs/QUANTIZATION.md round-3 table) — it
     closes int8's lag at global super-batch 32 but costs val mIoU at the
     flagship's 512, where the large batch already averages the rounding
     error away."""
-    data_size = 1  # one process
     global_super_batch = cfg.train.micro_batch_size * data_size * cfg.train.sync_period
     if (
         cfg.compression.mode != "none"
@@ -95,11 +101,15 @@ def warn_large_batch_stochastic(cfg: ExperimentConfig) -> None:
 
 
 class Trainer:
-    """One device: data, model, state, the train and eval steps, the loop.
+    """One replica: the world, data, model, state, the train and eval
+    steps, the loop.
 
     ``device`` is ``'cuda'`` unless the caller asks for ``'cpu'``; without
-    CUDA and without ``device='cpu'`` construction raises.  ``resume`` is
-    accepted for the CLI's sake: checkpoints are not ported, so an existing
+    CUDA and without ``device='cpu'`` construction raises.  In a world of
+    several processes ``cuda`` means ``cuda:{LOCAL_RANK}`` (``cuda:i`` pins
+    every rank to card ``i``), and ``dist_backend`` is ``nccl`` for a card
+    and ``gloo`` for the CPU unless given.  ``resume`` is accepted for the
+    CLI's sake: checkpoints are not ported, so an existing
     ``<workdir>/checkpoints`` raises rather than being ignored."""
 
     def __init__(
@@ -107,8 +117,9 @@ class Trainer:
         cfg: ExperimentConfig,
         resume: bool = True,
         device: Optional[str] = None,
+        dist_backend: Optional[str] = None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh.rank_device(str(resolve_device(device)))
         off = unsupported_settings(cfg)
         if off:
             raise NotImplementedError(
@@ -121,7 +132,23 @@ class Trainer:
                 f"data.num_classes={cfg.data.num_classes}"
             )
         check_supported(cfg.compression)
-        warn_large_batch_stochastic(cfg)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        mesh.initialize_distributed(dist_backend or mesh.default_backend(self.device))
+        self.world = mesh.data_size()
+        self.rank = mesh.replica_index()
+        if cfg.parallel.data_axis_size not in (-1, self.world):
+            raise ValueError(
+                f"parallel.data_axis_size={cfg.parallel.data_axis_size} but the "
+                f"world has {self.world} process(es); start one process per "
+                f"replica (torchrun --nproc-per-node) or set it to -1"
+            )
+        self.shard_update = resolve_shard_update(
+            cfg.parallel.shard_update, cfg.compression, self.world, spatial=False,
+            grad_clip_norm=cfg.train.grad_clip_norm,
+        )
+        check_ported(self.shard_update)
+        warn_large_batch_stochastic(cfg, self.world)
         self.cfg = cfg
         self.workdir = cfg.workdir
         if resume and os.path.isdir(os.path.join(self.workdir, "checkpoints")):
@@ -136,9 +163,11 @@ class Trainer:
 
         self.train_ds, self.test_ds = build_dataset(cfg.data)
         channels = self.train_ds.image_shape[-1]
-        model = build_model(cfg.model, in_channels=channels, seed=cfg.train.seed)
+        model = build_model_from_experiment(cfg, channels, self.world)
         self.tx = build_optimizer(cfg.train)
-        self.state = create_train_state(model.to(self.device), self.tx)
+        self.state = create_train_state(
+            model.to(self.device), self.tx, self.world, self.shard_update
+        )
         self.loader = DeviceLoader(
             self.train_ds,
             micro_batch=cfg.train.micro_batch_size,
@@ -146,9 +175,14 @@ class Trainer:
             device=self.device,
             shuffle=cfg.data.shuffle,
             seed=cfg.data.seed,
+            replica=self.rank,
+            world=self.world,
         )
-        self.train_step = make_train_step(self.tx, cfg.compression, seed=cfg.train.seed)
-        self.eval_step = make_eval_step(cfg.model.num_classes)
+        self.train_step = make_train_step(
+            self.tx, cfg.compression, self.world, seed=cfg.train.seed,
+            level=self.shard_update,
+        )
+        self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -189,7 +223,8 @@ class Trainer:
 
     def evaluate(self) -> Dict[str, float]:
         """Held-out loss, pixel accuracy and mIoU over the test split, in
-        batches of the micro-batch size; float64 accumulation on the host."""
+        batches of the micro-batch size on every replica (the eval step sums
+        over the replicas); float64 accumulation on the host."""
         if len(self.test_ds) == 0:
             return {}
         n = self.cfg.model.num_classes
@@ -197,7 +232,8 @@ class Trainer:
         loss_sum = 0.0
         pixels = 0.0
         for images, labels in eval_batches(
-            self.test_ds, self.cfg.train.micro_batch_size, self.device
+            self.test_ds, self.cfg.train.micro_batch_size, self.device,
+            self.rank, self.world,
         ):
             out = self.eval_step(self.state, images, labels)
             cm += out["confusion"].double().cpu().numpy()
@@ -212,6 +248,8 @@ class Trainer:
         }
 
     def _log(self, record: Dict) -> None:
+        if self.rank != 0:
+            return
         line = json.dumps(record)
         print(line, flush=True)
         os.makedirs(self.workdir, exist_ok=True)

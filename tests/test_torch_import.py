@@ -26,7 +26,10 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.ops.metrics",
     "ddlpc_tpu_torch.ops.philox",
     "ddlpc_tpu_torch.ops.quantize",
+    "ddlpc_tpu_torch.parallel.compressed_allreduce",
     "ddlpc_tpu_torch.parallel.grad_sync",
+    "ddlpc_tpu_torch.parallel.mesh",
+    "ddlpc_tpu_torch.parallel.shard_update",
     "ddlpc_tpu_torch.parallel.train_step",
     "ddlpc_tpu_torch.train.__main__",
     "ddlpc_tpu_torch.train.optim",

@@ -275,6 +275,35 @@ def test_fake_quantize_kernels_at_any_alignment_on_card(card, n, offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shards", [3, 4, 8])
+def test_fake_quantize_against_a_given_max_on_card(card, shards):
+    """The zero2 mean stage: each 128-byte-aligned chunk of a buffer,
+    quantized in place against a given max-abs that is not a power of two
+    (``amax=``, no max-abs pass), equals the plain version against the same
+    max (``step = amax · rn(1/levels)`` on both sides), nearest and
+    stochastic from the chunk's offset."""
+    n = 32 * 1031 * shards
+    x = _grads(n, card)
+    amax = (x.abs().amax() * 1.37).reshape(1)
+    k = n // shards
+    cq.reset_launch_counts()
+    for mode, rounding in (("float16", "nearest"), ("int8", "nearest"), ("int8", "stochastic")):
+        cfg = CompressionConfig(mode=mode, rounding=rounding)
+        for r in range(shards):
+            kw = {"key": (7, 9), "offset": r * k} if rounding == "stochastic" else {}
+            chunk = x[r * k : (r + 1) * k].clone()
+            want = cq.fake_quantize_plain(chunk, cfg, amax=amax, **kw)
+            assert cq.fake_quantize_fused(chunk, cfg, out=chunk, amax=amax, **kw) is chunk
+            assert torch.equal(chunk, want), (mode, rounding, r)
+            assert torch.equal(want.cpu(), cq.fake_quantize_plain(
+                x[r * k : (r + 1) * k].cpu(), cfg, amax=amax.cpu(), **kw)), (mode, rounding, r)
+    torch.cuda.synchronize()
+    assert cq.LAUNCHES["absmax"] == 0
+    assert cq.LAUNCHES["fake_quantize_fused"] == 2 * shards
+    assert cq.LAUNCHES["fake_quantize_sr"] == shards
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
 @pytest.mark.parametrize(
     "mode,local,mean",
