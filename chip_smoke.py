@@ -41,7 +41,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    kernel, two of the max-abs pass): first
    the config as it is (fp16 codec, nearest rounding), then with
    ``compression.mode=int8, rounding=stochastic`` (which must warn about
-   its large super-batch).  Every loss must be finite.
+   its large super-batch).  Every loss must be finite.  The flagship runs
+   on its own checkpoint settings: a chunked (DWC2) checkpoint each epoch,
+   written in the background, three kept;
+
+4b. the checkpoint phase, on the fp16 main path's run: every blob verifies;
+   a fresh Trainer on a copy of the workdir whose newest checkpoint is
+   epoch 1 resumes and runs epoch 2, whose loss must equal the
+   uninterrupted epoch 2's bits; a blob with one flipped byte is
+   quarantined and the restore falls back to the one before; then the
+   save's cost on the live trainer: the training thread's stall (the
+   snapshot into reusable pinned host buffers, and, for comparison, into
+   new pageable ones), the background write, its GB/s, the restore, the
+   raw and on-disk bytes, and a step's time with no save in flight and
+   with one.  It prints one ``checkpoint row`` JSON line;
 
 5. the data-parallel paths, each a world of W processes of this script
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
@@ -60,11 +73,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    each rank's peak memory and the card's use, the step times, and the
    sync's wall time a step beside its collectives alone and its codec
    kernels alone.  The W ranks time-share one card here: their step time
-   is no scaling number.
+   is no scaling number.  ``dp4_zero2_fp16`` also checkpoints its ZeRO-2
+   state (the moments gathered, rank 0 writing), and then every rank
+   builds a fresh Trainer that restores it: every rank's params and its
+   own chunk of the moments must be bit-identical to the ones saved.
 
 Before the main paths it also times the zero2 path's chunk-size kernels
 (decode, the max-abs pass, the fake-quantize against a given max-abs) at
-the chunk of 4 and of 8 replicas, on the card's clock and the host's.
+the chunk of 4 and of 8 replicas, on the card's clock and the host's, and
+counts the fp32 values on which ``torch.sqrt`` on the card differs from
+the correctly rounded square root that Adam takes (``optim.sqrt_rn``),
+over 2**23 values spanning 1e-12..1e2.
 
 With ``--profile``, after each main path (once its launch counts are read)
 it runs one more optimizer step of that path under ``torch.profiler`` and
@@ -105,7 +124,6 @@ EPOCHS = 3  # one optimizer step per epoch on the flagship (97 tiles, super-batc
 MICRO_BATCH = 128  # the flagship's own
 # Every setting the slice does not implement, switched off for the run.
 OFF = (
-    "train.checkpoint_every_epochs=0",
     "train.dump_images_per_epoch=0",
     "train.stall_timeout_s=0.0",
     "train.perf_accounting=False",
@@ -722,6 +740,8 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     ``extra`` overrides; the launch counts are set to 0 just before and
     read just after, and must equal ``expect`` (0 for a kernel it does not
     name)."""
+    import shutil
+
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
@@ -734,8 +754,7 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
         argv += ["--set", o]
     log(f"main path [{label}]: python -m ddlpc_tpu_torch.train " + " ".join(argv))
     metrics_path = os.path.join(workdir, "metrics.jsonl")
-    if os.path.exists(metrics_path):
-        os.remove(metrics_path)
+    shutil.rmtree(workdir, ignore_errors=True)
     cfg, resume, device, backend = parse_args(argv)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -768,7 +787,141 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     want = {name: expect.get(name, 0) for name in launches}
     if launches != want:
         fail(f"[{label}] kernel launches in {EPOCHS} steps: {launches}, expected {want}")
-    return {"launches": launches, "n_params": n_params, "trainer": trainer}
+    return {"launches": launches, "n_params": n_params, "trainer": trainer, "argv": argv,
+            "losses": [r["loss"] for r in records]}
+
+
+def sqrt_phase() -> dict:
+    """Adam's square root (ROADMAP C7): how many of 2**23 fp32 values,
+    log-uniform over 1e-12..1e2, ``torch.sqrt`` rounds otherwise than the
+    correctly rounded root (the fp64 root rounded once), on the card and on
+    this host's CPU.  ``optim.sqrt_rn`` takes ``torch.sqrt`` on a card, so
+    a difference there fails the run."""
+    from ddlpc_tpu_torch.train.optim import sqrt_rn
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lo, hi = math.log(1e-12), math.log(1e2)
+    u = torch.rand(1 << 23, generator=g, device="cuda", dtype=torch.float64)
+    x = torch.exp(u * (hi - lo) + lo).float()
+    exact = sqrt_rn(x.cpu())  # the fp64 root rounded once
+    row = {"values": x.numel(),
+           "cuda_differs": int((torch.sqrt(x).cpu() != exact).sum()),
+           "cpu_differs": int((torch.sqrt(x.cpu()) != exact).sum())}
+    log(f"sqrt: torch.sqrt differs from the correctly rounded root on {row['cuda_differs']} "
+        f"of {row['values']} fp32 values on the card, {row['cpu_differs']} on the CPU")
+    if row["cuda_differs"]:
+        fail("torch.sqrt on the card is not correctly rounded: Adam's sqrt_rn needs the fp64 route there")
+    return row
+
+
+def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
+    """The fp16 main path's checkpoints (``EPOCHS`` of them, one an epoch):
+    verified, resumed from epoch 1 to the uninterrupted epoch 2's bits,
+    one corrupted and fallen back from; then a save's cost on the live
+    trainer (module docstring, phase 4b)."""
+    import shutil
+
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    steps = ckpt._steps(trainer.ckpt_dir)
+    if steps != list(range(1, EPOCHS + 1)):
+        fail(f"checkpoint steps {steps}, expected one an epoch")
+    newest = os.path.join(trainer.ckpt_dir, f"ckpt_{EPOCHS}.dwc")
+    for s in steps:
+        summary = ckpt.verify_checkpoint(os.path.join(trainer.ckpt_dir, f"ckpt_{s}.dwc"))
+        if summary["verified_chunks"] != summary["chunks"]:
+            fail(f"checkpoint {s}: {summary}")
+    manifest = ckpt._read_manifest_tail(newest)
+    raw = sum(c[2] for leaf in manifest["leaves"] for c in leaf.get("chunks", []))
+    row = {"card": smi_line(), "raw_bytes": raw, "disk_bytes": os.path.getsize(newest),
+           "chunks": summary["chunks"]}
+
+    # A fresh Trainer on a copy whose newest checkpoint is epoch 1.
+    work = os.path.join(WORKDIR, "checkpoint_resume")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(trainer.workdir, work)
+    for suffix in (".dwc", ".json"):
+        os.remove(os.path.join(work, "checkpoints", f"ckpt_{EPOCHS}{suffix}"))
+    os.remove(os.path.join(work, "metrics.jsonl"))
+    at = argv.index("--workdir")
+    cfg, _, device, backend = parse_args(
+        [a for a in argv[:at] + ["--workdir", work] + argv[at + 2:] if a != "--no-resume"])
+    fresh = Trainer(cfg, resume=False, device=device, dist_backend=backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh._restore_synchronized()
+    torch.cuda.synchronize()
+    row["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    if (fresh.start_epoch, fresh.state.step) != (EPOCHS - 1, EPOCHS - 1):
+        fail(f"resume from epoch {EPOCHS - 2}: start epoch {fresh.start_epoch}, step {fresh.state.step}")
+    fresh.fit()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        resumed = [json.loads(line) for line in f]
+    if [r["epoch"] for r in resumed] != [EPOCHS - 1] or resumed[0]["loss"] != losses[-1]:
+        fail(f"resumed epoch {resumed} != the uninterrupted epoch {EPOCHS - 1}'s loss {losses[-1]}")
+    log(f"[checkpoint] resumed from epoch {EPOCHS - 2}: epoch {EPOCHS - 1} loss "
+        f"{resumed[0]['loss']} == uninterrupted {losses[-1]} (bit for bit)")
+    del fresh
+
+    # One flipped byte in the newest blob: quarantined, the fallback taken.
+    bad = os.path.join(work, "checkpoints", f"ckpt_{EPOCHS}.dwc")
+    with open(bad, "r+b") as f:
+        f.seek(12)
+        b = f.read(1)
+        f.seek(12)
+        f.write(bytes([b[0] ^ 0xFF]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, meta = ckpt.restore_checkpoint(os.path.join(work, "checkpoints"))
+    if (meta["step"] != EPOCHS - 1 or meta.get("quarantined_steps") != [EPOCHS]
+            or not os.path.exists(bad + ".bad") or not caught):
+        fail(f"corrupt blob: restored step {meta['step']}, {meta.get('quarantined_steps')}")
+    log(f"[checkpoint] a flipped byte in ckpt_{EPOCHS}.dwc: quarantined, restored step {meta['step']}")
+
+    # The save's cost on the live trainer, three times: a step with no save
+    # in flight, a save (the stall), a step while it writes, the write.
+    images, labels = next(iter(trainer.loader))
+    ac = trainer.checkpointer
+    timing_dir = os.path.join(WORKDIR, "checkpoint_timing", "checkpoints")
+    shutil.rmtree(timing_dir, ignore_errors=True)
+
+    def step_s() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(trainer.state, images, labels)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    runs = []
+    for _ in range(3):
+        ac.wait()
+        idle = step_s()
+        step = trainer.state.step
+        ac.save(timing_dir, trainer.state, step, metadata=trainer._metadata(EPOCHS, step))
+        stall, started = ac.last_stall_s, ac.in_flight
+        busy = step_s()
+        overlapped = ac.in_flight
+        ac.wait()
+        runs.append({"step_idle_s": idle, "stall_ms": stall * 1e3, "step_with_save_s": busy,
+                     "write_ms": ac.last_write_s * 1e3, "in_flight_at_step": started,
+                     "in_flight_after_step": overlapped})
+    pageable = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.snapshot_state(trainer.state)
+        pageable.append((time.perf_counter() - t) * 1e3)
+    row["runs"] = runs
+    row["stall_ms"] = statistics.median(r["stall_ms"] for r in runs)
+    row["stall_pageable_ms"] = statistics.median(pageable)
+    row["write_ms"] = statistics.median(r["write_ms"] for r in runs)
+    row["write_gb_per_s"] = raw / row["write_ms"] / 1e6
+    row["step_idle_s"] = statistics.median(r["step_idle_s"] for r in runs)
+    row["step_with_save_s"] = statistics.median(r["step_with_save_s"] for r in runs)
+    log("checkpoint row: " + json.dumps(row))
+    return row
 
 
 def profile_phase(trainer, label: str) -> None:
@@ -1025,6 +1178,30 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
         "peak_bytes": peak, "card_used_bytes": total - free, "fit_s": fit_s,
         "last": last, "n_params": n, "padded": flat.data.numel(), "shard": k, **cost,
     }
+    if level == "zero2":
+        # The run checkpointed each epoch (the moments gathered, rank 0
+        # writing): a fresh Trainer on every rank restores the newest, and
+        # the params and this rank's chunk of the moments must be the bits
+        # the run ended on.
+        import gc
+
+        def digests(t) -> list:
+            o = t.state.opt_state
+            return [hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                    for v in (t.state.params.data, o.mu, o.nu)] + [o.count, t.state.step]
+
+        saved = digests(trainer)
+        del trainer, flat, buf, q
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        again = Trainer(cfg, resume=True, device=dev, dist_backend=backend_arg)
+        torch.cuda.synchronize()
+        result["zero2_restore"] = {
+            "trainer_with_restore_s": time.perf_counter() - t0,
+            "start_epoch": again.start_epoch, "equal": digests(again) == saved,
+            "ckpt_steps": sorted(os.listdir(again.ckpt_dir)) if rank == 0 else None,
+        }
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     mesh.destroy_distributed()
@@ -1076,6 +1253,15 @@ def dp_phase(label: str) -> dict:
             fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {rr['warned']}")
     if len(set(ranks[0]["params_hashes"])) != 1:
         fail(f"[{label}] the replicas' params differ: {ranks[0]['params_hashes']}")
+    restored = [rr.get("zero2_restore") for rr in ranks]
+    if level == "zero2":
+        for rr, z in zip(ranks, restored):
+            if not z["equal"] or z["start_epoch"] != EPOCHS:
+                fail(f"[{label}] rank {rr['rank']}: the restored zero2 checkpoint differs from the "
+                     f"state saved ({z})")
+        log(f"[{label}] zero2 checkpoint {restored[0]['ckpt_steps']}: every rank's params and moment "
+            f"chunk restored bit for bit; a fresh Trainer with the restore "
+            f"{max(z['trainer_with_restore_s'] for z in restored):.2f} s")
     if len(set(ranks[0]["sync_hashes"])) != 1 or not ranks[0]["sync_equal"]:
         fail(f"[{label}] the synced gradient differs between replicas or from the plain simulation")
     for rec in records:
@@ -1098,6 +1284,7 @@ def dp_phase(label: str) -> dict:
         "collectives_ms": [rr["collectives_ms"] for rr in ranks],
         "codec_ms": [rr["codec_ms"] for rr in ranks],
         "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
+        "zero2_restore": restored[0],
     }
 
 
@@ -1131,6 +1318,7 @@ def main() -> int:
     rows = kernel_phase(n)
     sr_rows = stochastic_kernel_phase(n, sass)
     chunk_rows = shard_kernel_rows(n)
+    sqrt_row = sqrt_phase()
     reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
     reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
     main = main_path_phase(
@@ -1141,6 +1329,7 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_phase(main["trainer"], "nearest_fp16")
+    ckpt_row = checkpoint_phase(main["trainer"], main["argv"], main["losses"])
     del main["trainer"]  # free its state, so the next run's peak memory is its own
     torch.cuda.empty_cache()
     sr = main_path_phase(
@@ -1168,7 +1357,7 @@ def main() -> int:
             row["launches_by_path"] = by_path
     rows += sr_rows
     print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
-                      "data_parallel": dp}))
+                      "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,12 @@ Leaf rules:
 
 Every rule is a permutation (and flip) of the same values, so the round
 trip ``flax_from_torch(torch_state_from_flax(p))`` is exact.
+
+The whole train state — what a checkpoint holds — is :func:`flax_tree`:
+flax's ``to_state_dict(TrainState)`` layout with ``step``, the Adam
+``count`` and optax's empty state beside the params, statistics and
+moments; :func:`load_state_tree` places it in the train states of a
+world of any size and layout.
 """
 
 from __future__ import annotations
@@ -180,21 +186,101 @@ def load_canonical(state, state_dict: Mapping[str, torch.Tensor], adam: Optional
         mine.copy_(full)
 
 
-def gather_canonical(state) -> Tuple[Dict[str, torch.Tensor], dict]:
+def _host_copy(t: torch.Tensor, host: Optional[dict], key: str) -> torch.Tensor:
+    """A host copy of ``t``: into ``host[key]`` (allocated on first use,
+    pinned when ``t`` is on a card, and reused after), else a new tensor.
+    A card's copy into pinned memory is asynchronous: the caller
+    synchronizes before reading it."""
+    if host is None:
+        return t.detach().to("cpu", copy=True)
+    buf = host.get(key)
+    if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        host[key] = buf
+    return buf.copy_(t.detach(), non_blocking=t.is_cuda)
+
+
+def gather_canonical(
+    state, host: Optional[dict] = None, to_host: bool = True
+) -> Tuple[Optional[Dict[str, torch.Tensor]], Optional[dict]]:
     """The canonical state of a train state: ``(state_dict, adam)`` on the
     CPU, the Adam moments all-gathered from the replicas' chunks under
-    ``zero2`` (every replica must call it)."""
+    ``zero2`` (every replica must call it).  Each flat buffer (params,
+    ``mu``, ``nu``) is copied to the host once, and the leaves are views of
+    that copy; ``host`` holds reusable buffers for the copies (see
+    :func:`_host_copy`).  ``to_host=False`` joins the gather only and
+    returns ``(None, None)``."""
     from ddlpc_tpu_torch.parallel.mesh import all_gather_, replica_index
 
     flat, opt = state.params, state.opt_state
-    adam: dict = {"count": opt.count}
+    full = {"data": flat.data}
     for key in ("mu", "nu"):
         mine = getattr(opt, key)
-        full = mine
         if mine.numel() != flat.data.numel():
-            full = torch.zeros_like(flat.data)
-            flat.local(full, replica_index()).copy_(mine)
-            all_gather_(full)
-        adam[key] = {k: v.detach().cpu().clone() for k, v in flat.named_views(full).items()}
-    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+            buf = torch.zeros_like(flat.data)
+            flat.local(buf, replica_index()).copy_(mine)
+            mine = all_gather_(buf)
+        full[key] = mine
+    if not to_host:
+        return None, None
+    copies = {k: _host_copy(v, host, k) for k, v in full.items()}
+    params = flat.named_views(copies["data"])
+    sd = {
+        name: params[name] if name in params else _host_copy(v, host, name)
+        for name, v in state.model.state_dict().items()
+    }
+    if flat.data.is_cuda:
+        torch.cuda.synchronize(flat.data.device)
+    adam = {"count": opt.count, "mu": flat.named_views(copies["mu"]),
+            "nu": flat.named_views(copies["nu"])}
     return sd, adam
+
+
+def flax_tree(state_dict: Mapping[str, torch.Tensor], adam: Mapping, step: int) -> dict:
+    """The state dict flax's ``to_state_dict(TrainState)`` gives the JAX
+    package for the same state: ``step`` and ``opt_state/0/count`` as 0-d
+    int32 arrays, ``params``, ``batch_stats``, ``opt_state/0/{mu,nu}`` in
+    the flax layout, and ``opt_state/1`` (optax's ``EmptyState``) an
+    empty dict."""
+    params, batch_stats, opt = flax_from_torch(state_dict, adam)
+    opt["count"] = np.array(opt["count"], np.int32)
+    return {
+        "step": np.array(step, np.int32),
+        "params": params,
+        "batch_stats": batch_stats,
+        "opt_state": {"0": opt, "1": {}},
+    }
+
+
+def load_state_tree(state, tree: Optional[Mapping], src: int = 0) -> None:
+    """Place replica ``src``'s state tree (:func:`flax_tree`'s layout, as a
+    checkpoint restores it) into every replica's train state, in place and
+    in that replica's layout (:func:`load_canonical`), step included.
+    ``src`` lays the canonical state out in full flat buffers on its
+    device, and one broadcast a buffer carries them to the others, whose
+    ``tree`` is None (every replica must call it); in a world of one the
+    broadcasts do nothing."""
+    from ddlpc_tpu_torch.parallel.mesh import broadcast_, replica_index
+
+    flat = state.params
+    stat_names = [k for k in state.model.state_dict() if k not in set(flat.names)]
+    stats_like = [state.model.get_buffer(k) for k in stat_names]
+    if replica_index() == src:
+        sd, adam = torch_state_from_flax(tree["params"], tree["batch_stats"], tree["opt_state"]["0"])
+        data = _full_buffer(flat, sd, flat.data)
+        mu = _full_buffer(flat, adam["mu"], flat.data)
+        nu = _full_buffer(flat, adam["nu"], flat.data)
+        stats = torch.cat([sd[k].reshape(-1) for k in stat_names]).to(flat.data.device)
+        ints = torch.tensor([adam["count"], int(np.asarray(tree["step"]))], device=flat.data.device)
+    else:
+        data, mu, nu = (torch.empty_like(flat.data) for _ in range(3))
+        stats = torch.empty(sum(b.numel() for b in stats_like), device=flat.data.device)
+        ints = torch.zeros(2, dtype=torch.int64, device=flat.data.device)
+    for t in (data, mu, nu, stats, ints):
+        broadcast_(t, src)
+    sd = flat.named_views(data)
+    for name, v, like in zip(stat_names, stats.split([b.numel() for b in stats_like]), stats_like):
+        sd[name] = v.view_as(like)
+    count, step = (int(v) for v in ints.tolist())
+    load_canonical(state, sd, {"count": count, "mu": flat.named_views(mu), "nu": flat.named_views(nu)})
+    state.step = step

@@ -151,6 +151,13 @@ def all_gather_(buf: torch.Tensor) -> torch.Tensor:
     return buf
 
 
+def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Overwrite ``t`` IN PLACE with rank ``src``'s; returns ``t``."""
+    if dist.is_initialized():
+        dist.broadcast(t, src)
+    return t
+
+
 def spawn_world(
     argv: Sequence[str],
     world: int,

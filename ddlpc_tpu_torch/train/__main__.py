@@ -15,6 +15,12 @@ A data-parallel world is started by torchrun, one process per replica::
 
     torchrun --nproc-per-node 4 -m ddlpc_tpu_torch.train --config cfg.json \
         --set parallel.data_axis_size=4
+
+The same command on the same ``--workdir`` resumes from the newest
+checkpoint (``--no-resume`` starts afresh).  Exit status 0 means every
+epoch ran; 43 means a SIGTERM preempted the run after an emergency
+checkpoint (``resilience/protocol.py``), and running the command again
+carries on from it.
 """
 
 from __future__ import annotations
@@ -83,9 +89,9 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str, Optional[str]]:
 
 def main(argv=None) -> int:
     cfg, resume, device, backend = parse_args(argv)
-    from ddlpc_tpu_torch.train.trainer import Trainer
-
     from ddlpc_tpu_torch.parallel.mesh import destroy_distributed
+    from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED
+    from ddlpc_tpu_torch.train.trainer import Trainer
 
     try:
         trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
@@ -94,7 +100,7 @@ def main(argv=None) -> int:
         destroy_distributed()
     if trainer.rank == 0:
         print({k: round(v, 4) if isinstance(v, float) else v for k, v in record.items()})
-    return 0
+    return EXIT_PREEMPTED if trainer.preempted else 0
 
 
 if __name__ == "__main__":

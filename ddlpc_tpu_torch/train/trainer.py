@@ -7,6 +7,17 @@ accuracy, grad norm, step time, and the eval's loss, pixel accuracy and
 mIoU).  Rank 0 prints the records as JSON lines and appends them to
 ``<workdir>/metrics.jsonl``.
 
+Checkpoints and resume, as in the JAX trainer: every
+``checkpoint_every_epochs`` the state is saved to ``<workdir>/checkpoints``
+in the background (``train/async_checkpoint.py``); a new Trainer on the
+same workdir resumes from the newest checkpoint that verifies, rank 0
+deciding and broadcasting.  SIGTERM (or :meth:`Trainer.request_preempt`)
+lets the in-flight step finish, writes an emergency checkpoint that
+records how far into the epoch it got, and ``fit`` returns with
+``preempted`` set (the CLI exits 43); the resume replays the loader to
+that step.  ``<workdir>/breadcrumb.json`` names the phase throughout
+(``resilience/protocol.py``).
+
 Data parallel across processes: the world that ``RANK``/``WORLD_SIZE``/
 ``LOCAL_RANK`` describe (``torchrun``) is joined before the model is
 built, one replica per process.  ``train.micro_batch_size`` is per
@@ -23,6 +34,8 @@ from __future__ import annotations
 
 import json
 import os
+import signal
+import threading
 import time
 import warnings
 from typing import Dict, List, Optional
@@ -32,9 +45,11 @@ import torch
 
 from ddlpc_tpu_torch import resolve_device
 from ddlpc_tpu_torch.config import ExperimentConfig
+from ddlpc_tpu_torch.convert import load_state_tree
 from ddlpc_tpu_torch.data.datasets import build_dataset
 from ddlpc_tpu_torch.data.loader import DeviceLoader, eval_batches
 from ddlpc_tpu_torch.models import build_model_from_experiment
+from ddlpc_tpu_torch.obs import lineage
 from ddlpc_tpu_torch.ops.metrics import accuracy_from_confusion, iou_per_class, mean_iou
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
@@ -44,6 +59,9 @@ from ddlpc_tpu_torch.parallel.train_step import (
     make_eval_step,
     make_train_step,
 )
+from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED, write_breadcrumb
+from ddlpc_tpu_torch.train import checkpoint as ckpt
+from ddlpc_tpu_torch.train.async_checkpoint import AsyncCheckpointer
 from ddlpc_tpu_torch.train.optim import build_optimizer
 
 
@@ -52,7 +70,6 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
     slice does not implement (empty when the config is supported)."""
     t, d, p = cfg.train, cfg.data, cfg.parallel
     checks = [  # (key, enabled, value that switches it off)
-        ("train.checkpoint_every_epochs", t.checkpoint_every_epochs != 0, 0),
         ("train.dump_images_per_epoch", t.dump_images_per_epoch != 0, 0),
         ("train.profile_epoch", t.profile_epoch >= 0, -1),
         ("train.stall_timeout_s", t.stall_timeout_s != 0, 0.0),
@@ -100,6 +117,16 @@ def warn_large_batch_stochastic(cfg: ExperimentConfig, data_size: int) -> None:
         )
 
 
+class PreemptedRun(Exception):
+    """Raised in the epoch loop when a graceful preemption was requested;
+    carries where the run stopped, for the emergency checkpoint."""
+
+    def __init__(self, epoch: int, steps_done: int):
+        super().__init__(f"preempted at epoch {epoch}, step {steps_done}")
+        self.epoch = epoch
+        self.steps_done = steps_done
+
+
 class Trainer:
     """One replica: the world, data, model, state, the train and eval
     steps, the loop.
@@ -108,9 +135,8 @@ class Trainer:
     CUDA and without ``device='cpu'`` construction raises.  In a world of
     several processes ``cuda`` means ``cuda:{LOCAL_RANK}`` (``cuda:i`` pins
     every rank to card ``i``), and ``dist_backend`` is ``nccl`` for a card
-    and ``gloo`` for the CPU unless given.  ``resume`` is accepted for the
-    CLI's sake: checkpoints are not ported, so an existing
-    ``<workdir>/checkpoints`` raises rather than being ignored."""
+    and ``gloo`` for the CPU unless given.  ``resume`` restores the newest
+    checkpoint of ``<workdir>/checkpoints`` when there is one."""
 
     def __init__(
         self,
@@ -151,11 +177,11 @@ class Trainer:
         warn_large_batch_stochastic(cfg, self.world)
         self.cfg = cfg
         self.workdir = cfg.workdir
-        if resume and os.path.isdir(os.path.join(self.workdir, "checkpoints")):
-            raise NotImplementedError(
-                f"{self.workdir}/checkpoints exists but checkpoint restore is "
-                "not yet ported; pass --no-resume or another --workdir"
-            )
+        self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
+        # One run id a Trainer, and the hash of its config, in every
+        # checkpoint's lineage record.
+        self.run_id = lineage.new_id()
+        self.config_hash = lineage.config_hash(json.dumps(cfg.to_dict(), sort_keys=True))
         if self.device.type == "cuda":
             # fp32 convolutions and matmuls run in true fp32, not TF32.
             torch.backends.cudnn.allow_tf32 = False
@@ -183,6 +209,129 @@ class Trainer:
             level=self.shard_update,
         )
         self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
+        self.checkpointer = AsyncCheckpointer(
+            keep=cfg.train.keep_checkpoints,
+            format=cfg.train.checkpoint_format,
+            chunk_bytes=max(1, cfg.train.checkpoint_chunk_mb) << 20,
+            compression=cfg.train.checkpoint_compression,
+            background=cfg.train.checkpoint_async,
+        )
+        # Graceful preemption: SIGTERM or request_preempt() sets the event;
+        # the loop finishes its step, fit() writes the emergency
+        # checkpoint, and ``preempted`` tells the CLI to exit 43.
+        self._preempt = threading.Event()
+        self._preempt_done = threading.Event()
+        self._grace_timer: Optional[threading.Timer] = None
+        self.preempted = False
+        # Skip-replay of a mid-epoch (emergency) checkpoint: train_epoch
+        # draws and drops that many batches of epoch _skip_epoch.
+        self.start_epoch = 0
+        self._skip_steps = 0
+        self._skip_epoch = -1
+        if resume:
+            self._restore_synchronized()
+
+    # ------------------------------------------------------------------
+    # resume
+
+    def _restore_synchronized(self) -> None:
+        """Resume with rank 0 as the one source of truth: it alone reads
+        the checkpoint (the others may not see its storage) and broadcasts
+        ``(found, epoch, skip)`` and then the canonical state, which each
+        replica places in its own layout."""
+        tree, header = None, [0, 0, 0]
+        if self.rank == 0 and ckpt.latest_step(self.ckpt_dir) is not None:
+            tree, meta = ckpt.restore_checkpoint(self.ckpt_dir)
+            header = [1, int(meta.get("epoch", -1)) + 1, int(meta.get("mid_epoch_steps_done", 0))]
+        header_t = mesh.broadcast_(torch.tensor(header, dtype=torch.int64, device=self.device))
+        found, epoch_next, skip = (int(v) for v in header_t.tolist())
+        if found:
+            load_state_tree(self.state, tree)
+            self.start_epoch = epoch_next
+            self._apply_mid_epoch(skip)
+
+    def _apply_mid_epoch(self, skip: int) -> None:
+        """Arm the skip-replay for a checkpoint taken ``skip`` steps into
+        epoch ``start_epoch``: those steps are in the restored state, so
+        replaying them would apply them twice.  A position at or past the
+        epoch's end counts as a whole epoch."""
+        if skip <= 0:
+            return
+        if skip >= len(self.loader):
+            self.start_epoch += 1
+            return
+        self._skip_steps = skip
+        self._skip_epoch = self.start_epoch
+
+    # ------------------------------------------------------------------
+    # checkpoints and preemption
+
+    def _metadata(self, epoch: int, step: int) -> dict:
+        return {
+            "epoch": epoch,
+            "config": self.cfg.to_dict(),
+            "input_channels": int(self.train_ds.image_shape[-1]),
+            "lineage": lineage.make_lineage(step, run_id=self.run_id, config_hash_hex=self.config_hash),
+        }
+
+    def save(self, epoch: int) -> None:
+        """Checkpoint the state after ``epoch``: every replica joins the
+        gather of the canonical state, replica 0 writes in the background."""
+        step = self.state.step
+        self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=self._metadata(epoch, step))
+        if self.rank == 0:
+            write_breadcrumb(self.workdir, "running", epoch=epoch, last_ckpt_step=step)
+
+    def request_preempt(self) -> None:
+        """Begin a graceful preemption: the loop finishes its in-flight
+        step, writes an emergency checkpoint, and ``fit`` returns with
+        ``preempted`` set.  If that has not happened within
+        ``train.preempt_grace_s`` the process exits 43 at once, and the
+        last durable checkpoint stands.  Idempotent; safe from a signal
+        handler."""
+        if self._preempt.is_set():
+            return
+        self._preempt.set()
+        if self.rank == 0:
+            write_breadcrumb(self.workdir, "preempt_requested", grace_s=self.cfg.train.preempt_grace_s)
+        t = threading.Timer(max(self.cfg.train.preempt_grace_s, 0.1), self._grace_expired)
+        t.daemon = True
+        t.start()
+        self._grace_timer = t
+
+    def _grace_expired(self) -> None:
+        if self._preempt_done.is_set():
+            return
+        if self.rank == 0:
+            write_breadcrumb(self.workdir, "preempt_timeout")
+        print(
+            f"[preempt] grace window ({self.cfg.train.preempt_grace_s:.0f}s) expired "
+            f"before the emergency checkpoint completed — hard exit; resuming "
+            f"from the last durable checkpoint",
+            flush=True,
+        )
+        os._exit(EXIT_PREEMPTED)
+
+    def _graceful_preempt(self, epoch: int, steps_done: int) -> None:
+        """The emergency checkpoint, at an optimizer-step boundary, with the
+        position in the epoch when it is not the epoch's end."""
+        steps_per_epoch = len(self.loader)
+        completed = epoch if steps_done >= steps_per_epoch else epoch - 1
+        step = self.state.step
+        meta = dict(self._metadata(completed, step), preempted=True)
+        if 0 < steps_done < steps_per_epoch:
+            meta["mid_epoch_steps_done"] = steps_done
+        self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=meta)
+        # The one save that overlaps nothing: durable before fit returns.
+        self.checkpointer.wait()
+        self._log({"kind": "preempt", "epoch": epoch, "steps_done": steps_done, "ckpt_step": step})
+        if self.rank == 0:
+            write_breadcrumb(self.workdir, "preempted", epoch=epoch, steps_done=steps_done, ckpt_step=step)
+        self.preempted = True
+        self._preempt_done.set()
+        if self._grace_timer is not None:
+            self._grace_timer.cancel()
+            self._grace_timer = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -193,11 +342,23 @@ class Trainer:
         metrics = []
         step_times = []
         t_epoch = time.perf_counter()
-        for images, labels in self.loader:
+        it = iter(self.loader)
+        skipped = 0
+        if self._skip_steps and epoch == self._skip_epoch:
+            # Resume from a mid-epoch checkpoint: the state already holds
+            # these steps, so draw and drop the same deterministic batches.
+            for _ in range(self._skip_steps):
+                if next(it, None) is None:
+                    break
+                skipped += 1
+            self._skip_steps = 0
+        for images, labels in it:
             t0 = time.perf_counter()
             metrics.append(self.train_step(self.state, images, labels))
             self._sync()
             step_times.append(time.perf_counter() - t0)
+            if self._preempt.is_set():
+                raise PreemptedRun(epoch, skipped + len(metrics))
         if not metrics:
             raise RuntimeError(
                 f"epoch {epoch} produced 0 training steps: dataset has "
@@ -216,6 +377,9 @@ class Trainer:
             "step_time_s": float(np.mean(step_times)),
             "tiles_per_s": steps * self.loader.super_batch / epoch_time,
         }
+        if skipped:
+            # A partial epoch: its means cover the steps after the resume.
+            record["resumed_mid_epoch_at_step"] = skipped
         wrap = len(self.loader) * self.loader.super_batch / len(self.train_ds)
         if wrap > 1.0 + 1e-9:
             record["wrap_fill_factor"] = round(wrap, 2)
@@ -257,12 +421,44 @@ class Trainer:
             f.write(line + "\n")
 
     def fit(self) -> Dict[str, float]:
-        """Run the training; returns the last epoch's record."""
+        """Run the training from ``start_epoch``; returns the last epoch's
+        record (``preempted`` tells whether a preemption cut it short)."""
         cfg = self.cfg.train
         record: Dict[str, float] = {}
-        for epoch in range(cfg.epochs):
-            record = self.train_epoch(epoch)
-            if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
-                record.update(self.evaluate())
-            self._log(record)
+        # SIGTERM → graceful preemption; only the main thread may install
+        # a handler, so an embedded fit preempts by request_preempt().
+        prev_term = None
+        try:
+            prev_term = signal.signal(signal.SIGTERM, lambda signum, frame: self.request_preempt())
+        except ValueError:
+            pass
+        if self.rank == 0:
+            write_breadcrumb(self.workdir, "running", start_epoch=self.start_epoch, epochs=cfg.epochs)
+        try:
+            try:
+                for epoch in range(self.start_epoch, cfg.epochs):
+                    if self._preempt.is_set():
+                        raise PreemptedRun(epoch, 0)
+                    record = self.train_epoch(epoch)
+                    if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
+                        record.update(self.evaluate())
+                    self._log(record)
+                    if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                        self.save(epoch)
+                else:
+                    if self.rank == 0:
+                        write_breadcrumb(self.workdir, "done", epochs=cfg.epochs)
+            except PreemptedRun as p:
+                self._graceful_preempt(p.epoch, p.steps_done)
+            finally:
+                # No return with a write in flight; a writer failure is
+                # raised here, on the training thread.
+                self.checkpointer.close()
+        finally:
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+            self._preempt_done.set()
+            if self._grace_timer is not None:
+                self._grace_timer.cancel()
+                self._grace_timer = None
         return record

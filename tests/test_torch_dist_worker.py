@@ -20,7 +20,11 @@ Tasks:
   batches, recording the flat gradient before each sync, the metrics,
   and at the end the params, the BatchNorm statistics and the gathered
   Adam moments;
-- ``cli``: the CLI's ``main`` with the arguments in ``task.json``.
+- ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
+- ``ckpt``: a Trainer from the CLI's arguments trains and checkpoints,
+  then a fresh Trainer on the same workdir resumes; stores the canonical
+  state each held (``saved/...``, ``restored/...``) and where the second
+  one starts.
 """
 
 from __future__ import annotations
@@ -113,6 +117,32 @@ def _cli(task: dict, inputs, rank: int, world: int) -> dict:
     return {}
 
 
+def _canonical(trainer, prefix: str) -> dict:
+    sd, adam = gather_canonical(trainer.state)
+    out = {f"{prefix}/sd/{k}": v.numpy().copy() for k, v in sd.items()}
+    for key in ("mu", "nu"):
+        out.update({f"{prefix}/{key}/{k}": v.numpy().copy() for k, v in adam[key].items()})
+    out[f"{prefix}/count"] = np.array(adam["count"])
+    out[f"{prefix}/step"] = np.array(trainer.state.step)
+    return out
+
+
+def _ckpt(task: dict, inputs, rank: int, world: int) -> dict:
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    cfg, _, device, backend = parse_args(task["argv"])
+    first = Trainer(cfg, resume=False, device=device, dist_backend=backend)
+    first.fit()
+    out = _canonical(first, "saved")
+    out["level"] = np.array(first.shard_update)
+    del first
+    again = Trainer(cfg, resume=True, device=device, dist_backend=backend)
+    out.update(_canonical(again, "restored"))
+    out["start_epoch"] = np.array(again.start_epoch)
+    return out
+
+
 def run_world(name: str, world: int, work: str, task: dict, inputs: dict,
               deadline_s: float = 120.0) -> list:
     """Parent side: write the task, run ``world`` ranks of ``name`` under
@@ -139,7 +169,7 @@ def main() -> int:
     path = os.path.join(work, "in.npz")
     inputs = np.load(path) if os.path.exists(path) else None
     try:
-        out = {"sync": _sync, "step": _step, "cli": _cli}[name](task, inputs, rank, world)
+        out = {"sync": _sync, "step": _step, "cli": _cli, "ckpt": _ckpt}[name](task, inputs, rank, world)
     finally:
         mesh.destroy_distributed()
     np.savez(os.path.join(work, f"out_{rank}.npz"), **out)

@@ -1,4 +1,5 @@
-"""The PyTorch port imports nothing of JAX and nothing of ``ddlpc_tpu``.
+"""The PyTorch port imports nothing of JAX, flax, optax, msgpack or
+``ddlpc_tpu``.
 
 Pinned in a subprocess, where a fresh interpreter imports the whole port
 and then lists what got loaded (the same pattern as the jax-free tier
@@ -21,6 +22,7 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.models",
     "ddlpc_tpu_torch.models.layers",
     "ddlpc_tpu_torch.models.unet",
+    "ddlpc_tpu_torch.obs.lineage",
     "ddlpc_tpu_torch.ops.cuda_quantize",
     "ddlpc_tpu_torch.ops.losses",
     "ddlpc_tpu_torch.ops.metrics",
@@ -31,21 +33,28 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.parallel.mesh",
     "ddlpc_tpu_torch.parallel.shard_update",
     "ddlpc_tpu_torch.parallel.train_step",
+    "ddlpc_tpu_torch.resilience.protocol",
     "ddlpc_tpu_torch.train.__main__",
+    "ddlpc_tpu_torch.train.async_checkpoint",
+    "ddlpc_tpu_torch.train.checkpoint",
     "ddlpc_tpu_torch.train.optim",
     "ddlpc_tpu_torch.train.trainer",
+    "ddlpc_tpu_torch.utils.fsio",
+    "ddlpc_tpu_torch.utils.wire",
 )
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu")
 
 
 def test_port_loads_no_jax_flax_optax_or_ddlpc_tpu():
     script = textwrap.dedent(
         f"""
         import importlib, sys
+        FORBIDDEN = {FORBIDDEN!r}
         for m in {PORT_MODULES!r}:
             importlib.import_module(m)
         bad = sorted(
             m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ddlpc_tpu")
+            if m.split(".")[0] in FORBIDDEN
         )
         print("LOADED", bad)
         """
@@ -60,12 +69,13 @@ def test_port_loads_no_jax_flax_optax_or_ddlpc_tpu():
 
 def test_chip_smoke_imports_nothing_of_jax():
     script = textwrap.dedent(
-        """
+        f"""
         import sys
+        FORBIDDEN = {FORBIDDEN!r}
         import chip_smoke
         bad = sorted(
             m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ddlpc_tpu")
+            if m.split(".")[0] in FORBIDDEN
         )
         print("LOADED", bad)
         """
