@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``host_ms``).  Beside the kernels it times the floor of plain data
    movement on the same clock, ``y.copy_(x)`` and ``x.sum()`` over the
    flagship's fp32 buffer.  Decode is timed on the fp16, int8 and int16
-   wires.  ``encode_sr``'s operations bound counts the instructions of its
-   main loop in this build's SASS (``cuobjdump -sass``).  The max-abs pass
+   wires.  ``encode_sr``'s and ``fake_quantize_sr``'s operations bounds
+   count the instructions of their main loops in this build's SASS
+   (``cuobjdump -sass``; ``fake_quantize_sr`` along its vector path).  The max-abs pass
    is also held against ``x.abs().amax()`` on NaN, ±inf, -0.0, subnormal,
    empty, odd-size and unaligned inputs.  The fake-quantize rows are timed
    as the main path calls them (in place: the max-abs pass, then the
@@ -34,16 +35,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with the fp16 codec, and two with int8 stochastic rounding, on the card
    and on the CPU from the same weights, data and seed, and must agree;
 4. the main paths, each through the CLI's own entry (``parse_args`` →
-   ``Trainer.fit``) on ``configs/vaihingen_unet_tpu_flagship.json`` at full
-   width and 512² tiles for three optimizer steps, with the kernels'
-   launch counts set to 0 just before and read just after each run (each
-   must equal the path's expected count: one launch a step of each codec
-   kernel, two of the max-abs pass): first
-   the config as it is (fp16 codec, nearest rounding), then with
-   ``compression.mode=int8, rounding=stochastic`` (which must warn about
-   its large super-batch).  Every loss must be finite.  The flagship runs
-   on its own checkpoint settings: a chunked (DWC2) checkpoint each epoch,
-   written in the background, three kept;
+   ``Trainer.fit``) on ``configs/vaihingen_unet_tpu_flagship.json`` as
+   written (no ``--set`` but the epochs and the micro-batch) at full width
+   and 512² tiles for three optimizer steps, with the kernels' launch
+   counts set to 0 just before and read just after each run (each must
+   equal the path's expected count: one launch a step of each codec
+   kernel, two of the max-abs pass): first the config as it is (fp16
+   codec, nearest rounding), whose three losses must be the committed bits
+   (``FLAGSHIP_LOSSES``), then
+   with ``compression.mode=int8, rounding=stochastic`` (which must warn
+   about its large super-batch).  Every loss must be finite.  The config's
+   own settings run: the device-resident tile cache, whose batches of
+   every epoch must equal ``DeviceLoader``'s (``torch.equal``); a chunked
+   (DWC2) checkpoint each epoch, written in the background, three kept;
+   the stall watchdog; five PNG triples an epoch, whose last epoch's files
+   must decode (zlib) to the palette of the final state's predictions, the
+   labels and the images; and a ``kind="perf"`` record each epoch with the
+   FLOP model's exact count (12,234,214,342,656 a step), the card's peak
+   known and MFU > 0.  Each path prints its epochs' ``epoch_time_s``,
+   ``step_time_s``, ``t_data_s``, MFU and goodput beside the card.  Then
+   the host libraries on this machine's host (``host row``): the native
+   gather of the epoch's 512 tiles against numpy's and ``index_select``,
+   and the checkpoint wire's deflate and inflate against Python's zlib,
+   with both zlib versions printed;
 
 4b. the checkpoint phase, on the fp16 main path's run: every blob verifies;
    a fresh Trainer on a copy of the workdir whose newest checkpoint is
@@ -54,7 +68,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    snapshot into reusable pinned host buffers, and, for comparison, into
    new pageable ones), the background write, its GB/s, the restore, the
    raw and on-disk bytes, and a step's time with no save in flight and
-   with one.  It prints one ``checkpoint row`` JSON line;
+   with one; then the write and the restore with the native wire and with
+   Python's zlib, in turns.  It prints one ``checkpoint row`` JSON line;
 
 5. the data-parallel paths, each a world of W processes of this script
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
@@ -63,7 +78,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    micro-batch 128 a replica and three optimizer steps:
    ``dp4_zero2_fp16`` (4 replicas, ZeRO-2, the f16 wire) and
    ``dp2_off_int8_sr`` (2 replicas, the replicated fused all-reduce on the
-   int8 wire with stochastic rounding).  One card runs every rank on
+   int8 wire with stochastic rounding), the config as written: the host
+   loader with the native gather into its pinned ring, whose batches (and
+   those of a ring at micro-batch 4, seven batches an epoch through three
+   slots, all held at once) must equal ``DeviceLoader``'s; every epoch's
+   ``perf`` record must carry 3,058,553,585,664 FLOPs and its ``comm``
+   record, and every rank's byte counter, the closed form of the step's
+   collectives.  One card runs every rank on
    ``cuda:0`` over gloo; a host with a card a rank runs NCCL.  Each rank's
    launch counts must equal the path's (one launch a step of each codec
    kernel, two of the max-abs pass), every rank's params must hash alike,
@@ -85,6 +106,12 @@ counts the fp32 values on which ``torch.sqrt`` on the card differs from
 the correctly rounded square root that Adam takes (``optim.sqrt_rn``),
 over 2**23 values spanning 1e-12..1e2.
 
+6. the stall watchdog: a process of this script (``--stall``) trains a
+   tiny config on the card with ``stall_timeout_s=2`` and
+   ``stall_action=abort`` while its loader sleeps 6 s in the second batch;
+   it must exit 42 with ``stall.log`` naming the phase ``data`` and the
+   breadcrumb ``stalled``.
+
 With ``--profile``, after each main path (once its launch counts are read)
 it runs one more optimizer step of that path under ``torch.profiler`` and
 prints the device time by kernel, the device's idle share over that step
@@ -99,6 +126,7 @@ of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -122,14 +150,16 @@ FP32_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, published
 EPOCHS = 3  # one optimizer step per epoch on the flagship (97 tiles, super-batch 512)
 MICRO_BATCH = 128  # the flagship's own
-# Every setting the slice does not implement, switched off for the run.
-OFF = (
-    "train.dump_images_per_epoch=0",
-    "train.stall_timeout_s=0.0",
-    "train.perf_accounting=False",
-    "data.device_cache=False",
-    "data.native_gather=False",
-)
+# The flagship nearest path's losses as the host loader gave them (PERF.md
+# section 5): the device cache serves the same batch bytes.
+FLAGSHIP_LOSSES = [2.0308308601379395, 1.8359242677688599, 1.6781508922576904]
+# The conv FLOPs of one optimizer step a replica, as the JAX package's
+# jaxpr walk counts them (obs/flops.py): the flagship, micro 128 x sync 4,
+# and v5e8, micro 128 x sync 1.
+FLAGSHIP_FLOPS = 12_234_214_342_656
+V5E8_FLOPS = 3_058_553_585_664
+IMAGES_PER_EPOCH = 5  # both configs' train.dump_images_per_epoch
+STALL_SLEEP_S = 6.0  # the watchdog phase's stall, against stall_timeout_s 2
 # The stochastic main path: the flagship recipe's int8-stochastic arm.
 STOCHASTIC = (
     "compression.mode=int8",
@@ -152,10 +182,6 @@ DP_PHASES = {
 }
 DP_DEADLINE_S = 420  # a world still running then is killed, and the run fails
 SYNC_STEP = 7  # the step whose key the sync-level check's stochastic rounding uses
-# Philox4x32-10 per element: 10 rounds of 2 mul.hi + 2 mul.lo + 4 xor +
-# 2 add per 4 elements, plus the 24-bit u (shift, convert, multiply).  An
-# estimate, used where no SASS count is kept (fake_quantize_sr).
-PHILOX_OPS_PER_ELEM = 10 * 10 / 4 + 3
 SNAP_OPS_PER_ELEM = 7  # divide, multiply, add, floor, 2 compares, convert
 # Instruction rates of an H100 SXM (132 SMs at the published 1,980 MHz
 # boost clock): an SM issues 4 warp instructions a clock; a 32-bit integer
@@ -287,6 +313,134 @@ def encode_sr_sass(lib_path: str) -> dict:
     log(f"SASS of encode_sr_kernel<WireI8, vec>'s main loop: {best['loop_instructions']} "
         f"instructions for {best['elements']} elements, {best['per_elem']:.3f} an element "
         f"({best['imul_per_elem']:.3f} IMAD.HI/IMAD.WIDE)")
+    return best
+
+
+def loop_path_sass(lib_path: str, kernel: str, elem_bytes: int) -> dict:
+    """The instructions an element of ``kernel``'s main loop in the SASS of
+    the library at ``lib_path`` (``cuobjdump -sass``), counted along one
+    trip: the loop's body (a backward branch and the instructions from its
+    target to it) is cut into basic blocks, and the trip is the path through
+    them, from the loop's head to its back branch, with the fewest
+    instructions among those that take the widest store, the vector path
+    (a tail branch that stores element by element lies on another path).
+    An element is ``elem_bytes`` of that store.  Integer multiplies
+    (``IMAD.HI``, ``IMAD.WIDE``) are counted apart.  The function's SASS is
+    written to ``runs/chip_smoke/<kernel>.sass``."""
+    from ddlpc_tpu_torch.kernels.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump failed: {r.stderr}")
+    code, labels, pending, inside, text_lines = [], {}, [], False, []
+    for line in r.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if inside:
+                break
+            inside = re.search(kernel, m.group(1)) is not None
+            continue
+        if not inside:
+            continue
+        text_lines.append(line)
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            pred = re.match(r"^@!?U?P[T\d]+\s+", m.group(2)) is not None
+            text = re.sub(r"^@!?U?P[T\d]+\s+", "", m.group(2))
+            code.append((addr, text.split()[0], text, pred))
+    os.makedirs(WORKDIR, exist_ok=True)
+    with open(os.path.join(WORKDIR, re.sub(r"\W", "_", kernel) + ".sass"), "w") as f:
+        f.write("\n".join(text_lines))
+
+    def target_of(text):
+        m = re.search(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b", text)
+        if not m:
+            return None
+        return labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+
+    def width(op):
+        return STORE_BYTES.get(op.split(".")[-1], 4) if op.startswith("STG") else 0
+
+    best = None
+    for i, (addr, op, text, _) in enumerate(code):
+        head = target_of(text) if op.startswith("BRA") else None
+        if head is None or head > addr:
+            continue
+        body = [c for c in code if head <= c[0] <= addr]
+        widest = max(width(c[1]) for c in body)
+        if not widest:
+            continue
+        leaders = {head} | {t for c in body if c[1].startswith("BRA")
+                            for t in [target_of(c[2])] if t is not None and head <= t <= addr}
+        for j, c in enumerate(body[:-1]):
+            if c[1].startswith(("BRA", "EXIT", "RET")):
+                leaders.add(body[j + 1][0])
+        starts = sorted(leaders)
+        blocks = {a: [c for c in body if a <= c[0] < (starts[k + 1] if k + 1 < len(starts) else addr + 1)]
+                  for k, a in enumerate(starts)}
+
+        def succ(a):
+            last = blocks[a][-1]
+            nxt = [b for b in starts if b > a][:1]
+            if last[0] == addr:
+                return []
+            if last[1].startswith("BRA"):
+                t = target_of(last[2])
+                out = [t] if t is not None and head <= t <= addr and t > a else []
+                return out + (nxt if last[3] else [])
+            if last[1].startswith(("EXIT", "RET")):
+                return nxt if last[3] else []
+            return nxt
+
+        # Fewest instructions from the head to the back branch through a
+        # block with the widest store (blocks only lead forward: a DAG).
+        # cost[a] = (without the store, with it), each (instructions,
+        # multiplies, bytes of widest stores) or None.
+        def add(p, blk):
+            if p is None:
+                return None
+            imul = sum(1 for c in blk if c[1].startswith(("IMAD.HI", "IMAD.WIDE")))
+            wide = sum(widest for c in blk if width(c[1]) == widest)
+            return (p[0] + len(blk), p[1] + imul, p[2] + wide)
+
+        def better(p, q):
+            return q if p is None or (q is not None and q[0] < p[0]) else p
+
+        def has_store(blk):
+            return any(width(c[1]) == widest for c in blk)
+
+        cost = {a: [None, None] for a in starts}
+        cost[head][int(has_store(blocks[head]))] = add((0, 0, 0), blocks[head])
+        for a in starts:
+            for b in succ(a):
+                if has_store(blocks[b]):
+                    cost[b][1] = better(cost[b][1], better(add(cost[a][0], blocks[b]),
+                                                           add(cost[a][1], blocks[b])))
+                else:
+                    cost[b][0] = better(cost[b][0], add(cost[a][0], blocks[b]))
+                    cost[b][1] = better(cost[b][1], add(cost[a][1], blocks[b]))
+        found = cost[max(starts)][1]
+        if found is None:
+            continue
+        elements = found[2] / elem_bytes  # an unrolled trip stores more than once
+        row = {"loop_instructions": found[0], "elements": elements, "per_elem": found[0] / elements,
+               "imul_per_elem": found[1] / elements, "body_instructions": len(body)}
+        if best is None or row["per_elem"] < best["per_elem"]:
+            best = row
+    if best is None:
+        fail(f"no loop with a store in the SASS of {kernel}")
+    log(f"SASS of {kernel}'s main loop: {best['loop_instructions']} instructions on the vector "
+        f"path (of {best['body_instructions']} in the loop body) for {best['elements']:g} elements, "
+        f"{best['per_elem']:.3f} an element ({best['imul_per_elem']:.3f} IMAD.HI/IMAD.WIDE)")
     return best
 
 
@@ -551,13 +705,14 @@ def must_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
         fail(f"{what}: differs at {bad} elements")
 
 
-def stochastic_kernel_phase(n: int, sass: dict) -> list:
+def stochastic_kernel_phase(n: int, sass: dict, fq_sass: dict) -> list:
     """The four stochastic kernel families at the flagship's size: bit for
     bit against their plain versions on every wire, _noise fed the plain
     Philox field against _sr, the offset-slice property at one offset that
     is a multiple of 4 and one that is not, unbiasedness over 64 keys; then
     one timed row each at the int8 stochastic main path's settings.
-    ``sass`` is ``encode_sr_sass``'s count, for ``encode_sr``'s bound."""
+    ``sass`` is ``encode_sr_sass``'s count, for ``encode_sr``'s bound, and
+    ``fq_sass`` ``loop_path_sass``'s for ``fake_quantize_sr``'s."""
     from ddlpc_tpu_torch.config import CompressionConfig
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops import philox
@@ -622,7 +777,6 @@ def stochastic_kernel_phase(n: int, sass: dict) -> list:
     out = torch.empty_like(x)
     fq_in = x.clone()  # the main path fake-quantizes its buffer in place
     src = "ddlpc_tpu_torch/kernels/csrc/stochastic.cu"
-    sr_ops = PHILOX_OPS_PER_ELEM + SNAP_OPS_PER_ELEM
     specs = [
         dict(
             name="encode_sr", source=src,
@@ -640,7 +794,9 @@ def stochastic_kernel_phase(n: int, sass: dict) -> list:
             replaces="ddlpc_tpu/ops/pallas_quantize.py:50",
             kernel=lambda: cq.fake_quantize_fused(fq_in, cfg, out=fq_in, key=key),
             plain=lambda: cq.fake_quantize_plain(x, cfg, key=key),
-            bytes=4 * n + 4 * n + 4, ops=(sr_ops + 3) * n,
+            bytes=4 * n + 4 * n + 4,
+            ops_ms=n * max(fq_sass["per_elem"] / INSTR_LANES_PER_S,
+                           fq_sass["imul_per_elem"] / IMUL_LANES_PER_S) * 1e3,
             err=lambda: (cq.fake_quantize_fused(x, cfg, key=key)
                          - cq.fake_quantize_plain(x, cfg, key=key)).abs().max(),
         ),
@@ -669,6 +825,7 @@ def stochastic_kernel_phase(n: int, sass: dict) -> list:
         "rounds stochastically, with or without a Philox draw")
     rows = [timed_row(s) for s in specs]
     rows[0]["sass_per_elem"], rows[0]["sass_imul_per_elem"] = sass["per_elem"], sass["imul_per_elem"]
+    rows[1]["sass_per_elem"], rows[1]["sass_imul_per_elem"] = fq_sass["per_elem"], fq_sass["imul_per_elem"]
     k0, k1 = key
     amax = cq.absmax(x)
     rows[1]["kernel_ms"] = time_ms(lambda: raw_launch(
@@ -750,7 +907,7 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     argv = ["--config", FLAGSHIP, "--device", "cuda", "--no-resume",
             "--workdir", workdir, "--set", f"train.epochs={EPOCHS}",
             "--set", f"train.micro_batch_size={MICRO_BATCH}"]
-    for o in OFF + extra:
+    for o in extra:
         argv += ["--set", o]
     log(f"main path [{label}]: python -m ddlpc_tpu_torch.train " + " ".join(argv))
     metrics_path = os.path.join(workdir, "metrics.jsonl")
@@ -774,7 +931,8 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     launches = dict(cq.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     with open(metrics_path) as f:
-        records = [json.loads(line) for line in f]
+        lines = [json.loads(line) for line in f]
+    records = [r for r in lines if "kind" not in r]
     for r in records:
         log(f"[{label}] step {r['epoch'] + 1}: loss {r['loss']} step_time_s {r['step_time_s']} "
             f"epoch_time_s {r['epoch_time_s']} grad_norm {r['grad_norm']} val_miou {r.get('val_miou')}")
@@ -782,13 +940,143 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
             fail(f"[{label}] non-finite training metrics {r}")
     if len(records) != EPOCHS:
         fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
+    perf = perf_checks(label, lines, FLAGSHIP_FLOPS)
+    snap = trainer.registry.snapshot()
+    if snap["ddlpc_flops_per_step"] != FLAGSHIP_FLOPS or snap["ddlpc_peak_flops_assumed"] != 0:
+        fail(f"[{label}] registry: ddlpc_flops_per_step {snap['ddlpc_flops_per_step']}, "
+             f"assumed {snap['ddlpc_peak_flops_assumed']}")
+    if type(trainer.loader).__name__ != "DeviceCachedLoader":
+        fail(f"[{label}] the flagship's data.device_cache=true ran {type(trainer.loader).__name__}")
+    loader_equal(label, trainer, trainer.loader, EPOCHS)
+    png_checks(label, trainer)
     log(f"[{label}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     log(f"[{label}] kernels " + json.dumps(launches))
     want = {name: expect.get(name, 0) for name in launches}
     if launches != want:
         fail(f"[{label}] kernel launches in {EPOCHS} steps: {launches}, expected {want}")
     return {"launches": launches, "n_params": n_params, "trainer": trainer, "argv": argv,
-            "losses": [r["loss"] for r in records]}
+            "losses": [r["loss"] for r in records], "peak_bytes": peak,
+            "epochs": path_row(label, records, perf)}
+
+
+def path_row(label: str, records: list, perf: list) -> list:
+    """Each epoch's times, MFU and goodput, printed beside the card."""
+    rows = [{"epoch": r["epoch"], "epoch_time_s": r["epoch_time_s"], "step_time_s": r["step_time_s"],
+             "t_data_s": r.get("t_data_s"), "t_step_s": r.get("t_step_s"), "mfu": p["mfu"],
+             "goodput": p["goodput"]} for r, p in zip(records, perf)]
+    card = smi_line()
+    for row in rows:
+        log(f"[{label}] epoch {row['epoch']}: epoch_time_s {row['epoch_time_s']} step_time_s "
+            f"{row['step_time_s']} t_data_s {row['t_data_s']} t_step_s {row['t_step_s']} mfu "
+            f"{row['mfu']} goodput {row['goodput']} ({card})")
+    return rows
+
+
+def perf_checks(label: str, lines: list, flops: int) -> list:
+    """Every epoch's ``kind="perf"`` record: the FLOP model's exact count
+    (0 if it failed), the card's peak known, MFU > 0, and the reconciliation
+    productive + debits <= wall."""
+    perf = [r for r in lines if r.get("kind") == "perf"]
+    if len(perf) != EPOCHS:
+        fail(f"[{label}] expected {EPOCHS} perf records, got {len(perf)}")
+    for r in perf:
+        debits = sum(v for k, v in r.items() if k.startswith("debit_"))
+        if (r["flops_per_step"] != flops or r["peak_flops_assumed"] or not r["mfu"] > 0
+                or r["productive_s"] + debits > r["wall_s"] + 1e-3):
+            fail(f"[{label}] perf record {r}: expected flops_per_step {flops}, a known peak, "
+                 f"MFU > 0 and productive + debits <= wall")
+    log(f"[{label}] perf records: flops_per_step {flops} on every epoch, peak "
+        f"{perf[0]['peak_flops_per_device']:.3e} known; " + json.dumps(perf[-1]))
+    return perf
+
+
+def loader_equal(label: str, trainer, loader, epochs: int) -> int:
+    """``loader``'s batches of ``epochs`` epochs, every batch held at once,
+    against ``DeviceLoader``'s (the plain host path) on the same split,
+    seed and replica, with ``torch.equal``.  Returns the batch count."""
+    from ddlpc_tpu_torch.data.loader import DeviceLoader
+
+    plain = DeviceLoader(trainer.train_ds, micro_batch=loader.micro_batch,
+                         sync_period=loader.sync_period, device=trainer.device,
+                         shuffle=trainer.cfg.data.shuffle, seed=trainer.cfg.data.seed,
+                         replica=loader.replica, world=loader.world)
+    n = 0
+    for e in range(epochs):
+        loader.set_epoch(e)
+        plain.set_epoch(e)
+        held = list(loader)
+        for (gi, gl), (wi, wl) in zip(held, plain):
+            if not (gi.dtype == wi.dtype and gl.dtype == wl.dtype
+                    and torch.equal(gi, wi) and torch.equal(gl, wl)):
+                fail(f"[{label}] {type(loader).__name__} batch {n} of epoch {e} differs from "
+                     f"DeviceLoader's")
+            n += 1
+        del held
+    log(f"[{label}] {type(loader).__name__}: {n} batches of {epochs} epoch(s), micro {loader.micro_batch} "
+        f"x sync {loader.sync_period}, replica {loader.replica} of {loader.world}, == DeviceLoader's "
+        f"(torch.equal)")
+    return n
+
+
+def read_png(path: str):
+    """An 8-bit RGB PNG whose rows are all filter 0 (what the trainer's
+    writer emits), decoded with zlib; each chunk's CRC checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != zlib.crc32(kind + body):
+            fail(f"{path}: bad CRC on {kind}")
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                fail(f"{path}: depth {depth}, color type {color}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def png_checks(label: str, trainer) -> None:
+    """``IMAGES_PER_EPOCH`` triples an epoch; the last epoch's decode to
+    the palette of the final state's predictions and of the labels, and to
+    the image at x255."""
+    import numpy as np
+
+    from ddlpc_tpu_torch.train.observability import class_palette
+
+    root = os.path.join(trainer.workdir, "images")
+    want = sorted(f"{k} {i}.png" for k in ("Model", "Label", "Image") for i in range(IMAGES_PER_EPOCH))
+    for e in range(EPOCHS):
+        got = sorted(os.listdir(os.path.join(root, f"epoch_{e:04d}")))
+        if got != want:
+            fail(f"[{label}] images of epoch {e}: {got}")
+    images = trainer.test_ds.images[:IMAGES_PER_EPOCH]
+    labels = trainer.test_ds.labels[:IMAGES_PER_EPOCH]
+    preds = trainer.predict(images)
+    pal = class_palette(trainer.cfg.model.num_classes)
+    last = os.path.join(root, f"epoch_{EPOCHS - 1:04d}")
+    for i in range(IMAGES_PER_EPOCH):
+        for kind, rgb in (("Model", pal[preds[i]]), ("Label", pal[labels[i]]),
+                          ("Image", np.clip(images[i] * 255.0, 0, 255).astype(np.uint8))):
+            if not np.array_equal(read_png(os.path.join(last, f"{kind} {i}.png")), rgb):
+                fail(f"[{label}] {kind} {i}.png of epoch {EPOCHS - 1} does not decode to its pixels")
+    log(f"[{label}] {len(want)} PNGs an epoch; epoch {EPOCHS - 1}'s decode (zlib) to palette[pred], "
+        f"palette[label] and the image; predicted classes {np.bincount(preds.ravel(), minlength=len(pal)).tolist()}")
 
 
 def sqrt_phase() -> dict:
@@ -858,7 +1146,7 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
         fail(f"resume from epoch {EPOCHS - 2}: start epoch {fresh.start_epoch}, step {fresh.state.step}")
     fresh.fit()
     with open(os.path.join(work, "metrics.jsonl")) as f:
-        resumed = [json.loads(line) for line in f]
+        resumed = [r for r in map(json.loads, f) if "kind" not in r]
     if [r["epoch"] for r in resumed] != [EPOCHS - 1] or resumed[0]["loss"] != losses[-1]:
         fail(f"resumed epoch {resumed} != the uninterrupted epoch {EPOCHS - 1}'s loss {losses[-1]}")
     log(f"[checkpoint] resumed from epoch {EPOCHS - 2}: epoch {EPOCHS - 1} loss "
@@ -920,6 +1208,22 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
     row["write_gb_per_s"] = raw / row["write_ms"] / 1e6
     row["step_idle_s"] = statistics.median(r["step_idle_s"] for r in runs)
     row["step_with_save_s"] = statistics.median(r["step_with_save_s"] for r in runs)
+    # The wire's two implementations in turns on this host (native,
+    # Python, Python, native): the background write and the restore.
+    from ddlpc_tpu_torch.utils import wire
+
+    wires = {"native": [], "python": []}
+    for name in ("native", "python", "python", "native"):
+        wire.set_native(name == "native")
+        step = trainer.state.step
+        ac.save(timing_dir, trainer.state, step, metadata=trainer._metadata(EPOCHS, step))
+        ac.wait()
+        t = time.perf_counter()
+        ckpt.restore_checkpoint(timing_dir)
+        wires[name].append({"write_ms": ac.last_write_s * 1e3,
+                            "restore_ms": (time.perf_counter() - t) * 1e3})
+    wire.set_native(True)
+    row["wire_ab"] = wires
     log("checkpoint row: " + json.dumps(row))
     return row
 
@@ -1015,6 +1319,171 @@ def shard_kernel_rows(n: int) -> list:
     return rows
 
 
+def stall_config(workdir: str) -> str:
+    """A tiny U-Net on 32-pixel tiles, four steps an epoch, the fp16 codec
+    (so the kernels load), the watchdog at 2 s with ``abort``."""
+    cfg = {
+        "model": {"features": [8, 16], "bottleneck_features": 16, "stem": "s2d",
+                  "stem_factor": 2, "detail_head": True},
+        "data": {"image_size": [32, 32], "synthetic_len": 20, "test_split": 4},
+        "train": {"epochs": 2, "micro_batch_size": 4, "sync_period": 1,
+                  "checkpoint_every_epochs": 0, "dump_images_per_epoch": 0,
+                  "stall_timeout_s": 2.0, "stall_action": "abort"},
+        "compression": {"mode": "float16"},
+    }
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "tiny.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def stall_run(workdir: str) -> None:
+    """The watchdog phase's training process (``--stall``): the tiny config
+    on the card, its loader sleeping ``STALL_SLEEP_S`` in its second batch
+    (this script's doing; the package has no fault hook).  One step before
+    ``fit`` sets up cuDNN and cuBLAS, so that their first call is not the
+    stall.  The watchdog must end the process with 42 inside that sleep."""
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    cfg, _, device, _ = parse_args(["--config", stall_config(workdir), "--device", "cuda",
+                                    "--no-resume", "--workdir", os.path.join(workdir, "run")])
+    trainer = Trainer(cfg, resume=False, device=device)
+    trainer.train_step(trainer.state, *next(iter(trainer.loader)))
+    torch.cuda.synchronize()
+
+    class Stalling(type(trainer.loader)):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 1:
+                    time.sleep(STALL_SLEEP_S)
+                yield batch
+
+    trainer.loader.__class__ = Stalling
+    trainer.fit()
+    log("stall run: fit returned")
+
+
+def stall_phase() -> dict:
+    """A training process on the card whose data fetch stalls: it must exit
+    42 (``EXIT_STALL``) with ``stall.log`` naming the phase ``data`` and the
+    breadcrumb ``stalled``."""
+    import shutil
+
+    from ddlpc_tpu_torch.resilience.protocol import EXIT_STALL, read_breadcrumb
+
+    workdir = os.path.join(WORKDIR, "stall")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--stall", workdir],
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    wall = time.perf_counter() - t0
+    run = os.path.join(workdir, "run")
+    crumb = read_breadcrumb(run) or {}
+    try:
+        with open(os.path.join(run, "stall.log")) as f:
+            diagnosis = f.read()
+    except OSError:
+        diagnosis = ""
+    row = {"rc": r.returncode, "wall_s": wall, "phase": crumb.get("phase"),
+           "stall_tag": crumb.get("stall_tag"), "stall_age_s": crumb.get("stall_age_s")}
+    log(f"stall phase: " + json.dumps(row) + "; stall.log: "
+        + (diagnosis.splitlines()[0] if diagnosis else "(none)"))
+    if (r.returncode != EXIT_STALL or crumb.get("phase") != "stalled"
+            or crumb.get("stall_tag") != "data" or "last phase: 'data'" not in diagnosis):
+        fail(f"stall phase: expected exit {EXIT_STALL}, breadcrumb stalled at data and a stall.log "
+             f"naming it; got {row}\nstdout: {r.stdout[-2000:]}\nstderr: {r.stderr[-4000:]}")
+    return row
+
+
+def host_phase(trainer) -> list:
+    """The host C++ libraries on this machine's host, at the flagship's
+    sizes: ``dwb_gather_pack`` of the epoch's 512 wrap-filled tiles into a
+    pinned buffer against numpy's ``take`` and ``torch.index_select`` into
+    the same buffer, and the checkpoint wire's deflate of the flagship's
+    params (level 1, and level 0 as adaptive stores dense fp32) and its
+    inflate, native against Python's zlib.  Host clock, median of 5 (3
+    for Python's deflate).  Prints the zlib Python links and the one the
+    native library links; level-1 frames are the same bytes where the two
+    are one zlib."""
+    import ctypes
+    import zlib
+
+    import numpy as np
+
+    from ddlpc_tpu_torch.data.loader import DeviceLoader
+    from ddlpc_tpu_torch.utils import native, wire
+
+    def median_s(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    ds = trainer.train_ds
+    plain = DeviceLoader(ds, micro_batch=MICRO_BATCH, sync_period=4, device=trainer.device,
+                         seed=trainer.cfg.data.seed)
+    flat = np.ascontiguousarray(next(plain.index_chunks()), np.int64)
+    img = torch.empty((len(flat), *ds.image_shape), dtype=torch.float32, pin_memory=True)
+    lab = torch.empty((len(flat), *ds.labels.shape[1:]), dtype=torch.int32, pin_memory=True)
+    lib = native.load_batch()
+    gather = lambda: lib.gather_pack(ds.images, ds.labels, flat, img.numpy(), lab.numpy())  # noqa: E731
+
+    def numpy_take():
+        np.take(ds.images, flat, axis=0, out=img.numpy())
+        np.take(ds.labels, flat, axis=0, out=lab.numpy())
+
+    src_i, src_l, idx = torch.from_numpy(ds.images), torch.from_numpy(ds.labels), torch.from_numpy(flat)
+
+    def index_select():
+        torch.index_select(src_i, 0, idx, out=img)
+        torch.index_select(src_l, 0, idx, out=lab)
+
+    gather()
+    if not (np.array_equal(img.numpy(), ds.images[flat]) and np.array_equal(lab.numpy(), ds.labels[flat])):
+        fail("dwb_gather_pack differs from numpy's gather")
+    n_bytes = 2 * (img.numel() * 4 + lab.numel() * 4)  # each byte read once, written once
+    g = {"name": "dwb_gather_pack", "source": "ddlpc_tpu_torch/kernels/host/batch.cc",
+         "copy_of": "csrc/batch.cc", "tiles": len(flat), "bytes": n_bytes,
+         "threads": native.MAX_THREADS, "ms": median_s(gather) * 1e3,
+         "plain_ms": median_s(numpy_take) * 1e3, "library_ms": median_s(index_select) * 1e3}
+    g["gb_per_s"] = n_bytes / g["ms"] / 1e6
+    del img, lab
+
+    payload = trainer.state.params.data.cpu().numpy().tobytes()
+    nw = native.load_wire()
+    zv = ctypes.CDLL(native.library_path("libdwz")).zlibVersion
+    zv.restype = ctypes.c_char_p
+    versions = {"python_zlib": zlib.ZLIB_RUNTIME_VERSION, "native_zlib": zv().decode()}
+    rows = [g]
+    for level in (1, 0):
+        frame = nw.compress(payload, level, wire.BLOCK_SIZE)
+        wire.set_native(False)
+        python = wire.compress(payload, level)
+        py_ms = median_s(lambda: wire.compress(payload, level), reps=3) * 1e3
+        py_inflate_ms = median_s(lambda: wire.decompress(frame), reps=3) * 1e3
+        wire.set_native(True)
+        if nw.decompress(python) != payload or wire.decompress(frame) != payload:
+            fail(f"the native wire and Python's zlib do not read each other's frames (level {level})")
+        same = frame == python
+        if level == 1 and versions["python_zlib"] == versions["native_zlib"] and not same:
+            fail(f"level-1 frames differ under one zlib {versions}")
+        rows.append({"name": f"dwz_compress level {level}", "source": "ddlpc_tpu_torch/kernels/host/wire.cc",
+                     "copy_of": "csrc/wire.cc", "bytes": len(payload), "frame_bytes": len(frame),
+                     "threads": native.MAX_THREADS,
+                     "ms": median_s(lambda: nw.compress(payload, level, wire.BLOCK_SIZE)) * 1e3,
+                     "plain_ms": py_ms, "same_bytes_as_python": same, **versions})
+        rows.append({"name": f"dwz_decompress level {level}", "source": "ddlpc_tpu_torch/kernels/host/wire.cc",
+                     "copy_of": "csrc/wire.cc", "bytes": len(payload), "threads": native.MAX_THREADS,
+                     "ms": median_s(lambda: nw.decompress(frame)) * 1e3, "plain_ms": py_inflate_ms})
+    for row in rows:
+        log("host row: " + json.dumps(row))
+    return rows
+
+
 def simulate_sync(bufs: list, compression, key) -> torch.Tensor:
     """The whole world's sync of ``bufs`` (one flat buffer a replica) in
     plain PyTorch, in one process: the shared scale, each replica's
@@ -1083,7 +1552,7 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
             "--workdir", os.path.join(workdir, "run"), "--set", f"train.epochs={EPOCHS}",
             "--set", f"train.micro_batch_size={MICRO_BATCH}",
             "--set", f"parallel.data_axis_size={world}"]
-    for o in OFF + extra:
+    for o in extra:
         argv += ["--set", o]
     cfg, resume, dev, backend_arg = parse_args(argv)
     with warnings.catch_warnings(record=True) as caught:
@@ -1103,6 +1572,22 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     digest = hashlib.sha256(flat.data.cpu().numpy().tobytes()).hexdigest()
     hashes = [None] * world
     dist.all_gather_object(hashes, digest)
+    # The host path's batches: the run's own loader (the native gather into
+    # the pinned ring) over its epochs, and a ring at micro-batch 4, whose
+    # epoch of 7 batches runs through the 3 slots while every batch is held.
+    from ddlpc_tpu_torch.data.loader import ShardedLoader
+
+    if not isinstance(trainer.loader, ShardedLoader) or trainer.loader._native is None:
+        fail(f"[{label}] v5e8 (device_cache=false, native_gather) ran {type(trainer.loader).__name__}")
+    loader_equal(label, trainer, trainer.loader, EPOCHS)
+    ring = ShardedLoader(trainer.train_ds, micro_batch=4, sync_period=1, device=trainer.device,
+                         shuffle=cfg.data.shuffle, seed=cfg.data.seed, replica=rank, world=world)
+    ring_batches = loader_equal(label, trainer, ring, 1)
+    del ring
+    counter = trainer.registry.get("ddlpc_comm_bytes_total")
+    comm_wire = {row["collective"]: counter.value(collective=row["collective"], codec=row["codec"],
+                                                  stage="wire")
+                 for row in trainer.comm.plan}
 
     # The sync-level check: each rank's gradient buffer from its own seed
     # (the zero tail kept), synced by the path's own function; rank 0 holds
@@ -1177,13 +1662,13 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
         "params_hashes": hashes, "sync_hashes": sync_hashes, "sync_equal": sync_equal,
         "peak_bytes": peak, "card_used_bytes": total - free, "fit_s": fit_s,
         "last": last, "n_params": n, "padded": flat.data.numel(), "shard": k, **cost,
+        "ring_batches": ring_batches, "comm_wire": comm_wire,
     }
     if level == "zero2":
         # The run checkpointed each epoch (the moments gathered, rank 0
         # writing): a fresh Trainer on every rank restores the newest, and
         # the params and this rank's chunk of the moments must be the bits
         # the run ended on.
-        import gc
 
         def digests(t) -> list:
             o = t.state.opt_state
@@ -1236,7 +1721,8 @@ def dp_phase(label: str) -> dict:
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     with open(os.path.join(workdir, "run", "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
+        lines = [json.loads(line) for line in f]
+    records = [r for r in lines if "kind" not in r]
     want = {name: EPOCHS * per_step.get(name, 0) for name in ranks[0]["launches"]}
     for rr in ranks:
         log(f"[{label}] rank {rr['rank']} on {rr['device']}: level {rr['level']}, kernels "
@@ -1271,6 +1757,8 @@ def dp_phase(label: str) -> dict:
             fail(f"[{label}] non-finite training metrics {rec}")
     if len(records) != EPOCHS:
         fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
+    perf = perf_checks(label, lines, V5E8_FLOPS)
+    comm_checks(label, lines, ranks, level)
     log(f"[{label}] replicas bit-identical ({ranks[0]['params_hashes'][0][:16]}), synced gradient "
         f"== plain simulation bit for bit; world wall {wall_s:.1f} s")
     return {
@@ -1284,8 +1772,43 @@ def dp_phase(label: str) -> dict:
         "collectives_ms": [rr["collectives_ms"] for rr in ranks],
         "codec_ms": [rr["codec_ms"] for rr in ranks],
         "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
-        "zero2_restore": restored[0],
+        "zero2_restore": restored[0], "epochs": path_row(label, records, perf),
     }
+
+
+def comm_rows(n: int, padded: int, level: str, wire_bytes: int) -> dict:
+    """The closed form of a step's collectives (obs/comm.py): the codec's
+    declared payload on the ``n`` gradients, and the bytes the port moves,
+    the flat buffer of ``padded`` elements on the wire plus a 4-byte
+    max-abs all-reduce for the shared scale and, under zero2, one for the
+    mean stage."""
+    grad = "reduce_scatter" if level == "zero2" else "all_reduce"
+    rows = {grad: {"bytes_pre": 4 * n, "bytes_post": wire_bytes * n + 4,
+                   "bytes_wire": wire_bytes * padded + 4 * (2 if level == "zero2" else 1)}}
+    if level == "zero2":
+        rows["all_gather"] = {"bytes_pre": 4 * n, "bytes_post": 4 * n, "bytes_wire": 4 * padded}
+    return rows
+
+
+def comm_checks(label: str, lines: list, ranks: list, level: str) -> None:
+    """Rank 0's ``kind="comm"`` record each epoch, and every rank's byte
+    counter after the run, against :func:`comm_rows`."""
+    wire_bytes = {"dp4_zero2_fp16": 2, "dp2_off_int8_sr": 1}[label]
+    want = comm_rows(ranks[0]["n_params"], ranks[0]["padded"], level, wire_bytes)
+    recs = [r for r in lines if r.get("kind") == "comm"]
+    if len(recs) != EPOCHS:
+        fail(f"[{label}] expected {EPOCHS} comm records, got {len(recs)}")
+    for e, r in enumerate(recs):
+        for name, row in want.items():
+            got = {k: r[f"{name}_{k}_per_step"] for k in row}
+            if got != row or r["steps"] != e + 1:
+                fail(f"[{label}] comm record {r}: {name} {got} != closed form {row}")
+    for rr in ranks:
+        total = {name: EPOCHS * row["bytes_wire"] for name, row in want.items()}
+        if rr["comm_wire"] != total:
+            fail(f"[{label}] rank {rr['rank']} ddlpc_comm_bytes_total wire {rr['comm_wire']} != {total}")
+    log(f"[{label}] comm records == closed form a step " + json.dumps(want)
+        + f"; every rank's wire counter == {EPOCHS} steps of it")
 
 
 def main() -> int:
@@ -1300,6 +1823,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of a data-parallel phase
         dp_rank(*sys.argv[2:6])
         return 0
+    if sys.argv[1:2] == ["--stall"]:  # the watchdog phase's training process
+        stall_run(sys.argv[2])
+        return 0
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -1307,6 +1833,7 @@ def main() -> int:
     kbuild.load_library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
     sass = encode_sr_sass(path)
+    fq_sass = loop_path_sass(path, r"fake_quantize_sr_kernelILb1E", elem_bytes=4)
 
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.models import build_model
@@ -1316,7 +1843,7 @@ def main() -> int:
     n = sum(p.numel() for p in build_model(flagship.model).parameters())
     floor = floor_phase(n)
     rows = kernel_phase(n)
-    sr_rows = stochastic_kernel_phase(n, sass)
+    sr_rows = stochastic_kernel_phase(n, sass, fq_sass)
     chunk_rows = shard_kernel_rows(n)
     sqrt_row = sqrt_phase()
     reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
@@ -1326,11 +1853,19 @@ def main() -> int:
         expect={"encode_to_wire": EPOCHS, "decode_from_wire": EPOCHS,
                 "fake_quantize_fused": EPOCHS, "absmax": 2 * EPOCHS},
     )
+    if main["losses"] != FLAGSHIP_LOSSES:
+        fail(f"[nearest_fp16] losses {main['losses']} != the committed bits {FLAGSHIP_LOSSES}")
+    log(f"[nearest_fp16] losses == the committed bits {FLAGSHIP_LOSSES}")
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_phase(main["trainer"], "nearest_fp16")
+    host_rows = host_phase(main["trainer"])
     ckpt_row = checkpoint_phase(main["trainer"], main["argv"], main["losses"])
     del main["trainer"]  # free its state, so the next run's peak memory is its own
+    # The first Trainer of a process is also held by a cycle until a
+    # collection: its FLOP model's meta forward is what imports
+    # torch._dynamo, and torch.fx's import keeps the importing frames.
+    gc.collect()
     torch.cuda.empty_cache()
     sr = main_path_phase(
         "stochastic_int8", STOCHASTIC, warns=True,
@@ -1341,6 +1876,7 @@ def main() -> int:
         profile_phase(sr["trainer"], "stochastic_int8")
     del sr["trainer"]
     dp = {label: dp_phase(label) for label in DP_PHASES}
+    stall_row = stall_phase()
     for run in (main, sr, *dp.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
@@ -1356,8 +1892,14 @@ def main() -> int:
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
+    paths = {"nearest_fp16": main["epochs"], "stochastic_int8": sr["epochs"],
+             **{label: run["epochs"] for label, run in dp.items()}}
+    log("paths: " + json.dumps({"card": smi, "epochs": paths,
+                                "peak_bytes": {"nearest_fp16": main["peak_bytes"],
+                                               "stochastic_int8": sr["peak_bytes"]}}))
     print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
-                      "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row}))
+                      "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row,
+                      "host": host_rows, "stall": stall_row, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

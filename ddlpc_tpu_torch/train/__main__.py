@@ -16,11 +16,27 @@ A data-parallel world is started by torchrun, one process per replica::
     torchrun --nproc-per-node 4 -m ddlpc_tpu_torch.train --config cfg.json \
         --set parallel.data_axis_size=4
 
+The committed configs run as written, with no ``--set``: the host
+libraries of the loader and the checkpoint wire build with ``g++`` at
+first use, the codec kernels with ``nvcc``.
+
 The same command on the same ``--workdir`` resumes from the newest
-checkpoint (``--no-resume`` starts afresh).  Exit status 0 means every
-epoch ran; 43 means a SIGTERM preempted the run after an emergency
-checkpoint (``resilience/protocol.py``), and running the command again
-carries on from it.
+checkpoint (``--no-resume`` starts afresh).  Exit status
+(``resilience/protocol.py``):
+
+- 0: every epoch ran;
+- 42: the stall watchdog aborted a run whose data fetch, step or eval
+  batch made no progress for ``train.stall_timeout_s`` seconds under
+  ``train.stall_action=abort`` (the diagnosis is in
+  ``<workdir>/stall.log``, the breadcrumb says ``stalled``); running the
+  command again resumes from the newest checkpoint;
+- 43: a SIGTERM preempted the run after an emergency checkpoint, and
+  running the command again carries on from it.
+
+Rank 0 writes ``<workdir>/metrics.jsonl`` (one record an epoch, and with
+``train.perf_accounting`` one ``kind="perf"`` and one ``kind="comm"``
+record each epoch after it), the PNGs of ``train.dump_images_per_epoch``
+under ``<workdir>/images/epoch_XXXX/``, and ``<workdir>/checkpoints/``.
 """
 
 from __future__ import annotations

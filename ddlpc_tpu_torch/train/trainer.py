@@ -25,6 +25,21 @@ replica, so the global micro-batch is that times the world size, as in the
 JAX trainer; ``parallel.shard_update`` resolves to ``off`` or ``zero2`` as
 it does there.
 
+The loader is the JAX trainer's choice: ``data.device_cache`` uploads the
+split once and gathers on the device, else the host path prefetches
+through a pinned ring, gathering with the native ``dwb_gather_pack`` under
+``data.native_gather`` (``data/loader.py``).  ``data.native_gather`` also
+picks the checkpoint wire's native deflate (``utils/wire.py``); a host
+library that does not build raises.  ``train.stall_timeout_s`` arms the
+stall watchdog (``train/watchdog.py``): a data fetch, step or eval batch
+that stalls is diagnosed in ``<workdir>/stall.log``, and with
+``stall_action='abort'`` the process exits 42 after the ``stalled``
+breadcrumb.  ``train.dump_images_per_epoch`` writes the prediction, label
+and image PNGs of the first test tiles under ``<workdir>/images/``.
+``train.perf_accounting`` adds a ``kind="perf"`` record (MFU, goodput and
+its debits, ``obs/flops.py``) and a ``kind="comm"`` record (each
+collective's bytes, ``obs/comm.py``) to ``metrics.jsonl`` every epoch.
+
 Settings this slice does not implement raise ``NotImplementedError`` when
 enabled, all of them in one message that names the ``--set`` overrides
 which switch them off; none is silently ignored.
@@ -32,6 +47,7 @@ which switch them off; none is silently ignored.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import signal
@@ -47,9 +63,14 @@ from ddlpc_tpu_torch import resolve_device
 from ddlpc_tpu_torch.config import ExperimentConfig
 from ddlpc_tpu_torch.convert import load_state_tree
 from ddlpc_tpu_torch.data.datasets import build_dataset
-from ddlpc_tpu_torch.data.loader import DeviceLoader, eval_batches
+from ddlpc_tpu_torch.data.loader import DeviceCachedLoader, ShardedLoader, eval_batches
+from ddlpc_tpu_torch.kernels.build import load_library
 from ddlpc_tpu_torch.models import build_model_from_experiment
+from ddlpc_tpu_torch.obs import comm as obs_comm
+from ddlpc_tpu_torch.obs import flops as obs_flops
+from ddlpc_tpu_torch.obs import hbm as obs_hbm
 from ddlpc_tpu_torch.obs import lineage
+from ddlpc_tpu_torch.obs.registry import MetricsRegistry
 from ddlpc_tpu_torch.ops.metrics import accuracy_from_confusion, iou_per_class, mean_iou
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
@@ -62,7 +83,10 @@ from ddlpc_tpu_torch.parallel.train_step import (
 from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED, write_breadcrumb
 from ddlpc_tpu_torch.train import checkpoint as ckpt
 from ddlpc_tpu_torch.train.async_checkpoint import AsyncCheckpointer
+from ddlpc_tpu_torch.train.observability import StageTimer, dump_prediction_triples
 from ddlpc_tpu_torch.train.optim import build_optimizer
+from ddlpc_tpu_torch.train.watchdog import StallWatchdog
+from ddlpc_tpu_torch.utils import wire
 
 
 def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
@@ -70,15 +94,10 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
     slice does not implement (empty when the config is supported)."""
     t, d, p = cfg.train, cfg.data, cfg.parallel
     checks = [  # (key, enabled, value that switches it off)
-        ("train.dump_images_per_epoch", t.dump_images_per_epoch != 0, 0),
         ("train.profile_epoch", t.profile_epoch >= 0, -1),
-        ("train.stall_timeout_s", t.stall_timeout_s != 0, 0.0),
         ("train.trace", t.trace, False),
         ("train.telemetry_port", t.telemetry_port >= 0, -1),
-        ("train.perf_accounting", t.perf_accounting, False),
         ("train.remat", t.remat, False),
-        ("data.device_cache", d.device_cache, False),
-        ("data.native_gather", d.native_gather, False),
         ("data.compact_upload", d.compact_upload, False),
         ("data.augment", d.augment, False),
         ("data.lazy_tiles", d.lazy_tiles, False),
@@ -89,6 +108,30 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
         ("parallel.pipeline_stages", p.pipeline_stages != 1, 1),
     ]
     return [f"{key}={value!r}" for key, enabled, value in checks if enabled]
+
+
+def check_exclusive(cfg: ExperimentConfig) -> None:
+    """The JAX trainer's refusals of settings that exclude each other
+    (``ddlpc_tpu/train/trainer.py:103-125``)."""
+    d = cfg.data
+    if d.device_cache and d.augment:
+        raise ValueError(
+            "data.device_cache and data.augment are mutually exclusive: "
+            "augmentation runs in the host gather path that the device "
+            "cache bypasses"
+        )
+    if d.lazy_tiles and d.device_cache:
+        raise ValueError(
+            "data.lazy_tiles and data.device_cache are mutually "
+            "exclusive: the device cache uploads whole resident arrays, "
+            "exactly what lazy_tiles exists to avoid"
+        )
+    if d.loader_workers > 1 and d.device_cache:
+        raise ValueError(
+            "data.loader_workers only affects the host loader path; "
+            "device_cache gathers batches on device, so worker threads have "
+            "nothing to do — unset one of them"
+        )
 
 
 def warn_large_batch_stochastic(cfg: ExperimentConfig, data_size: int) -> None:
@@ -115,6 +158,12 @@ def warn_large_batch_stochastic(cfg: ExperimentConfig, data_size: int) -> None:
             f"rounding='nearest' here",
             stacklevel=3,
         )
+
+
+def _breadcrumb_stalled(workdir: str, age: float, tag: str) -> None:
+    """The last breadcrumb before a stall's abort: a supervisor reads it to
+    classify exit 42 even where stderr was lost."""
+    write_breadcrumb(workdir, "stalled", stall_age_s=age, stall_tag=tag)
 
 
 class PreemptedRun(Exception):
@@ -146,6 +195,7 @@ class Trainer:
         dist_backend: Optional[str] = None,
     ):
         self.device = mesh.rank_device(str(resolve_device(device)))
+        check_exclusive(cfg)
         off = unsupported_settings(cfg)
         if off:
             raise NotImplementedError(
@@ -186,6 +236,15 @@ class Trainer:
             # fp32 convolutions and matmuls run in true fp32, not TF32.
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            if cfg.compression.mode != "none":
+                # The codec kernels build here, before the watchdog arms,
+                # so that nvcc's seconds are not a stalled first step.
+                load_library()
+        # Raises now if the native wire cannot be built.
+        wire.set_native(cfg.data.native_gather)
+        self.registry = MetricsRegistry()
+        # The loader's producer thread and the loop time their stages here.
+        self.timer = StageTimer()
 
         self.train_ds, self.test_ds = build_dataset(cfg.data)
         channels = self.train_ds.image_shape[-1]
@@ -194,8 +253,7 @@ class Trainer:
         self.state = create_train_state(
             model.to(self.device), self.tx, self.world, self.shard_update
         )
-        self.loader = DeviceLoader(
-            self.train_ds,
+        loader_kw = dict(
             micro_batch=cfg.train.micro_batch_size,
             sync_period=cfg.train.sync_period,
             device=self.device,
@@ -204,11 +262,21 @@ class Trainer:
             replica=self.rank,
             world=self.world,
         )
+        if cfg.data.device_cache:
+            self.loader = DeviceCachedLoader(self.train_ds, **loader_kw)
+        else:
+            self.loader = ShardedLoader(
+                self.train_ds, native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
+            )
         self.train_step = make_train_step(
             self.tx, cfg.compression, self.world, seed=cfg.train.seed,
             level=self.shard_update,
         )
         self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
+        self.perf: Optional[obs_flops.PerfAccountant] = None
+        self.comm: Optional[obs_comm.CommAccountant] = None
+        if cfg.train.perf_accounting:
+            self._init_accounting(channels)
         self.checkpointer = AsyncCheckpointer(
             keep=cfg.train.keep_checkpoints,
             format=cfg.train.checkpoint_format,
@@ -230,6 +298,49 @@ class Trainer:
         self._skip_epoch = -1
         if resume:
             self._restore_synchronized()
+        # Armed by fit(); the loop beats at each data fetch, step and eval
+        # batch.
+        self.watchdog = StallWatchdog(
+            timeout_s=cfg.train.stall_timeout_s,
+            action=cfg.train.stall_action,
+            log_path=os.path.join(self.workdir, "stall.log"),
+            # No reference back to the Trainer: a cycle would keep a dropped
+            # Trainer's device memory until the garbage collector ran.
+            on_stall=functools.partial(_breadcrumb_stalled, self.workdir) if self.rank == 0 else None,
+        )
+
+    def _init_accounting(self, channels: int) -> None:
+        """The FLOP model, the peak, the perf and comm accountants and the
+        state-bytes gauges.  A FLOP model that fails warns and reads 0, as
+        in the JAX trainer: accounting never stops a run."""
+        cfg = self.cfg
+        try:
+            flops_per_step = obs_flops.conv_step_flops(
+                cfg, cfg.train.micro_batch_size, cfg.train.sync_period, channels=channels
+            )
+        except Exception as e:  # noqa: BLE001 — accounting must never kill the run
+            warnings.warn(
+                f"per-step FLOP model unavailable ({type(e).__name__}: {e}); "
+                f"ddlpc_mfu will read 0",
+                stacklevel=3,
+            )
+            flops_per_step = 0
+        peak, assumed = obs_flops.resolve_peak_flops(cfg.train.peak_flops_per_device, self.device)
+        self.perf = obs_flops.PerfAccountant(
+            self.registry, flops_per_step=flops_per_step, peak_flops=peak,
+            peak_assumed=assumed,
+            # Read before this run writes its first breadcrumb.
+            restart_gap_s=obs_flops.restart_gap_seconds(cfg.workdir),
+        )
+        obs_hbm.publish_hbm_gauges(self.registry, self.state, self.shard_update)
+        variant = "scatter" if self.shard_update == "zero2" else "allreduce"
+        flat = self.state.params
+        self.comm = obs_comm.CommAccountant(
+            self.registry,
+            obs_comm.comm_plan(flat.numel, flat.data.numel(), cfg.compression, self.world, variant),
+            variant,
+        )
+
 
     # ------------------------------------------------------------------
     # resume
@@ -321,9 +432,10 @@ class Trainer:
         meta = dict(self._metadata(completed, step), preempted=True)
         if 0 < steps_done < steps_per_epoch:
             meta["mid_epoch_steps_done"] = steps_done
-        self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=meta)
-        # The one save that overlaps nothing: durable before fit returns.
-        self.checkpointer.wait()
+        with self.watchdog.paused("preempt_checkpoint"):
+            self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=meta)
+            # The one save that overlaps nothing: durable before fit returns.
+            self.checkpointer.wait()
         self._log({"kind": "preempt", "epoch": epoch, "steps_done": steps_done, "ckpt_step": step})
         if self.rank == 0:
             write_breadcrumb(self.workdir, "preempted", epoch=epoch, steps_done=steps_done, ckpt_step=step)
@@ -340,7 +452,6 @@ class Trainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.loader.set_epoch(epoch)
         metrics = []
-        step_times = []
         t_epoch = time.perf_counter()
         it = iter(self.loader)
         skipped = 0
@@ -348,15 +459,25 @@ class Trainer:
             # Resume from a mid-epoch checkpoint: the state already holds
             # these steps, so draw and drop the same deterministic batches.
             for _ in range(self._skip_steps):
+                self.watchdog.beat("resume_skip")
                 if next(it, None) is None:
                     break
                 skipped += 1
             self._skip_steps = 0
-        for images, labels in it:
-            t0 = time.perf_counter()
-            metrics.append(self.train_step(self.state, images, labels))
-            self._sync()
-            step_times.append(time.perf_counter() - t0)
+        while True:
+            # "data": the wait for the next batch on the device; "step": the
+            # step and the device's sync that ends it.
+            self.watchdog.beat("data")
+            with self.timer.stage("data"):
+                batch = next(it, None)
+            if batch is None:
+                break
+            self.watchdog.beat("step")
+            with self.timer.stage("step"):
+                metrics.append(self.train_step(self.state, *batch))
+                self._sync()
+            if self.comm is not None:
+                self.comm.on_step()
             if self._preempt.is_set():
                 raise PreemptedRun(epoch, skipped + len(metrics))
         if not metrics:
@@ -374,7 +495,8 @@ class Trainer:
             "pixel_acc": float(np.mean([m["pixel_acc"] for m in host])),
             "grad_norm": host[-1]["grad_norm"],
             "epoch_time_s": epoch_time,
-            "step_time_s": float(np.mean(step_times)),
+            # The JAX trainer's step time: the epoch over its steps.
+            "step_time_s": epoch_time / steps,
             "tiles_per_s": steps * self.loader.super_batch / epoch_time,
         }
         if skipped:
@@ -383,26 +505,43 @@ class Trainer:
         wrap = len(self.loader) * self.loader.super_batch / len(self.train_ds)
         if wrap > 1.0 + 1e-9:
             record["wrap_fill_factor"] = round(wrap, 2)
+        record.update({f"t_{name}_s": t for name, t in self.timer.means().items()})
+        if self.perf is not None:
+            # The step stage is productive; the wait for data is a debit
+            # (the producer's stages overlap the steps and are not).
+            totals = self.timer.summary()
+            self.perf.productive(totals.get("step", 0.0), steps)
+            self.perf.debit("data", totals.get("data", 0.0))
+        self.timer.reset()
         return record
 
     def evaluate(self) -> Dict[str, float]:
         """Held-out loss, pixel accuracy and mIoU over the test split, in
         batches of the micro-batch size on every replica (the eval step sums
-        over the replicas); float64 accumulation on the host."""
+        over the replicas); the batches' sums are fetched once, at the end,
+        and accumulated in float64 on the host."""
         if len(self.test_ds) == 0:
             return {}
-        n = self.cfg.model.num_classes
-        cm = np.zeros((n, n), np.float64)
-        loss_sum = 0.0
-        pixels = 0.0
+        per_batch = []
         for images, labels in eval_batches(
             self.test_ds, self.cfg.train.micro_batch_size, self.device,
             self.rank, self.world,
         ):
+            self.watchdog.beat("eval")
             out = self.eval_step(self.state, images, labels)
-            cm += out["confusion"].double().cpu().numpy()
-            loss_sum += float(out["loss_sum"])
-            pixels += float(out["pixel_count"])
+            per_batch.append((out["confusion"], out["loss_sum"], out["pixel_count"]))
+        # The fetch waits for every queued eval batch at once, which may
+        # take longer than a step: detection pauses, as in the JAX trainer.
+        with self.watchdog.paused("eval_metrics_fetch"):
+            per_batch = [tuple(t.double().cpu() for t in b) for b in per_batch]
+        n = self.cfg.model.num_classes
+        cm = np.zeros((n, n), np.float64)
+        loss_sum = 0.0
+        pixels = 0.0
+        for conf, nll, px in per_batch:
+            cm += conf.numpy()
+            loss_sum += float(nll)
+            pixels += float(px)
         cmt = torch.from_numpy(cm)
         return {
             "val_loss": loss_sum / max(pixels, 1.0),
@@ -411,11 +550,34 @@ class Trainer:
             "val_iou_per_class": [round(float(v), 4) for v in iou_per_class(cmt)],
         }
 
-    def _log(self, record: Dict) -> None:
+    @torch.no_grad()
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """Class maps ``[N,H,W]`` of ``images [N,H,W,C]``: an eval-mode
+        forward and the argmax over the classes (the first of equal
+        maxima, as ``jnp.argmax``)."""
+        model = self.state.model
+        model.eval()
+        logits = model(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
+        return logits.argmax(-1).cpu().numpy()
+
+    def dump_images(self, epoch: int) -> None:
+        """The prediction, label and image PNGs of the first
+        ``train.dump_images_per_epoch`` test tiles (rank 0)."""
+        n = min(self.cfg.train.dump_images_per_epoch, len(self.test_ds))
+        if n <= 0 or self.rank != 0:
+            return
+        images = self.test_ds.images[:n]
+        dump_prediction_triples(
+            self.workdir, images, self.test_ds.labels[:n], self.predict(images),
+            self.cfg.model.num_classes, epoch, max_samples=n,
+        )
+
+    def _log(self, record: Dict, echo: bool = True) -> None:
         if self.rank != 0:
             return
         line = json.dumps(record)
-        print(line, flush=True)
+        if echo:
+            print(line, flush=True)
         os.makedirs(self.workdir, exist_ok=True)
         with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
             f.write(line + "\n")
@@ -434,26 +596,45 @@ class Trainer:
             pass
         if self.rank == 0:
             write_breadcrumb(self.workdir, "running", start_epoch=self.start_epoch, epochs=cfg.epochs)
+        if self.perf is not None:
+            self.perf.start()
         try:
-            try:
-                for epoch in range(self.start_epoch, cfg.epochs):
-                    if self._preempt.is_set():
-                        raise PreemptedRun(epoch, 0)
-                    record = self.train_epoch(epoch)
-                    if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
-                        record.update(self.evaluate())
-                    self._log(record)
-                    if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                        self.save(epoch)
-                else:
-                    if self.rank == 0:
-                        write_breadcrumb(self.workdir, "done", epochs=cfg.epochs)
-            except PreemptedRun as p:
-                self._graceful_preempt(p.epoch, p.steps_done)
-            finally:
-                # No return with a write in flight; a writer failure is
-                # raised here, on the training thread.
-                self.checkpointer.close()
+            with self.watchdog:
+                try:
+                    for epoch in range(self.start_epoch, cfg.epochs):
+                        if self._preempt.is_set():
+                            raise PreemptedRun(epoch, 0)
+                        record = self.train_epoch(epoch)
+                        if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
+                            t_eval = time.perf_counter()
+                            record.update(self.evaluate())
+                            if self.perf is not None:
+                                self.perf.debit("eval", time.perf_counter() - t_eval)
+                        self._log(record)
+                        if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                            t_ckpt = time.perf_counter()
+                            with self.watchdog.paused("checkpoint"):
+                                self.save(epoch)
+                            if self.perf is not None:
+                                # The training thread's stall, not the
+                                # background write.
+                                self.perf.debit("checkpoint", time.perf_counter() - t_ckpt)
+                        if self.perf is not None:
+                            self._log(self.perf.publish(step_time_s=record.get("step_time_s")), echo=False)
+                            self._log(self.comm.publish(), echo=False)
+                        if cfg.dump_images_per_epoch:
+                            with self.watchdog.paused("image_dump"):
+                                self.dump_images(epoch)
+                    else:
+                        if self.rank == 0:
+                            write_breadcrumb(self.workdir, "done", epochs=cfg.epochs)
+                except PreemptedRun as p:
+                    self._graceful_preempt(p.epoch, p.steps_done)
+                finally:
+                    # No return with a write in flight; a writer failure is
+                    # raised here, on the training thread.
+                    with self.watchdog.paused("checkpoint_flush"):
+                        self.checkpointer.close()
         finally:
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)

@@ -2,10 +2,15 @@
 copy of ``ddlpc_tpu/utils/wire.py``.
 
 The payload is split into fixed blocks, each deflated independently, so
-compression and decompression both run across a thread pool (zlib
-releases the GIL on large buffers).  Only the pure-Python zlib path is
-ported; the JAX package's optional native library (``csrc/wire.cc``)
-writes the same frames and is not needed to read or write them.
+compression and decompression both run across a thread pool.  Two
+implementations write the same frames: the native library
+(``kernels/host/wire.cc``, ``utils/native.load_wire``, built with ``g++``
+at first use), which :func:`compress`, :func:`decompress` and
+:func:`decompress_into` take by default, and Python's ``zlib`` (which
+releases the GIL on large buffers), the plain version that the tests hold
+the native one against.  :func:`set_native` picks one for the process
+(the trainer: ``data.native_gather``); the frames are the same bytes
+where both link the same zlib.
 
 Frame layout (little-endian)::
 
@@ -27,12 +32,31 @@ import struct
 import zlib
 from typing import List, Optional, Tuple
 
+from ddlpc_tpu_torch.utils import native
+
 MAGIC = b"DWZ1"
 BLOCK_SIZE = 1 << 20  # 1 MiB
 LEVEL = 1
 _MAX_WORKERS = min(12, os.cpu_count() or 1)
 
 _pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+# The native codec (a ``native.NativeWire``), False for Python's zlib, or
+# None until the first call resolves it to the native one.
+_native = None
+
+
+def set_native(enabled: bool) -> None:
+    """Take the native library (built now if need be; raises
+    ``native.NativeBuildError`` when it cannot be) or Python's zlib."""
+    global _native
+    _native = native.load_wire() if enabled else False
+
+
+def _get_native():
+    global _native
+    if _native is None:
+        _native = native.load_wire()
+    return _native or None
 
 
 def _get_pool() -> concurrent.futures.ThreadPoolExecutor:
@@ -44,6 +68,9 @@ def _get_pool() -> concurrent.futures.ThreadPoolExecutor:
 
 def compress(data: bytes, level: int = LEVEL, block_size: int = BLOCK_SIZE) -> bytes:
     """Frame + deflate ``data`` in parallel blocks."""
+    lib = _get_native()
+    if lib is not None:
+        return lib.compress(data, level, block_size)
     view = memoryview(data)
     blocks = [view[i : i + block_size] for i in range(0, len(data), block_size)]
     if len(blocks) <= 1:
@@ -114,6 +141,9 @@ def _map(fn, jobs: list) -> list:
 
 def decompress(data: bytes) -> bytes:
     """Inverse of :func:`compress`; blocks decompressed in parallel."""
+    lib = _get_native()
+    if lib is not None:
+        return lib.decompress(data)
     return b"".join(_map(lambda b: _inflate(b[1], b[2]), _blocks(data)))
 
 
@@ -121,6 +151,13 @@ def decompress_into(data: bytes, out: memoryview) -> int:
     """Inflate a DWZ1 frame straight into ``out`` (a writable uint8 view);
     returns the byte count written.  The chunked checkpoint reader inflates
     every chunk into its leaf's buffer this way."""
+    lib = _get_native()
+    if lib is not None:
+        raw = lib.decompress(data)
+        if len(raw) > len(out):
+            raise ValueError(f"frame inflates to {len(raw)} bytes, buffer holds {len(out)}")
+        out[: len(raw)] = raw
+        return len(raw)
     blocks = _blocks(data)
     total = sum(raw_len for _, raw_len, _ in blocks)
     if total > len(out):

@@ -3,8 +3,8 @@
 A tiny U-Net's train state — params, BatchNorm statistics, Adam ``count``,
 ``mu`` and ``nu``, ``step`` and optax's empty state — is written by one
 package and restored by the other, leaf for leaf and bit for bit.  With
-Python's zlib on both sides (``ddlpc_tpu.utils.wire._native = False`` in
-the test, which edits no file), the same state and metadata make the same
+Python's zlib on both sides (``wire._native = False`` in both packages, set
+by the test, which edits no file), the same state and metadata make the same
 blob and sidecar bytes once the one field stamped at write time, the
 lineage's ``saved_at``, is pinned.  Then the integrity machinery: CRC
 corruption quarantines and falls back, nothing restorable raises, the
@@ -36,6 +36,7 @@ from ddlpc_tpu_torch.models import build_model
 from ddlpc_tpu_torch.obs import lineage as tlineage
 from ddlpc_tpu_torch.parallel.train_step import create_train_state
 from ddlpc_tpu_torch.train import checkpoint as tckpt
+from ddlpc_tpu_torch.utils import wire as twire
 from ddlpc_tpu_torch.train.async_checkpoint import AsyncCheckpointer
 from ddlpc_tpu_torch.train.optim import Adam
 from test_torch_model import flax_like_variables
@@ -53,6 +54,7 @@ CHUNK = 4096  # several chunks a leaf, besides the default's one
 @pytest.fixture(autouse=True)
 def python_zlib_path(monkeypatch):
     monkeypatch.setattr(jwire, "_native", False)
+    monkeypatch.setattr(twire, "_native", False)
 
 
 def jax_state(seed: int = 0):

@@ -1,5 +1,6 @@
-"""The PyTorch port imports nothing of JAX, flax, optax, msgpack or
-``ddlpc_tpu``.
+"""The PyTorch port imports nothing of JAX, flax, optax, msgpack,
+``ddlpc_tpu``, PIL or ml_dtypes (the card's machine has neither of the
+last two; the PNG writer and the bf16 cast are the port's own).
 
 Pinned in a subprocess, where a fresh interpreter imports the whole port
 and then lists what got loaded (the same pattern as the jax-free tier
@@ -22,7 +23,11 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.models",
     "ddlpc_tpu_torch.models.layers",
     "ddlpc_tpu_torch.models.unet",
+    "ddlpc_tpu_torch.obs.comm",
+    "ddlpc_tpu_torch.obs.flops",
+    "ddlpc_tpu_torch.obs.hbm",
     "ddlpc_tpu_torch.obs.lineage",
+    "ddlpc_tpu_torch.obs.registry",
     "ddlpc_tpu_torch.ops.cuda_quantize",
     "ddlpc_tpu_torch.ops.losses",
     "ddlpc_tpu_torch.ops.metrics",
@@ -37,12 +42,16 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.train.__main__",
     "ddlpc_tpu_torch.train.async_checkpoint",
     "ddlpc_tpu_torch.train.checkpoint",
+    "ddlpc_tpu_torch.train.hard_task",
+    "ddlpc_tpu_torch.train.observability",
     "ddlpc_tpu_torch.train.optim",
     "ddlpc_tpu_torch.train.trainer",
+    "ddlpc_tpu_torch.train.watchdog",
     "ddlpc_tpu_torch.utils.fsio",
+    "ddlpc_tpu_torch.utils.native",
     "ddlpc_tpu_torch.utils.wire",
 )
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu", "PIL", "ml_dtypes")
 
 
 def test_port_loads_no_jax_flax_optax_or_ddlpc_tpu():

@@ -262,16 +262,26 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_settings_that_are_not_ported(tmp_path):
-    """The flagship as it stands enables image dumps, the stall watchdog and
-    the device cache: the trainer names each ``--set`` that switches one
-    off.  Its checkpoint settings are ported and not named."""
+    """The committed flagship and v5e8 configs enable nothing the port
+    lacks (image dumps, the stall watchdog, the device cache, the native
+    gather and the perf accounting are ported, as are checkpoints).  A
+    setting still unported is refused, the trainer naming each ``--set``
+    that switches one off, and only those."""
+    from ddlpc_tpu_torch.config import ExperimentConfig
+    from ddlpc_tpu_torch.train.trainer import unsupported_settings
+
+    for name in ("vaihingen_unet_tpu_flagship.json", "vaihingen_unet_v5e8.json"):
+        with open(os.path.join(os.path.dirname(FLAGSHIP), name)) as f:
+            assert unsupported_settings(ExperimentConfig.from_json(f.read())) == [], name
     with pytest.raises(NotImplementedError) as e:
-        cli_main(["--config", FLAGSHIP,
-                  "--device", "cpu", "--workdir", str(tmp_path / "run")])
+        cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
+                  "--workdir", str(tmp_path / "run"), "--set", "train.trace=True",
+                  "--set", "train.remat=True", "--set", "data.mmap_scenes=True"])
     msg = str(e.value)
-    for key in ("train.dump_images_per_epoch=0", "train.stall_timeout_s=0.0",
-                "data.device_cache=False", "data.native_gather=False"):
+    for key in ("train.trace=False", "train.remat=False", "data.mmap_scenes=False"):
         assert f"--set {key}" in msg
-    assert "checkpoint" not in msg
+    for ported in ("checkpoint", "dump_images", "stall", "device_cache", "native_gather",
+                   "perf_accounting"):
+        assert ported not in msg
     with pytest.raises(KeyError, match="unknown config key"):
         cli_main(["--device", "cpu", "--set", "train.no_such_knob=1"])

@@ -1,9 +1,9 @@
 """The port's DWZ1 wire codec against the JAX package's, on the CPU.
 
-Both run Python's zlib here (the JAX package's native library is switched
-off for the test by ``ddlpc_tpu.utils.wire._native = False``, which edits
-no file), so every frame must be the same bytes, and each side must read
-the other's.  Adaptive chunk compression stores random data and deflates
+Both run Python's zlib here (each package's native library is switched
+off for the test by its ``wire._native = False``, which edits no file), so
+every frame must be the same bytes, and each side must read the other's.
+``tests/test_torch_native.py`` holds the native libraries.  Adaptive chunk compression stores random data and deflates
 zeros.
 """
 
@@ -19,6 +19,7 @@ SIZES = (0, 1, 1 << 10, (1 << 20) + 17, 3 << 20)
 @pytest.fixture(autouse=True)
 def python_zlib_path(monkeypatch):
     monkeypatch.setattr(jwire, "_native", False)
+    monkeypatch.setattr(twire, "_native", False)
 
 
 def _payload(n: int, kind: str) -> bytes:
