@@ -34,6 +34,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 3. small-input reference checks: the tiny U-Net trains two optimizer steps
    with the fp16 codec, and two with int8 stochastic rounding, on the card
    and on the CPU from the same weights, data and seed, and must agree;
+   so do a tiny U-Net++ (deep supervision, bilinear up-sampling, group
+   norm) and a tiny DeepLabV3+ (the stride-2 stem and 'SAME' pool, dilated
+   blocks, ASPP), two steps each without a codec;
 4. the main paths, each through the CLI's own entry (``parse_args`` →
    ``Trainer.fit``) on ``configs/vaihingen_unet_tpu_flagship.json`` as
    written (no ``--set`` but the epochs and the micro-batch) at full width
@@ -70,6 +73,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    raw and on-disk bytes, and a step's time with no save in flight and
    with one; then the write and the restore with the native wire and with
    Python's zlib, in turns.  It prints one ``checkpoint row`` JSON line;
+
+4c. the other models' main paths: ``configs/vaihingen_unetpp.json``,
+   ``vaihingen_unetpp_s2d.json`` and ``potsdam_deeplabv3p.json`` as
+   written (no ``--set`` but the epochs) at full width on 512² tiles,
+   through the CLI's entry for two epochs each (14, 4 and 8 optimizer
+   steps): finite losses, no codec kernel launched (``compression.mode``
+   is ``none``), every epoch's ``perf`` record carrying the JAX package's
+   conv FLOPs a step (12,480,638,091,264; 3,246,995,275,776;
+   7,940,345,954,304), the PNG triples decoding to the eval forward's
+   predictions (U-Net++'s ensemble readout), and the host loader's
+   batches equal to ``DeviceLoader``'s.  Each prints its epochs' step
+   time, MFU and goodput and its peak memory beside the card;
 
 5. the data-parallel paths, each a world of W processes of this script
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
@@ -112,8 +127,9 @@ over 2**23 values spanning 1e-12..1e2.
    it must exit 42 with ``stall.log`` naming the phase ``data`` and the
    breadcrumb ``stalled``.
 
-With ``--profile``, after each main path (once its launch counts are read)
-it runs one more optimizer step of that path under ``torch.profiler`` and
+With ``--profile``, after each single-process main path (once its launch
+counts are read) it runs one more optimizer step of that path under
+``torch.profiler`` and
 prints the device time by kernel, the device's idle share over that step
 and the step's FLOPs against the card's bf16 peak (this phase is for
 measurement, not part of the plain smoke run).
@@ -158,7 +174,7 @@ FLAGSHIP_LOSSES = [2.0308308601379395, 1.8359242677688599, 1.6781508922576904]
 # and v5e8, micro 128 x sync 1.
 FLAGSHIP_FLOPS = 12_234_214_342_656
 V5E8_FLOPS = 3_058_553_585_664
-IMAGES_PER_EPOCH = 5  # both configs' train.dump_images_per_epoch
+IMAGES_PER_EPOCH = 5  # every committed config's train.dump_images_per_epoch
 STALL_SLEEP_S = 6.0  # the watchdog phase's stall, against stall_timeout_s 2
 # The stochastic main path: the flagship recipe's int8-stochastic arm.
 STOCHASTIC = (
@@ -179,6 +195,24 @@ DP_PHASES = {
     "dp2_off_int8_sr": (2, STOCHASTIC, "off",
                         {"encode_sr": 1, "decode_from_wire": 1, "fake_quantize_sr": 1, "absmax": 2},
                         True),
+}
+# The other models' main paths, each config as written but for the epochs:
+# config, the conv FLOPs a step (the JAX package's integer) and the
+# optimizer steps an epoch (97 tiles over the super-batch, rounded up).
+ZOO_EPOCHS = 2
+ZOO_PATHS = {
+    "unetpp": ("vaihingen_unetpp.json", 12_480_638_091_264, 7),
+    "unetpp_s2d": ("vaihingen_unetpp_s2d.json", 3_246_995_275_776, 2),
+    "deeplabv3p": ("potsdam_deeplabv3p.json", 7_940_345_954_304, 4),
+}
+# The card-vs-CPU reference models (fp32, two steps): (model, tile size).
+TINY_UNET = {"features": [8, 16], "bottleneck_features": 16, "stem": "s2d", "stem_factor": 2,
+             "detail_head": True}
+TINY_ZOO = {
+    "unetpp": ({"name": "unetpp", "features": [8, 16, 32], "deep_supervision": True,
+                "up_sample_mode": "bilinear", "norm": "group"}, 32),
+    "deeplabv3p": ({"name": "deeplabv3p", "features": [64, 128, 256, 512], "width_divisor": 8},
+                   128),
 }
 DP_DEADLINE_S = 420  # a world still running then is killed, and the run fails
 SYNC_STEP = 7  # the step whose key the sync-level check's stochastic rounding uses
@@ -842,17 +876,28 @@ def stochastic_kernel_phase(n: int, sass: dict, fq_sass: dict) -> list:
     return rows
 
 
-def reference_phase(compression: dict, loss_rtol: float, param_share: float) -> None:
-    """Tiny U-Net, two steps on the card and on the CPU from the same
-    weights, data and ``train.seed``; the losses must agree within
-    ``loss_rtol``, and all but ``param_share`` of the parameters within
+def reference_phase(compression: dict, loss_rtol: float, param_share: float,
+                    model: dict = TINY_UNET, size: int = 32, param_step: int = 2) -> None:
+    """A tiny ``model`` (the U-Net by default), two steps on the card and
+    on the CPU from the same weights, data and ``train.seed``, on
+    ``size``² tiles; the losses must agree within ``loss_rtol``, and all
+    but ``param_share`` of the parameters after step ``param_step`` within
     rtol 1e-4 / atol 1e-6.  fp32 compute with TF32 off, so only the
     convolutions' summation order differs between the devices; the codec
     kernels equal their plain versions bit for bit (the stochastic ones
     draw the plain Philox stream), but where the two devices' gradients
     straddle a rounding boundary they snap to neighbouring lattice points,
     which moves an Adam update by up to the learning rate (the reasons of
-    tests/test_torch_train_step.py's fp16 case)."""
+    tests/test_torch_train_step.py's fp16 case).
+
+    U-Net++ and DeepLabV3+ are held after their first step (``param_step``
+    1), the second step's loss being the forward of the updated params:
+    DeepLabV3+'s image-pool BatchNorm normalizes four nearly equal pooled
+    means, which magnifies summation-order noise into the second update,
+    and U-Net++ with group norm does the same at 32², so that two CPU runs
+    of either with another thread count already leave many params apart
+    after two steps, and almost none after one.  The second step's share
+    is printed."""
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.data.datasets import SyntheticTiles
     from ddlpc_tpu_torch.models import build_model
@@ -862,41 +907,49 @@ def reference_phase(compression: dict, loss_rtol: float, param_share: float) -> 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ExperimentConfig.from_dict({
-        "model": {"features": [8, 16], "bottleneck_features": 16, "stem": "s2d",
-                  "stem_factor": 2, "detail_head": True, "compute_dtype": "float32",
-                  "head_dtype": "float32"},
+        "model": {**model, "compute_dtype": "float32", "head_dtype": "float32"},
         "train": {"seed": 3},
         "compression": compression,
     })
-    ds = SyntheticTiles(num_tiles=8, image_size=(32, 32), seed=0)
-    images = torch.from_numpy(ds.images.reshape(2, 4, 32, 32, 3))
-    labels = torch.from_numpy(ds.labels.reshape(2, 4, 32, 32).astype("int64"))
+    ds = SyntheticTiles(num_tiles=8, image_size=(size, size), seed=0)
+    images = torch.from_numpy(ds.images.reshape(2, 4, size, size, 3))
+    labels = torch.from_numpy(ds.labels.reshape(2, 4, size, size).astype("int64"))
     losses, params = {}, {}
     for dev in ("cpu", "cuda"):
-        model = build_model(cfg.model, seed=0).to(dev)
+        net = build_model(cfg.model, seed=0).to(dev)
         tx = Adam(2e-3)
-        state = create_train_state(model, tx)
+        state = create_train_state(net, tx)
         step = make_train_step(tx, cfg.compression, seed=cfg.train.seed)
-        losses[dev] = [
-            float(step(state, images.to(dev), labels.to(dev))["loss"]) for _ in range(2)
-        ]
-        params[dev] = state.params.data.cpu()
-    what = f"tiny U-Net 2 steps, {compression}"
+        losses[dev] = []
+        for k in range(1, 3):
+            losses[dev].append(float(step(state, images.to(dev), labels.to(dev))["loss"]))
+            params[dev, k] = state.params.data.to("cpu", copy=True)
+    what = f"tiny {cfg.model.name} 2 steps, {compression}"
     rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
-    want, got = params["cpu"], params["cuda"]
-    share = float(((got - want).abs() > 1e-4 * want.abs() + 1e-6).float().mean())
+    shares = {}
+    for k in (1, 2):
+        want, got = params["cpu", k], params["cuda", k]
+        shares[k] = float(((got - want).abs() > 1e-4 * want.abs() + 1e-6).float().mean())
+    want, got = params["cpu", param_step], params["cuda", param_step]
+    share = shares[param_step]
     log(f"{what}, card vs CPU: losses {losses['cuda']} vs {losses['cpu']} (max rel "
-        f"diff {rel:.3e}, limit {loss_rtol}); params off rtol 1e-4: share {share:.5f} "
-        f"(limit {param_share}), max |diff| {float((got - want).abs().max()):.3e}")
+        f"diff {rel:.3e}, limit {loss_rtol}); params off rtol 1e-4 after step {param_step}: "
+        f"share {share:.5f} (limit {param_share}), max |diff| "
+        f"{float((got - want).abs().max()):.3e}; share after steps 1, 2: {shares[1]:.5f}, "
+        f"{shares[2]:.5f}")
     if not all(math.isfinite(v) for v in losses["cuda"]) or rel > loss_rtol or share > param_share:
         fail(f"{what}: the card disagrees with the CPU")
 
 
-def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict:
-    """Train the flagship ``EPOCHS`` steps through the CLI's entry with the
-    ``extra`` overrides; the launch counts are set to 0 just before and
-    read just after, and must equal ``expect`` (0 for a kernel it does not
-    name)."""
+def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool, config: str = FLAGSHIP,
+                    epochs: int = EPOCHS, micro_batch=MICRO_BATCH, flops: int = FLAGSHIP_FLOPS,
+                    loader: str = "DeviceCachedLoader") -> dict:
+    """Train ``config`` (the flagship by default) for ``epochs`` epochs
+    through the CLI's entry with the ``extra`` overrides (and the
+    micro-batch, unless None); the launch counts are set to 0 just before
+    and read just after, and must equal ``expect`` (0 for a kernel it does
+    not name).  Every epoch's perf record must carry ``flops``, and the
+    run's loader be ``loader``."""
     import shutil
 
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
@@ -904,9 +957,10 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     from ddlpc_tpu_torch.train.trainer import Trainer
 
     workdir = os.path.join(WORKDIR, label)
-    argv = ["--config", FLAGSHIP, "--device", "cuda", "--no-resume",
-            "--workdir", workdir, "--set", f"train.epochs={EPOCHS}",
-            "--set", f"train.micro_batch_size={MICRO_BATCH}"]
+    argv = ["--config", config, "--device", "cuda", "--no-resume",
+            "--workdir", workdir, "--set", f"train.epochs={epochs}"]
+    if micro_batch is not None:
+        argv += ["--set", f"train.micro_batch_size={micro_batch}"]
     for o in extra:
         argv += ["--set", o]
     log(f"main path [{label}]: python -m ddlpc_tpu_torch.train " + " ".join(argv))
@@ -922,7 +976,7 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
     if warned != warns:
         fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {warned}")
     n_params = trainer.state.params.numel
-    log(f"flagship U-Net: {n_params} parameters in one flat buffer, "
+    log(f"[{label}] {cfg.model.name}: {n_params} parameters in one flat buffer, "
         f"{len(trainer.state.params.names)} leaves")
     torch.cuda.reset_peak_memory_stats()
     cq.reset_launch_counts()
@@ -934,29 +988,52 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool) -> dict
         lines = [json.loads(line) for line in f]
     records = [r for r in lines if "kind" not in r]
     for r in records:
-        log(f"[{label}] step {r['epoch'] + 1}: loss {r['loss']} step_time_s {r['step_time_s']} "
+        log(f"[{label}] epoch {r['epoch']}: loss {r['loss']} step_time_s {r['step_time_s']} "
             f"epoch_time_s {r['epoch_time_s']} grad_norm {r['grad_norm']} val_miou {r.get('val_miou')}")
         if not math.isfinite(r["loss"]) or not math.isfinite(r["grad_norm"]):
             fail(f"[{label}] non-finite training metrics {r}")
-    if len(records) != EPOCHS:
-        fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
-    perf = perf_checks(label, lines, FLAGSHIP_FLOPS)
+    if len(records) != epochs:
+        fail(f"[{label}] expected {epochs} epoch records, got {len(records)}")
+    perf = perf_checks(label, lines, flops, epochs)
     snap = trainer.registry.snapshot()
-    if snap["ddlpc_flops_per_step"] != FLAGSHIP_FLOPS or snap["ddlpc_peak_flops_assumed"] != 0:
+    if snap["ddlpc_flops_per_step"] != flops or snap["ddlpc_peak_flops_assumed"] != 0:
         fail(f"[{label}] registry: ddlpc_flops_per_step {snap['ddlpc_flops_per_step']}, "
              f"assumed {snap['ddlpc_peak_flops_assumed']}")
-    if type(trainer.loader).__name__ != "DeviceCachedLoader":
-        fail(f"[{label}] the flagship's data.device_cache=true ran {type(trainer.loader).__name__}")
-    loader_equal(label, trainer, trainer.loader, EPOCHS)
-    png_checks(label, trainer)
+    if type(trainer.loader).__name__ != loader:
+        fail(f"[{label}] expected the {loader}, ran {type(trainer.loader).__name__}")
+    loader_equal(label, trainer, trainer.loader, epochs)
+    png_checks(label, trainer, epochs)
     log(f"[{label}] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     log(f"[{label}] kernels " + json.dumps(launches))
     want = {name: expect.get(name, 0) for name in launches}
     if launches != want:
-        fail(f"[{label}] kernel launches in {EPOCHS} steps: {launches}, expected {want}")
+        fail(f"[{label}] kernel launches in {epochs} epochs: {launches}, expected {want}")
     return {"launches": launches, "n_params": n_params, "trainer": trainer, "argv": argv,
             "losses": [r["loss"] for r in records], "peak_bytes": peak,
             "epochs": path_row(label, records, perf)}
+
+
+def zoo_phase(label: str, profile: bool) -> dict:
+    """One of the other models' committed configs as written, through the
+    CLI's entry for ``ZOO_EPOCHS`` epochs (``main_path_phase``): no codec
+    kernel may launch (``compression.mode=none``), and the optimizer must
+    take ``ZOO_EPOCHS`` times the config's steps an epoch.  Prints its
+    peak memory beside the card."""
+    config, flops, steps = ZOO_PATHS[label]
+    run = main_path_phase(label, (), {}, warns=False, config=os.path.join(REPO, "configs", config),
+                          epochs=ZOO_EPOCHS, micro_batch=None, flops=flops,
+                          loader="ShardedLoader")
+    trainer = run["trainer"]
+    if trainer.state.step != ZOO_EPOCHS * steps:
+        fail(f"[{label}] {trainer.state.step} optimizer steps, expected {ZOO_EPOCHS} x {steps}")
+    log(f"[{label}] {trainer.state.step} optimizer steps; peak memory {run['peak_bytes']} bytes "
+        f"({run['peak_bytes'] / 2**30:.2f} GiB) ({smi_line()})")
+    if profile:
+        profile_phase(trainer, label)
+    del run["trainer"], trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
 
 
 def path_row(label: str, records: list, perf: list) -> list:
@@ -972,13 +1049,13 @@ def path_row(label: str, records: list, perf: list) -> list:
     return rows
 
 
-def perf_checks(label: str, lines: list, flops: int) -> list:
+def perf_checks(label: str, lines: list, flops: int, epochs: int = EPOCHS) -> list:
     """Every epoch's ``kind="perf"`` record: the FLOP model's exact count
     (0 if it failed), the card's peak known, MFU > 0, and the reconciliation
     productive + debits <= wall."""
     perf = [r for r in lines if r.get("kind") == "perf"]
-    if len(perf) != EPOCHS:
-        fail(f"[{label}] expected {EPOCHS} perf records, got {len(perf)}")
+    if len(perf) != epochs:
+        fail(f"[{label}] expected {epochs} perf records, got {len(perf)}")
     for r in perf:
         debits = sum(v for k, v in r.items() if k.startswith("debit_"))
         if (r["flops_per_step"] != flops or r["peak_flops_assumed"] or not r["mfu"] > 0
@@ -1051,7 +1128,7 @@ def read_png(path: str):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def png_checks(label: str, trainer) -> None:
+def png_checks(label: str, trainer, epochs: int = EPOCHS) -> None:
     """``IMAGES_PER_EPOCH`` triples an epoch; the last epoch's decode to
     the palette of the final state's predictions and of the labels, and to
     the image at x255."""
@@ -1061,7 +1138,7 @@ def png_checks(label: str, trainer) -> None:
 
     root = os.path.join(trainer.workdir, "images")
     want = sorted(f"{k} {i}.png" for k in ("Model", "Label", "Image") for i in range(IMAGES_PER_EPOCH))
-    for e in range(EPOCHS):
+    for e in range(epochs):
         got = sorted(os.listdir(os.path.join(root, f"epoch_{e:04d}")))
         if got != want:
             fail(f"[{label}] images of epoch {e}: {got}")
@@ -1069,13 +1146,13 @@ def png_checks(label: str, trainer) -> None:
     labels = trainer.test_ds.labels[:IMAGES_PER_EPOCH]
     preds = trainer.predict(images)
     pal = class_palette(trainer.cfg.model.num_classes)
-    last = os.path.join(root, f"epoch_{EPOCHS - 1:04d}")
+    last = os.path.join(root, f"epoch_{epochs - 1:04d}")
     for i in range(IMAGES_PER_EPOCH):
         for kind, rgb in (("Model", pal[preds[i]]), ("Label", pal[labels[i]]),
                           ("Image", np.clip(images[i] * 255.0, 0, 255).astype(np.uint8))):
             if not np.array_equal(read_png(os.path.join(last, f"{kind} {i}.png")), rgb):
-                fail(f"[{label}] {kind} {i}.png of epoch {EPOCHS - 1} does not decode to its pixels")
-    log(f"[{label}] {len(want)} PNGs an epoch; epoch {EPOCHS - 1}'s decode (zlib) to palette[pred], "
+                fail(f"[{label}] {kind} {i}.png of epoch {epochs - 1} does not decode to its pixels")
+    log(f"[{label}] {len(want)} PNGs an epoch; epoch {epochs - 1}'s decode (zlib) to palette[pred], "
         f"palette[label] and the image; predicted classes {np.bincount(preds.ravel(), minlength=len(pal)).tolist()}")
 
 
@@ -1229,7 +1306,7 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
 
 
 def profile_phase(trainer, label: str) -> None:
-    """One more flagship optimizer step under ``torch.profiler``: device
+    """One more optimizer step of the path under ``torch.profiler``: device
     time by kernel, the device's idle share over the step (1 − summed
     kernel time / wall time; one stream, so kernels do not overlap), and
     the step's FLOPs — counted with ``FlopCounterMode`` on one tile's
@@ -1244,7 +1321,8 @@ def profile_phase(trainer, label: str) -> None:
     model = trainer.state.model
     model.train()
     with FlopCounterMode(display=False) as counter:
-        loss, _ = loss_from_logits(model(images[0, :1]), labels[0, :1])
+        loss, _ = loss_from_logits(model(images[0, :1]), labels[0, :1],
+                                   getattr(model, "train_head_layout", "fullres"))
         loss.backward()
     step_flops = counter.get_total_flops() * trainer.loader.super_batch
     torch.cuda.synchronize()
@@ -1848,6 +1926,9 @@ def main() -> int:
     sqrt_row = sqrt_phase()
     reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
     reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
+    for model, size in TINY_ZOO.values():
+        reference_phase({"mode": "none"}, loss_rtol=1e-4, param_share=2e-2, model=model, size=size,
+                        param_step=1)
     main = main_path_phase(
         "nearest_fp16", (), warns=False,
         expect={"encode_to_wire": EPOCHS, "decode_from_wire": EPOCHS,
@@ -1875,6 +1956,9 @@ def main() -> int:
     if profile:
         profile_phase(sr["trainer"], "stochastic_int8")
     del sr["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = {label: zoo_phase(label, profile) for label in ZOO_PATHS}
     dp = {label: dp_phase(label) for label in DP_PHASES}
     stall_row = stall_phase()
     for run in (main, sr, *dp.values()):
@@ -1888,15 +1972,18 @@ def main() -> int:
         for row in path_rows:
             by_path = {"nearest_fp16": main["launches"][row["name"]],
                        "stochastic_int8": sr["launches"][row["name"]],
-                       **{label: run["launches"][row["name"]] for label, run in dp.items()}}
+                       **{label: run["launches"][row["name"]] for label, run in dp.items()},
+                       **{label: run["launches"][row["name"]] for label, run in zoo.items()}}
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
     paths = {"nearest_fp16": main["epochs"], "stochastic_int8": sr["epochs"],
-             **{label: run["epochs"] for label, run in dp.items()}}
+             **{label: run["epochs"] for label, run in dp.items()},
+             **{label: run["epochs"] for label, run in zoo.items()}}
     log("paths: " + json.dumps({"card": smi, "epochs": paths,
                                 "peak_bytes": {"nearest_fp16": main["peak_bytes"],
-                                               "stochastic_int8": sr["peak_bytes"]}}))
+                                               "stochastic_int8": sr["peak_bytes"],
+                                               **{k: r["peak_bytes"] for k, r in zoo.items()}}}))
     print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
                       "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row,
                       "host": host_rows, "stall": stall_row, "paths": paths}))

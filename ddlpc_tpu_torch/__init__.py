@@ -5,7 +5,8 @@ against; nothing here imports it (or JAX).  The layout mirrors it:
 
 - ``config``     — the experiment dataclasses; reads the same ``configs/*.json``
 - ``data``       — synthetic tiles and the single-device batcher
-- ``models``     — the U-Net (NCHW inside, NHWC at the public edge)
+- ``models``     — U-Net, U-Net++ and DeepLabV3+ (NCHW inside, NHWC at the
+  public edge)
 - ``ops``        — loss, metrics, the gradient codec and its CUDA wrappers
 - ``kernels``    — hand-written CUDA C++ sources and their ``nvcc`` build
 - ``parallel``   — gradient sync and the train/eval steps

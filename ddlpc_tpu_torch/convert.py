@@ -13,8 +13,9 @@ Leaf rules:
 - a ``ConvTranspose_0`` kernel is ``(kh, kw, in, out)`` with flax's
   ``transpose_kernel=False``, which equals torch's transposed conv with the
   kernel flipped in space: flip, then permute to ``(in, out, kh, kw)``;
-- BatchNorm ``scale/bias`` are ``weight/bias``; ``mean/var`` are
-  ``running_mean/running_var``; every ``bias`` stays as it is.
+- BatchNorm and GroupNorm ``scale/bias`` are ``weight/bias``; BatchNorm's
+  ``mean/var`` are ``running_mean/running_var``; every ``bias`` stays as
+  it is (a model without BatchNorm has an empty ``batch_stats``).
 
 Every rule is a permutation (and flip) of the same values, so the round
 trip ``flax_from_torch(torch_state_from_flax(p))`` is exact.
@@ -270,7 +271,7 @@ def load_state_tree(state, tree: Optional[Mapping], src: int = 0) -> None:
         data = _full_buffer(flat, sd, flat.data)
         mu = _full_buffer(flat, adam["mu"], flat.data)
         nu = _full_buffer(flat, adam["nu"], flat.data)
-        stats = torch.cat([sd[k].reshape(-1) for k in stat_names]).to(flat.data.device)
+        stats = torch.cat([sd[k].reshape(-1) for k in stat_names] + [torch.zeros(0)]).to(flat.data.device)
         ints = torch.tensor([adam["count"], int(np.asarray(tree["step"]))], device=flat.data.device)
     else:
         data, mu, nu = (torch.empty_like(flat.data) for _ in range(3))

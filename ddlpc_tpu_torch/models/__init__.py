@@ -1,37 +1,69 @@
-"""Model registry: ``build_model`` with the reference's validation
-(``ddlpc_tpu/models/__init__.py``).  This slice ports ``unet``; the other
-models raise ``NotImplementedError``.  ``build_model_from_experiment``
-switches sync-BN on from ``parallel.sync_batch_norm`` in a world of more
-than one replica."""
+"""Model registry: ``build_model`` with the reference's validation and
+messages (``ddlpc_tpu/models/__init__.py``) over ``unet``, ``unetpp`` and
+``deeplabv3p``.  ``build_model_from_experiment`` switches sync-BN on from
+``parallel.sync_batch_norm`` in a world of more than one replica."""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ddlpc_tpu_torch.config import ExperimentConfig, ModelConfig
+from ddlpc_tpu_torch.models.deeplabv3p import DeepLabV3Plus
 from ddlpc_tpu_torch.models.layers import BatchNorm
 from ddlpc_tpu_torch.models.unet import UNet
+from ddlpc_tpu_torch.models.unetpp import UNetPP
 
-_KNOWN_MODELS = ("unet", "unetpp", "deeplabv3p")
+# Models that implement ModelConfig.detail_head (and the grouped layout).
 _DETAIL_HEAD_MODELS = ("unet", "unetpp")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     try:
         return _DTYPES[name]
     except KeyError:
-        raise ValueError(f"unsupported dtype {name!r} (float32 | bfloat16)") from None
+        raise ValueError(f"unsupported dtype {name!r} (float64 | float32 | bfloat16)") from None
 
 
-def build_model(
-    cfg: ModelConfig, in_channels: int = 3, seed: int = 0, norm_axis_size: int = 1
-) -> UNet:
-    """The model, its weights drawn from ``seed``; ``norm_axis_size > 1``
-    averages BatchNorm's batch statistics over a process group of that
-    size (the JAX package's ``norm_axis_name``)."""
-    if cfg.name not in _KNOWN_MODELS:
-        raise ValueError(f"unknown model {cfg.name!r}; registered: {sorted(_KNOWN_MODELS)}")
+def _common(cfg: ModelConfig, in_channels: int, seed: int) -> dict:
+    return dict(
+        in_channels=in_channels, seed=seed,
+        num_classes=cfg.num_classes, features=tuple(cfg.features),
+        width_divisor=cfg.width_divisor, norm=cfg.norm, norm_groups=cfg.group_norm_groups,
+        dtype=torch_dtype(cfg.compute_dtype), head_dtype=torch_dtype(cfg.head_dtype),
+    )
+
+
+def _heads(cfg: ModelConfig) -> dict:
+    return dict(
+        up_sample_mode=cfg.up_sample_mode, stem=cfg.stem, stem_factor=cfg.stem_factor,
+        detail_head=cfg.detail_head, detail_head_kind=cfg.detail_head_kind,
+        detail_head_hidden=cfg.detail_head_hidden, train_head_layout=cfg.train_head_layout,
+    )
+
+
+_REGISTRY = {
+    "unet": lambda cfg, *common: UNet(
+        bottleneck_features=cfg.bottleneck_features, **_heads(cfg), **_common(cfg, *common)
+    ),
+    "unetpp": lambda cfg, *common: UNetPP(
+        deep_supervision=cfg.deep_supervision, detail_head_scope=cfg.detail_head_scope,
+        **_heads(cfg), **_common(cfg, *common)
+    ),
+    "deeplabv3p": lambda cfg, *common: DeepLabV3Plus(
+        output_stride=cfg.output_stride, aspp_rates=tuple(cfg.aspp_rates),
+        **_common(cfg, *common)
+    ),
+}
+
+
+def validate(cfg: ModelConfig) -> None:
+    """The reference's refusals, word for word: an unknown model, and the
+    detail-head and head-layout combinations a built network would not
+    execute."""
+    if cfg.name not in _REGISTRY:
+        raise ValueError(f"unknown model {cfg.name!r}; registered: {sorted(_REGISTRY)}")
     if cfg.detail_head and cfg.name not in _DETAIL_HEAD_MODELS:
         raise ValueError(
             f"model {cfg.name!r} does not implement detail_head (supported: "
@@ -64,34 +96,22 @@ def build_model(
                 "DetailHead (it needs full-res logits): use "
                 "detail_head_kind='s2d' or train_head_layout='fullres'"
             )
-    if cfg.name != "unet":
-        raise NotImplementedError(f"model {cfg.name!r} is not yet ported")
-    for knob, value, ported in (
-        ("up_sample_mode", cfg.up_sample_mode, "conv_transpose"),
-        ("norm", cfg.norm, "batch"),
-        ("train_head_layout", cfg.train_head_layout, "fullres"),
-    ):
-        if value != ported:
-            raise NotImplementedError(f"model.{knob}={value!r} is not yet ported")
-    if cfg.detail_head and cfg.detail_head_kind != "fullres":
-        raise NotImplementedError(
-            f"model.detail_head_kind={cfg.detail_head_kind!r} is not yet ported"
-        )
-    model = UNet(
-        num_classes=cfg.num_classes,
-        features=tuple(cfg.features),
-        bottleneck_features=cfg.bottleneck_features,
-        width_divisor=cfg.width_divisor,
-        norm=cfg.norm,
-        stem=cfg.stem,
-        stem_factor=cfg.stem_factor,
-        detail_head=cfg.detail_head,
-        detail_head_hidden=cfg.detail_head_hidden,
-        dtype=torch_dtype(cfg.compute_dtype),
-        head_dtype=torch_dtype(cfg.head_dtype),
-        in_channels=in_channels,
-        seed=seed,
-    )
+        if cfg.name not in _DETAIL_HEAD_MODELS:
+            raise ValueError(
+                f"model {cfg.name!r} does not implement "
+                f"train_head_layout='grouped' (supported: "
+                f"{sorted(_DETAIL_HEAD_MODELS)})"
+            )
+
+
+def build_model(
+    cfg: ModelConfig, in_channels: int = 3, seed: int = 0, norm_axis_size: int = 1
+) -> nn.Module:
+    """The model, its weights drawn from ``seed``; ``norm_axis_size > 1``
+    averages BatchNorm's batch statistics over a process group of that
+    size (the JAX package's ``norm_axis_name``)."""
+    validate(cfg)
+    model = _REGISTRY[cfg.name](cfg, in_channels, seed)
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.axis_size = norm_axis_size
@@ -100,7 +120,7 @@ def build_model(
 
 def build_model_from_experiment(
     ecfg: ExperimentConfig, in_channels: int, data_size: int
-) -> UNet:
+) -> nn.Module:
     """``build_model`` with sync-BN over ``data_size`` replicas where
     ``parallel.sync_batch_norm`` holds."""
     sync = ecfg.parallel.sync_batch_norm and data_size > 1

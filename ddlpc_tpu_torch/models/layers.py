@@ -1,11 +1,18 @@
-"""Building blocks of the U-Net, mirroring ``ddlpc_tpu/models/layers.py``.
+"""Building blocks of the model zoo, mirroring ``ddlpc_tpu/models/layers.py``.
 
 Activations run NCHW inside; module and parameter names follow the flax
 param tree (``DoubleConv_0/ConvNormAct_1/Norm_0/BatchNorm_0/...``) so that
 ``convert.py`` maps one onto the other by path.  The flax cast points are
 written out, not left to autocast: every conv casts its input and kernel
-(and bias) to the module's compute dtype, parameters and BatchNorm
+(and bias) to the module's compute dtype, parameters and normalization
 statistics stay float32.
+
+flax's 'SAME' padding is not torch's ``padding=k//2`` once the stride is
+2: flax pads ``max((ceil(H/s)−1)·s + (k−1)·d + 1 − H, 0)`` rows in all,
+the top getting half rounded down and the bottom the rest (the same for
+columns), so a 3×3 stride-2 conv on an even grid pads the bottom and the
+right only.  :func:`same_pads` computes it; :class:`Conv` and
+:func:`max_pool_same` pad with it explicitly.
 """
 
 from __future__ import annotations
@@ -19,6 +26,12 @@ from torch import nn
 
 BN_MOMENTUM = 0.9  # flax convention: running = m·running + (1−m)·batch
 BN_EPSILON = 1e-5
+GN_EPSILON = 1e-6  # flax nn.GroupNorm's default
+
+
+def stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype flax takes statistics in: at least float32."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -69,7 +82,7 @@ def batch_norm(
     ``x.dtype``."""
     shape = (1, -1, 1, 1)
     if train:
-        xf = x.float()
+        xf = x.to(stat_dtype(x))
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
         if axis_size > 1:
@@ -109,22 +122,72 @@ class BatchNorm(nn.Module):
         )
 
 
-class Norm(nn.Module):
-    """The reference's pluggable norm; this slice ports ``kind='batch'``."""
+def group_norm(
+    x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """flax ``nn.GroupNorm`` over NCHW: float32 statistics per sample and
+    group with the fast variance E[x²]−E[x]² clipped at 0, ε = 1e-6, the
+    output in ``x.dtype``."""
+    n, c = x.shape[:2]
+    xf = x.to(stat_dtype(x)).reshape(n, groups, -1)
+    mean = xf.mean(dim=-1)
+    mean2 = (xf * xf).mean(dim=-1)
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
+    per = c // groups
+    mean = mean.repeat_interleave(per, dim=1)
+    mul = torch.rsqrt(var + GN_EPSILON).repeat_interleave(per, dim=1) * weight
+    y = (x - mean.view(n, c, 1, 1)) * mul.view(n, c, 1, 1) + bias.view(1, c, 1, 1)
+    return y.to(x.dtype)
 
-    def __init__(self, features: int, kind: str = "batch"):
+
+class GroupNorm(nn.Module):
+    def __init__(self, features: int, groups: int):
         super().__init__()
-        if kind != "batch":
-            raise NotImplementedError(f"norm={kind!r} is not yet ported")
-        self.BatchNorm_0 = BatchNorm(features)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(x)
+        return group_norm(x, self.groups, self.weight, self.bias)
+
+
+class Norm(nn.Module):
+    """The reference's pluggable norm: ``batch`` (sync-BN through
+    ``BatchNorm.axis_size``), ``group`` (the group count lowered until it
+    divides the channels) or ``none`` (no parameters; the conv before it
+    then has a bias)."""
+
+    def __init__(self, features: int, kind: str = "batch", groups: int = 8):
+        super().__init__()
+        self.kind = kind
+        if kind == "batch":
+            self.BatchNorm_0 = BatchNorm(features)
+        elif kind == "group":
+            groups = min(groups, features)
+            while features % groups:
+                groups -= 1
+            self.GroupNorm_0 = GroupNorm(features, groups)
+        elif kind != "none":
+            raise ValueError(f"unknown norm kind {kind!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "batch":
+            return self.BatchNorm_0(x)
+        if self.kind == "group":
+            return self.GroupNorm_0(x)
+        return x
+
+
+def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1):
+    """flax/XLA 'SAME' padding of one spatial dim: ``(before, after)``."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with 'SAME' padding at stride 1 (odd kernels):
-    weight OIHW float32, computed in ``dtype``."""
+    """flax ``nn.Conv`` with 'SAME' padding (:func:`same_pads`), any stride
+    and dilation: weight OIHW float32, computed in ``dtype``."""
 
     def __init__(
         self,
@@ -134,16 +197,33 @@ class Conv(nn.Module):
         dtype: torch.dtype,
         use_bias: bool = True,
         generator: torch.Generator | None = None,
+        stride: int = 1,
+        dilation: int = 1,
     ):
         super().__init__()
         self.dtype = dtype
-        self.padding = (kernel - 1) // 2
+        self.kernel = kernel
+        self.stride = stride
+        self.dilation = dilation
         self.weight = nn.Parameter(torch.empty(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         lecun_normal_(self.weight, in_features * kernel * kernel, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), padding=self.padding)
+        k, s, d = self.kernel, self.stride, self.dilation
+        x = x.to(self.dtype)
+        if k == 1 and s > 1:
+            # The same conv on the subsampled grid ('SAME' pads a 1×1 conv
+            # nowhere).  PyTorch's CPU (oneDNN) backward of a strided 1×1
+            # conv on a channels-last input corrupts the heap (torch 2.13).
+            x, s = x[:, :, ::s, ::s], 1
+        (top, bottom), (left, right) = (same_pads(n, k, s, d) for n in x.shape[2:])
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:  # stride 2 on an even grid: flax pads the bottom and right only
+            x = F.pad(x, (left, right, top, bottom))
+            pad = 0
+        y = F.conv2d(x, self.weight.to(self.dtype), stride=s, padding=pad, dilation=d)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype).view(1, -1, 1, 1)
         return y
@@ -176,13 +256,16 @@ class ConvTranspose(nn.Module):
 
 
 class ConvNormAct(nn.Module):
-    """3×3 conv (no bias under batch norm) → norm → ReLU."""
+    """conv (``kernel_size``, ``stride``, ``dilation``; a bias only under
+    ``norm='none'``) → norm → ReLU."""
 
-    def __init__(self, in_features, features, dtype, norm="batch", generator=None):
+    def __init__(self, in_features, features, dtype, norm="batch", generator=None,
+                 norm_groups=8, kernel_size=3, stride=1, dilation=1):
         super().__init__()
-        self.Conv_0 = Conv(in_features, features, 3, dtype, use_bias=False,
-                           generator=generator)
-        self.Norm_0 = Norm(features, norm)
+        self.Conv_0 = Conv(in_features, features, kernel_size, dtype,
+                           use_bias=norm == "none", generator=generator,
+                           stride=stride, dilation=dilation)
+        self.Norm_0 = Norm(features, norm, norm_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.Norm_0(self.Conv_0(x)))
@@ -191,10 +274,13 @@ class ConvNormAct(nn.Module):
 class DoubleConv(nn.Module):
     """(Conv3×3 → norm → ReLU) ×2."""
 
-    def __init__(self, in_features, features, dtype, norm="batch", generator=None):
+    def __init__(self, in_features, features, dtype, norm="batch", generator=None,
+                 norm_groups=8):
         super().__init__()
-        self.ConvNormAct_0 = ConvNormAct(in_features, features, dtype, norm, generator)
-        self.ConvNormAct_1 = ConvNormAct(features, features, dtype, norm, generator)
+        self.ConvNormAct_0 = ConvNormAct(in_features, features, dtype, norm, generator,
+                                         norm_groups)
+        self.ConvNormAct_1 = ConvNormAct(features, features, dtype, norm, generator,
+                                         norm_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ConvNormAct_1(self.ConvNormAct_0(x))
@@ -204,12 +290,52 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 
 
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (k, k), strides=(s, s), padding='SAME')``: the
+    'SAME' pads filled with −inf (:func:`same_pads`; bottom and right only
+    for 3×3/2 on an even grid)."""
+    (top, bottom), (left, right) = (same_pads(n, kernel, stride) for n in x.shape[2:])
+    x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(x, ..., 'bilinear')`` for an up-sampling
+    ``size = (H, W)``, NCHW, in ``x.dtype``.
+
+    JAX's triangle kernel renormalizes the taps that fall off the edge,
+    which is ``align_corners=False``'s clamp.  JAX contracts one dimension
+    at a time, each a dot that rounds to the input dtype, in the order
+    ``jnp.einsum`` finds cheaper (the rows first on a tie); one pass a
+    dimension in that order gives JAX's bf16 bits wherever the scale's
+    weights are exact in bf16 (a power of two).  JAX anti-aliases when it
+    down-samples, which bilinear ``F.interpolate`` does not: refused."""
+    h, w = x.shape[2:]
+    out_h, out_w = size
+    if out_h < h or out_w < w:
+        raise ValueError(
+            f"resize_bilinear from {(h, w)} to {(out_h, out_w)} down-samples; "
+            f"jax.image.resize anti-aliases there and this port does not"
+        )
+    rows_first = h * w * out_h + out_h * w * out_w <= h * w * out_w + h * out_w * out_h
+    for step in ((out_h, w), (out_h, out_w)) if rows_first else ((h, out_w), (out_h, out_w)):
+        if step != tuple(x.shape[2:]):
+            x = F.interpolate(x, size=step, mode="bilinear", align_corners=False)
+    return x
+
+
+def upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    return resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]))
+
+
 class DownBlock(nn.Module):
     """DoubleConv then 2× max pool; returns (downsampled, skip)."""
 
-    def __init__(self, in_features, features, dtype, norm="batch", generator=None):
+    def __init__(self, in_features, features, dtype, norm="batch", generator=None,
+                 norm_groups=8):
         super().__init__()
-        self.DoubleConv_0 = DoubleConv(in_features, features, dtype, norm, generator)
+        self.DoubleConv_0 = DoubleConv(in_features, features, dtype, norm, generator,
+                                       norm_groups)
 
     def forward(self, x: torch.Tensor):
         skip = self.DoubleConv_0(x)
@@ -217,19 +343,30 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """Transposed-conv 2× upsample, concat ``[skip, x]``, DoubleConv."""
+    """2× upsample (transposed conv or bilinear), concat ``[*skips, x]``,
+    DoubleConv.  ``skip_features`` counts the channels of all the skips."""
 
     def __init__(self, in_features, skip_features, features, dtype, norm="batch",
-                 generator=None):
+                 generator=None, up_sample_mode="conv_transpose", norm_groups=8):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose(in_features, features, dtype, generator)
+        if up_sample_mode == "conv_transpose":
+            self.ConvTranspose_0 = ConvTranspose(in_features, features, dtype, generator)
+            up_features = features
+        elif up_sample_mode == "bilinear":
+            up_features = in_features
+        else:
+            raise ValueError(f"unknown up_sample_mode {up_sample_mode!r}")
+        self.up_sample_mode = up_sample_mode
         self.DoubleConv_0 = DoubleConv(
-            skip_features + features, features, dtype, norm, generator
+            skip_features + up_features, features, dtype, norm, generator, norm_groups
         )
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([skip, self.ConvTranspose_0(x)], dim=1)
-        return self.DoubleConv_0(x)
+    def forward(self, x: torch.Tensor, skips: list) -> torch.Tensor:
+        if self.up_sample_mode == "conv_transpose":
+            x = self.ConvTranspose_0(x)
+        else:
+            x = upsample_2x(x)
+        return self.DoubleConv_0(torch.cat([*skips, x], dim=1))
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -271,3 +408,37 @@ class DetailHead(nn.Module):
         z = torch.cat([logits.to(self.dtype), image.to(self.dtype)], dim=1)
         z = F.relu(self.Conv_0(z))
         return logits + self.Conv_1(z.to(self.head_dtype))
+
+
+class StemGridDetailHead(nn.Module):
+    """Residual refinement at the stem grid (``detail_head_kind='s2d'``):
+    ``z += Conv3x3(C·r²)·relu·Conv3x3(hidden)(z ++ s2d(image))`` on the
+    pre-depth-to-space logits ``z``, the hidden conv in the compute dtype,
+    the delta conv in the head dtype."""
+
+    def __init__(self, num_classes, image_channels, stem_factor, hidden, dtype,
+                 head_dtype, generator=None):
+        super().__init__()
+        r = stem_factor
+        self.r = r
+        self.dtype = dtype
+        self.head_dtype = head_dtype
+        self.Conv_0 = Conv((num_classes + image_channels) * r * r, hidden, 3, dtype,
+                           generator=generator)
+        self.Conv_1 = Conv(hidden, num_classes * r * r, 3, head_dtype, generator=generator)
+
+    def forward(self, z: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+        zin = torch.cat([z.to(self.dtype), space_to_depth(image.to(self.dtype), self.r)], dim=1)
+        y = F.relu(self.Conv_0(zin))
+        return z + self.Conv_1(y.to(self.head_dtype))
+
+
+def group_labels(labels: torch.Tensor, r: int) -> torch.Tensor:
+    """``[..., H, W]`` labels → ``[..., H/r, W/r, r²]``, phase-major: the
+    order of the pre-depth-to-space logits' ``r²·C`` channels, so that the
+    ``[..., r², C]`` view pairs phase p's class row with phase p's label."""
+    *lead, h, w = labels.shape
+    if h % r or w % r:
+        raise ValueError(f"spatial dims {(h, w)} not divisible by r={r}")
+    x = labels.reshape(*lead, h // r, r, w // r, r).movedim(-3, -2)
+    return x.reshape(*lead, h // r, w // r, r * r)

@@ -17,9 +17,13 @@ JAX's convention:
   (the first conv of the stem sees the batch itself and has none):
   ``2 · N·H·W·Cin · K · Cout``, the input grid's size.  For a strided
   conv that grid is the lhs-dilated cotangent's, zeros counted; for the
-  transposed conv it is the plain input's.
+  transposed conv it is the plain input's.  A dilated conv counts its K
+  taps, not the span they cover; a 1×1-grid conv (ASPP's image pool) is
+  counted like any other.  The hooks see the module's input before any
+  'SAME' padding, as the jaxpr's conv does.
 
-On the flagship that is 89 equations a micro-batch, the JAX count.  The
+On the flagship that is 89 equations a micro-batch, the JAX count; the
+three U-Net++ and DeepLabV3+ configs' integers equal JAX's too.  The
 count is linear in the batch, so one tile's times the micro-batch is
 exact.  ``torch.utils.flop_counter`` counts otherwise (no inserted zeros)
 and is not used.  Non-conv FLOPs (norms, loss, Adam) are left out, as in

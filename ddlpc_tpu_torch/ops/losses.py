@@ -1,7 +1,9 @@
 """Segmentation losses, mirroring ``ddlpc_tpu/ops/losses.py``.
 
 Logits are ``[..., C]`` (any float dtype; every reduction runs in float32),
-labels ``[...]`` integers with ``-1`` for void pixels.
+labels ``[...]`` integers with ``-1`` for void pixels.  In
+:func:`nll_correct_valid` the labels broadcast over leading axes of the
+logits (a deep-supervision stack ``[J, ...]``), as in the reference.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ def nll_correct_valid(
     the train step's loss and accuracy inputs, with the reference's
     arithmetic: the row max in the logits' dtype, ``lse = m + log Σ
     exp(l − m)`` in float32, ``nll = lse − m − (l_label − m)``, and a pixel
-    counting ``1/#tied`` when its label's logit equals the row max."""
+    counting ``1/#tied`` when its label's logit equals the row max.
+    ``valid`` has the labels' shape."""
     num_classes = logits.shape[-1]
-    idx = _clipped(labels, num_classes)
+    idx = _clipped(labels, num_classes).expand(*logits.shape[:-1], 1)
     m = logits.amax(dim=-1)
     mf = m.float()
     zf = logits.float() - mf.unsqueeze(-1)

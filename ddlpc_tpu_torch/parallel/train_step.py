@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ddlpc_tpu_torch.config import CompressionConfig
+from ddlpc_tpu_torch.models.layers import group_labels
 from ddlpc_tpu_torch.ops.losses import nll_correct_valid, softmax_cross_entropy_sum
 from ddlpc_tpu_torch.ops.metrics import confusion_from_logits
 from ddlpc_tpu_torch.ops.philox import step_key
@@ -137,15 +138,40 @@ def create_train_state(
 
 
 def loss_from_logits(
-    logits: torch.Tensor, labels: torch.Tensor
+    logits: torch.Tensor, labels: torch.Tensor, train_head_layout: str = "fullres"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean pixel NLL and tie-corrected accuracy over the micro-batch's
-    valid pixels (label −1 is void), full-resolution logits ``[..., C]``."""
-    if logits.shape[:-1] != labels.shape:
-        raise ValueError(
-            f"logits {tuple(logits.shape)} do not match labels {tuple(labels.shape)}"
-        )
+    valid pixels (label −1 is void), as the reference computes them.
+
+    ``logits`` are ``[..., H, W, C]`` over labels ``[..., H, W]``, or, from
+    a model that declares ``train_head_layout='grouped'``, pre-d2s
+    ``[..., H/r, W/r, r²·C]``: the labels are grouped the same way
+    (``layers.group_labels``) and the loss runs on the ``[..., r², C]``
+    view, the same pairs of logit row and label.  A deep-supervision stack
+    ``[J, ...]`` takes the labels broadcast over J, and the validity mask
+    broadcast to the NLL's shape, so the loss is the mean of the per-head
+    losses and the accuracy stays in [0, 1]."""
+    if logits.shape[-3:-1] != labels.shape[-2:]:
+        # Regroup only where the model declared it: wrong-shaped logits
+        # whose dims happen to divide the labels' must not train.
+        if train_head_layout != "grouped":
+            raise ValueError(
+                f"logits spatial shape {tuple(logits.shape[-3:-1])} != labels "
+                f"{tuple(labels.shape[-2:])} but the model declares "
+                f"train_head_layout={train_head_layout!r} — refusing to "
+                "reinterpret as grouped logits"
+            )
+        r = labels.shape[-2] // logits.shape[-3]
+        if (labels.shape[-2] != r * logits.shape[-3]
+                or labels.shape[-1] != r * logits.shape[-2]):
+            raise ValueError(
+                f"grouped logits {tuple(logits.shape)} are not an integer r×r "
+                f"regrouping of labels {tuple(labels.shape)}"
+            )
+        labels = group_labels(labels, r)
+        logits = logits.reshape(*logits.shape[:-1], r * r, -1)
     nll, correct, valid = nll_correct_valid(logits, labels, ignore_index=-1)
+    valid = valid.expand_as(nll)
     denom = torch.clamp_min(valid.sum(), 1.0)
     return (nll * valid).sum() / denom, (correct * valid).sum() / denom
 
@@ -158,10 +184,11 @@ def _accumulate_grads(
     per-micro-batch losses and accuracies ``[A]`` (on the device)."""
     model = state.model
     model.train()
+    layout = getattr(model, "train_head_layout", "fullres")
     state.params.grad.zero_()
     losses, accs = [], []
     for x, y in zip(images, labels):
-        loss, acc = loss_from_logits(model(x), y)
+        loss, acc = loss_from_logits(model(x), y, layout)
         loss.backward()
         losses.append(loss.detach())
         accs.append(acc.detach())
@@ -193,6 +220,8 @@ def mean_batch_stats(model: nn.Module, axis_size: int) -> None:
     if axis_size == 1:
         return
     bufs = [b for name, b in model.named_buffers() if name.endswith(("running_mean", "running_var"))]
+    if not bufs:  # group norm or none: no statistics
+        return
     flat = mesh.all_reduce_(torch.cat([b.reshape(-1) for b in bufs]))
     flat.div_(axis_size)
     for b, v in zip(bufs, flat.split([b.numel() for b in bufs])):

@@ -21,8 +21,10 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.data.loader",
     "ddlpc_tpu_torch.kernels.build",
     "ddlpc_tpu_torch.models",
+    "ddlpc_tpu_torch.models.deeplabv3p",
     "ddlpc_tpu_torch.models.layers",
     "ddlpc_tpu_torch.models.unet",
+    "ddlpc_tpu_torch.models.unetpp",
     "ddlpc_tpu_torch.obs.comm",
     "ddlpc_tpu_torch.obs.flops",
     "ddlpc_tpu_torch.obs.hbm",

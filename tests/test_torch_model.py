@@ -227,14 +227,16 @@ def test_confusion_and_mean_iou_match_jax():
 
 
 def test_build_model_validation():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(ModelConfig(name="deeplabv3p"))
     with pytest.raises(ValueError, match="unknown model"):
         build_model(ModelConfig(name="vgg"))
     with pytest.raises(ValueError, match="requires stem='s2d'"):
         build_model(ModelConfig(detail_head=True, detail_head_kind="s2d", stem="none"))
-    with pytest.raises(NotImplementedError, match="norm"):
-        build_model(ModelConfig(norm="group", features=(8,), bottleneck_features=8))
+    # DeepLabV3+ has no detail head: JAX's refusal, word for word.
+    with pytest.raises(ValueError) as want:
+        jbuild_model(JModelConfig(name="deeplabv3p", detail_head=True))
+    with pytest.raises(ValueError) as got:
+        build_model(ModelConfig(name="deeplabv3p", detail_head=True))
+    assert str(got.value) == str(want.value)
     model = build_model(ModelConfig(**TINY))
     with pytest.raises(ValueError, match="too small"):
         model(torch.zeros(1, 4, 4, 3))
