@@ -17,8 +17,10 @@ by ``utils/native.py``) against the JAX package's (``csrc/``, built by
 - a library that does not build raises, naming the setting that avoids it.
 """
 
+import ctypes
 import os
 import shutil
+import subprocess
 import time
 
 import ml_dtypes
@@ -37,12 +39,32 @@ from test_torch_checkpoint import jax_state, metadata, port_state
 SIZES = (0, 1, 1 << 10, (1 << 16) + 3, (1 << 20) + 17, 3 << 20)
 
 
+# ``csrc/Makefile``'s flags.  The JAX package's own loader runs ``make`` in
+# place in ``csrc/`` and caches a failure for the life of the process, so
+# pytest workers that reach it together race one another's half-written
+# ``.so``; each worker here builds its own copy instead.
+_CXX = ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
+_JAX_LIBS = (("wire.cc", "libdwz.so", jnative.NativeWire, ["-lz", "-lpthread"]),
+             ("batch.cc", "libdwbatch.so", jnative.NativeBatch, ["-lpthread"]))
+
+
 @pytest.fixture(scope="module")
-def jax_libs():
-    wire_lib, batch_lib = jnative.load(), jnative.load_batch()
-    if wire_lib is None or batch_lib is None:
-        pytest.fail("the JAX package's native libraries did not build with this g++")
-    return wire_lib, batch_lib
+def jax_libs(tmp_path_factory):
+    """The JAX package's ``NativeWire`` and ``NativeBatch`` over libraries
+    built from ``csrc/`` into this worker's own directory (a temporary name,
+    then ``os.replace``), never through ``ddlpc_tpu.utils.native.load``."""
+    out = tmp_path_factory.mktemp("jax_native")
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+    libs = []
+    for source, name, wrapper, ldlibs in _JAX_LIBS:
+        path, tmp = str(out / name), str(out / f".{name}.{os.getpid()}.tmp")
+        build = subprocess.run(_CXX + [os.path.join(csrc, source), "-o", tmp] + ldlibs,
+                               capture_output=True, text=True, timeout=300)
+        if build.returncode:
+            pytest.fail(f"csrc/{source} did not build with this g++:\n{build.stderr}")
+        os.replace(tmp, path)
+        libs.append(wrapper(ctypes.CDLL(path)))
+    return tuple(libs)
 
 
 def _batch_inputs():
