@@ -21,10 +21,12 @@ Every rule is a permutation (and flip) of the same values, so the round
 trip ``flax_from_torch(torch_state_from_flax(p))`` is exact.
 
 The whole train state — what a checkpoint holds — is :func:`flax_tree`:
-flax's ``to_state_dict(TrainState)`` layout with ``step``, the Adam
-``count`` and optax's empty state beside the params, statistics and
-moments; :func:`load_state_tree` places it in the train states of a
-world of any size and layout.
+flax's ``to_state_dict(TrainState)`` layout with ``step`` and optax's
+state tree (the chain's stages as ``"0"``, ``"1"``, ...: Adam's or SGD's
+per-param trees and counts, a schedule's count, the empty states of
+clipping and weight decay; :func:`optax_tree`) beside the params and
+statistics; :func:`load_state_tree` places it in the train states of a
+world of any size and ZeRO level.
 """
 
 from __future__ import annotations
@@ -93,52 +95,106 @@ def _params_to_torch(params: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+MOMENTS = ("mu", "nu", "trace")  # optax's per-param state leaves: Adam's, SGD's
+
+
 def torch_state_from_flax(
     params: Mapping,
     batch_stats: Mapping,
     opt_state: Optional[Mapping] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
-    """``(state_dict, adam)``: the model's ``state_dict`` (params and
+    """``(state_dict, opt)``: the model's ``state_dict`` (params and
     BatchNorm running statistics, fp32 CPU tensors) and, when ``opt_state``
-    = ``{"count", "mu", "nu"}`` is given, ``{"count": int, "mu": {name:
-    tensor}, "nu": {name: tensor}}`` in the same names and layouts."""
+    is given (optax's per-param trees and its count: ``{"count", "mu",
+    "nu"}`` for Adam, ``{"trace"}`` for SGD, as :func:`optax_core` reads
+    them), ``{"count": int or None, "mu": {name: tensor}, ...}`` in the
+    same names and layouts."""
     sd = {k: _to_tensor(v) for k, v in _params_to_torch(params).items()}
     for path, v in _flatten(batch_stats).items():
         name = _STAT_NAMES.get(path[-1])
         if name is None:
             raise KeyError(f"unknown flax batch_stats leaf {'/'.join(path)}")
         sd[".".join(path[:-1] + (name,))] = _to_tensor(v)
-    adam = None
+    opt = None
     if opt_state is not None:
-        adam = {"count": int(np.asarray(opt_state["count"]))}
-        for key in ("mu", "nu"):
-            adam[key] = {k: _to_tensor(v) for k, v in _params_to_torch(opt_state[key]).items()}
-    return sd, adam
+        count = opt_state.get("count")
+        opt = {"count": None if count is None else int(np.asarray(count))}
+        for key in MOMENTS:
+            if key in opt_state:
+                opt[key] = {k: _to_tensor(v) for k, v in _params_to_torch(opt_state[key]).items()}
+    return sd, opt
+
+
+def optax_core(layout, tree: Mapping) -> dict:
+    """The per-param trees and the count of an optax state tree (flax's
+    ``to_state_dict`` of it, a chain's stages under ``"0"``, ``"1"``, ...)
+    whose nesting is ``layout`` (``train/optim.Optimizer.layout``)."""
+    out: dict = {}
+
+    def walk(node, sub) -> None:
+        if isinstance(node, tuple):
+            for i, child in enumerate(node):
+                walk(child, sub[str(i)])
+        elif node == "adam":
+            out.update(count=sub["count"], mu=sub["mu"], nu=sub["nu"])
+        elif node == "trace":
+            out["trace"] = sub["trace"]
+        elif node == "count":
+            out.setdefault("count", sub["count"])
+        elif node != "empty" or (isinstance(sub, Mapping) and sub):
+            raise KeyError(f"optax state node {node!r} does not match {sub!r}")
+
+    walk(layout, tree)
+    return out
+
+
+def optax_tree(layout, count: int, core: Mapping) -> dict:
+    """Inverse of :func:`optax_core`: the optax state tree of ``layout``
+    from the per-param trees in ``core``, each count a 0-d int32."""
+
+    def build(node):
+        if isinstance(node, tuple):
+            return {str(i): build(child) for i, child in enumerate(node)}
+        if node == "adam":
+            return {"count": np.array(count, np.int32), "mu": core["mu"], "nu": core["nu"]}
+        if node == "trace":
+            return {"trace": core["trace"]}
+        if node == "count":
+            return {"count": np.array(count, np.int32)}
+        return {}
+
+    return build(layout)
+
+
+def flax_param_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """The flax param path of the port's parameter ``name`` (``ndim`` its
+    rank): a 4-D ``weight`` is a ``kernel``, any other ``weight`` a
+    norm's ``scale``, a ``bias`` a ``bias``.  Sorting the params by this
+    path gives ``jax.tree_util.tree_flatten``'s leaf order."""
+    *mod, leaf = name.split(".")
+    if leaf == "weight":
+        return tuple(mod) + ("kernel" if ndim == 4 else "scale",)
+    if leaf == "bias":
+        return tuple(mod) + ("bias",)
+    raise KeyError(f"unknown torch parameter {name}")
 
 
 def _params_to_flax(named: Mapping[str, torch.Tensor]) -> dict:
     flat = {}
     for name, t in named.items():
-        *mod, leaf = name.split(".")
-        path = tuple(mod)
         v = t.detach().cpu().numpy()
-        if leaf == "weight" and v.ndim == 4:
-            flat[path + ("kernel",)] = np.ascontiguousarray(_kernel_to_flax(path + ("kernel",), v))
-        elif leaf == "weight":
-            flat[path + ("scale",)] = v
-        elif leaf == "bias":
-            flat[path + ("bias",)] = v
-        else:
-            raise KeyError(f"unknown torch parameter {name}")
+        path = flax_param_path(name, v.ndim)
+        flat[path] = np.ascontiguousarray(_kernel_to_flax(path, v)) if path[-1] == "kernel" else v
     return _unflatten(flat)
 
 
 def flax_from_torch(
-    state_dict: Mapping[str, torch.Tensor], adam: Optional[Mapping] = None
+    state_dict: Mapping[str, torch.Tensor], opt: Optional[Mapping] = None
 ) -> Tuple[dict, dict, Optional[dict]]:
     """Inverse of :func:`torch_state_from_flax`: ``(params, batch_stats,
-    opt_state)`` as nested dicts of numpy arrays (``opt_state`` None
-    without ``adam``)."""
+    opt_state)`` as nested dicts of numpy arrays, ``opt_state`` the count
+    (int32, where there is one) and the per-param trees (None without
+    ``opt``)."""
     params, stats = {}, {}
     for name, t in state_dict.items():
         *mod, leaf = name.split(".")
@@ -148,43 +204,50 @@ def flax_from_torch(
             continue
         else:
             params[name] = t
-    opt = None
-    if adam is not None:
-        opt = {
-            "count": np.int32(adam["count"]),
-            "mu": _params_to_flax(adam["mu"]),
-            "nu": _params_to_flax(adam["nu"]),
-        }
-    return _params_to_flax(params), _unflatten(stats), opt
+    core = None
+    if opt is not None:
+        core = {k: _params_to_flax(opt[k]) for k in MOMENTS if k in opt}
+        if opt.get("count") is not None:
+            core["count"] = np.int32(opt["count"])
+    return _params_to_flax(params), _unflatten(stats), core
 
 
-def _full_buffer(flat, named: Mapping[str, torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+def _full_buffer(flat, named: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """A buffer of ``flat``'s padded layout holding ``named`` (zero tail)."""
-    buf = torch.zeros_like(like)
+    buf = torch.zeros_like(flat.grad)
     for view, name in zip(flat.views(buf), flat.names):
         view.copy_(named[name])
     return buf
 
 
-def load_canonical(state, state_dict: Mapping[str, torch.Tensor], adam: Optional[Mapping] = None) -> None:
+def _chunked(state) -> bool:
+    return state.level in ("zero1", "zero2", "zero3")
+
+
+def load_canonical(state, state_dict: Mapping[str, torch.Tensor], opt: Optional[Mapping] = None) -> None:
     """Carry a canonical (full, unsharded) state — as
     :func:`torch_state_from_flax` gives it — into a train state
     (``parallel.train_step.TrainState``) in place: the model's params and
-    BatchNorm statistics whole, and the Adam moments whole under
-    ``shard_update='off'`` or as this replica's chunk under ``zero2``."""
-    state.model.load_state_dict(state_dict, strict=True)
-    if adam is None:
-        return
-    flat, opt = state.params, state.opt_state
-    opt.count = int(adam["count"])
-    for key in ("mu", "nu"):
-        full = _full_buffer(flat, adam[key], flat.data)
-        mine = getattr(opt, key)
-        if mine.numel() != full.numel():  # zero2: this replica's chunk
-            from ddlpc_tpu_torch.parallel.mesh import replica_index
+    BatchNorm statistics whole (and, under zero3, this replica's chunks of
+    the params), and the optimizer's moments whole under ``off`` or as
+    this replica's chunks under the chunked levels."""
+    from ddlpc_tpu_torch.parallel.mesh import replica_index
 
-            full = flat.local(full, replica_index())
-        mine.copy_(full)
+    flat = state.params
+    if state.owned is not None:
+        flat.materialize()
+        flat.data.zero_()
+    state.model.load_state_dict(state_dict, strict=True)
+    index = replica_index()
+    if state.owned is not None:
+        state.owned.copy_(flat.gather_owned(flat.data, index))
+    if opt is None:
+        return
+    if opt.get("count") is not None:
+        state.opt_state.count = int(opt["count"])
+    for key, mine in state.opt_state.buffers().items():
+        full = _full_buffer(flat, opt[key])
+        mine.copy_(flat.gather_owned(full, index) if _chunked(state) else full)
 
 
 def _host_copy(t: torch.Tensor, host: Optional[dict], key: str) -> torch.Tensor:
@@ -204,23 +267,24 @@ def _host_copy(t: torch.Tensor, host: Optional[dict], key: str) -> torch.Tensor:
 def gather_canonical(
     state, host: Optional[dict] = None, to_host: bool = True
 ) -> Tuple[Optional[Dict[str, torch.Tensor]], Optional[dict]]:
-    """The canonical state of a train state: ``(state_dict, adam)`` on the
-    CPU, the Adam moments all-gathered from the replicas' chunks under
-    ``zero2`` (every replica must call it).  Each flat buffer (params,
-    ``mu``, ``nu``) is copied to the host once, and the leaves are views of
-    that copy; ``host`` holds reusable buffers for the copies (see
-    :func:`_host_copy`).  ``to_host=False`` joins the gather only and
-    returns ``(None, None)``."""
-    from ddlpc_tpu_torch.parallel.mesh import all_gather_, replica_index
+    """The canonical state of a train state: ``(state_dict, opt)`` on the
+    CPU, the moments all-gathered from the replicas' chunks under the
+    chunked levels and the params under zero3 (every replica must call
+    it).  ``opt`` holds the count, each moment by parameter name and the
+    optax ``layout``.  Each flat buffer (params and each moment) is copied
+    to the host once, and the leaves are views of that copy; ``host``
+    holds reusable buffers for the copies (see :func:`_host_copy`).
+    ``to_host=False`` joins the gathers only and returns ``(None, None)``."""
+    from ddlpc_tpu_torch.parallel.mesh import replica_index
 
     flat, opt = state.params, state.opt_state
+    state.gather_params()
     full = {"data": flat.data}
-    for key in ("mu", "nu"):
-        mine = getattr(opt, key)
-        if mine.numel() != flat.data.numel():
-            buf = torch.zeros_like(flat.data)
-            flat.local(buf, replica_index()).copy_(mine)
-            mine = all_gather_(buf)
+    for key, mine in opt.buffers().items():
+        if _chunked(state):
+            buf = torch.zeros_like(flat.grad)
+            flat.put_owned(mine, buf, replica_index())
+            mine = flat.all_gather_(buf)
         full[key] = mine
     if not to_host:
         return None, None
@@ -232,24 +296,24 @@ def gather_canonical(
     }
     if flat.data.is_cuda:
         torch.cuda.synchronize(flat.data.device)
-    adam = {"count": opt.count, "mu": flat.named_views(copies["mu"]),
-            "nu": flat.named_views(copies["nu"])}
-    return sd, adam
+    out = {"count": opt.count, "layout": state.layout}
+    out.update({k: flat.named_views(copies[k]) for k in opt.buffers()})
+    return sd, out
 
 
-def flax_tree(state_dict: Mapping[str, torch.Tensor], adam: Mapping, step: int) -> dict:
+def flax_tree(state_dict: Mapping[str, torch.Tensor], opt: Mapping, step: int) -> dict:
     """The state dict flax's ``to_state_dict(TrainState)`` gives the JAX
-    package for the same state: ``step`` and ``opt_state/0/count`` as 0-d
-    int32 arrays, ``params``, ``batch_stats``, ``opt_state/0/{mu,nu}`` in
-    the flax layout, and ``opt_state/1`` (optax's ``EmptyState``) an
-    empty dict."""
-    params, batch_stats, opt = flax_from_torch(state_dict, adam)
-    opt["count"] = np.array(opt["count"], np.int32)
+    package for the same state: ``step`` as a 0-d int32 array, ``params``
+    and ``batch_stats`` in the flax layout, and ``opt_state`` the optax
+    state tree of ``opt["layout"]`` (Adam's ``(ScaleByAdamState,
+    EmptyState)`` by default): its counts 0-d int32, its per-param trees
+    in the flax layout, an ``EmptyState`` an empty dict."""
+    params, batch_stats, core = flax_from_torch(state_dict, opt)
     return {
         "step": np.array(step, np.int32),
         "params": params,
         "batch_stats": batch_stats,
-        "opt_state": {"0": opt, "1": {}},
+        "opt_state": optax_tree(opt.get("layout", ("adam", "empty")), opt["count"], core),
     }
 
 
@@ -260,28 +324,33 @@ def load_state_tree(state, tree: Optional[Mapping], src: int = 0) -> None:
     ``src`` lays the canonical state out in full flat buffers on its
     device, and one broadcast a buffer carries them to the others, whose
     ``tree`` is None (every replica must call it); in a world of one the
-    broadcasts do nothing."""
+    broadcasts do nothing.  An optimizer whose optax state has no count
+    (SGD at a constant rate) takes the step."""
     from ddlpc_tpu_torch.parallel.mesh import broadcast_, replica_index
 
     flat = state.params
+    device = flat.grad.device
     stat_names = [k for k in state.model.state_dict() if k not in set(flat.names)]
     stats_like = [state.model.get_buffer(k) for k in stat_names]
+    moments = list(state.opt_state.buffers())
     if replica_index() == src:
-        sd, adam = torch_state_from_flax(tree["params"], tree["batch_stats"], tree["opt_state"]["0"])
-        data = _full_buffer(flat, sd, flat.data)
-        mu = _full_buffer(flat, adam["mu"], flat.data)
-        nu = _full_buffer(flat, adam["nu"], flat.data)
-        stats = torch.cat([sd[k].reshape(-1) for k in stat_names] + [torch.zeros(0)]).to(flat.data.device)
-        ints = torch.tensor([adam["count"], int(np.asarray(tree["step"]))], device=flat.data.device)
+        core = optax_core(state.layout, tree["opt_state"])
+        sd, opt = torch_state_from_flax(tree["params"], tree["batch_stats"], core)
+        step = int(np.asarray(tree["step"]))
+        data = _full_buffer(flat, sd)
+        bufs = [_full_buffer(flat, opt[k]) for k in moments]
+        stats = torch.cat([sd[k].reshape(-1) for k in stat_names] + [torch.zeros(0)]).to(device)
+        count = step if opt["count"] is None else opt["count"]
+        ints = torch.tensor([count, step], device=device)
     else:
-        data, mu, nu = (torch.empty_like(flat.data) for _ in range(3))
-        stats = torch.empty(sum(b.numel() for b in stats_like), device=flat.data.device)
-        ints = torch.zeros(2, dtype=torch.int64, device=flat.data.device)
-    for t in (data, mu, nu, stats, ints):
+        data, *bufs = (torch.empty_like(flat.grad) for _ in range(1 + len(moments)))
+        stats = torch.empty(sum(b.numel() for b in stats_like), device=device)
+        ints = torch.zeros(2, dtype=torch.int64, device=device)
+    for t in (data, *bufs, stats, ints):
         broadcast_(t, src)
     sd = flat.named_views(data)
     for name, v, like in zip(stat_names, stats.split([b.numel() for b in stats_like]), stats_like):
         sd[name] = v.view_as(like)
     count, step = (int(v) for v in ints.tolist())
-    load_canonical(state, sd, {"count": count, "mu": flat.named_views(mu), "nu": flat.named_views(nu)})
+    load_canonical(state, sd, {"count": count, **{k: flat.named_views(b) for k, b in zip(moments, bufs)}})
     state.step = step

@@ -17,7 +17,9 @@ right only.  :func:`same_pads` computes it; :class:`Conv` and
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.distributed as dist
@@ -62,6 +64,24 @@ class _AllReduceSum(torch.autograd.Function):
         return g
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a forward as the backward's recomputation of one already run
+    (``torch.utils.checkpoint``'s ``context_fn`` under ``train.remat``):
+    BatchNorm's running statistics, which the first forward advanced, are
+    not advanced again.  Per thread: the backward of CUDA tensors, and so
+    the recompute, runs on the autograd engine's own thread."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
 def batch_norm(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -76,7 +96,8 @@ def batch_norm(
     Train mode: float32 statistics with the fast variance E[x²]−E[x]²
     clipped at 0, and the running averages updated in place with flax's
     momentum (0.9 on the old value) and the *biased* batch variance — not
-    ``nn.BatchNorm2d``'s rule.  With ``axis_size > 1`` (sync-BN) the batch
+    ``nn.BatchNorm2d``'s rule (once a forward: not inside
+    :func:`recomputing`).  With ``axis_size > 1`` (sync-BN) the batch
     mean and mean of squares are averaged over the process group of that
     size in one reduce, as flax's ``axis_name`` does.  Output in
     ``x.dtype``."""
@@ -89,13 +110,14 @@ def batch_norm(
             both = _AllReduceSum.apply(torch.cat([mean, mean2])) / axis_size
             mean, mean2 = both.split(mean.numel())
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        with torch.no_grad():
-            running_mean.copy_(
-                BN_MOMENTUM * running_mean + (1 - BN_MOMENTUM) * mean.detach()
-            )
-            running_var.copy_(
-                BN_MOMENTUM * running_var + (1 - BN_MOMENTUM) * var.detach()
-            )
+        if not getattr(_RECOMPUTE, "on", False):
+            with torch.no_grad():
+                running_mean.copy_(
+                    BN_MOMENTUM * running_mean + (1 - BN_MOMENTUM) * mean.detach()
+                )
+                running_var.copy_(
+                    BN_MOMENTUM * running_var + (1 - BN_MOMENTUM) * var.detach()
+                )
     else:
         mean, var = running_mean, running_var
     mul = torch.rsqrt(var + BN_EPSILON) * weight

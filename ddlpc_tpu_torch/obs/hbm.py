@@ -2,18 +2,25 @@
 and ``publish_hbm_gauges`` from ``ddlpc_tpu/obs/hbm.py``, over the port's
 flat buffers (``parallel/train_step.FlatParams``).
 
-The kinds are the JAX package's; the bytes are what the port holds:
+The kinds are the JAX package's; the bytes are what the port holds
+(``K`` = ``shard``, a replica's owned elements over every bucket region;
+the buffers pad each region to ``N·K_b``, which is ``n`` on one replica
+without buckets):
 
-- ``params``: the flat parameter buffer, ``N·K`` fp32 elements, where JAX
-  holds the ``n`` params of the leaves (``K`` = ``flat_chunk_rows(n, N)``;
-  the buffer pads to ``N·K``, which is ``n`` on one replica);
+- ``params``: the flat parameter buffer, ``Σ N·K_b`` fp32 elements, where
+  JAX holds the ``n`` params of the leaves; under ``zero3`` this
+  replica's ``K`` owned elements (the full buffer is a temporary of the
+  step, freed after its update);
 - ``grads``: the optimizer-boundary gradient — the whole flat gradient
-  under ``off``, this replica's ``K``-element chunk under ``zero2`` (JAX:
-  ``n``, or ``Σ ceil(n_leaf / N)`` over its per-leaf chunks);
+  under ``off`` and ``zero1``, this replica's ``K`` elements under
+  ``zero2`` and ``zero3`` (JAX: ``n``, or ``Σ ceil(n_leaf / N)`` over its
+  per-leaf chunks);
 - ``grads_accum``: the flat gradient buffer backward accumulates into,
-  ``N·K`` elements under every level (JAX: ``n``);
-- ``opt_state``: Adam's ``mu`` and ``nu`` (the step count is a host int;
-  JAX's is a 4-byte device scalar);
+  ``Σ N·K_b`` elements under every level (JAX: ``n``);
+- ``opt_state``: the optimizer's moments (Adam's ``mu`` and ``nu``, SGD's
+  ``trace``), whole under ``off`` and ``K`` elements each under the
+  chunked levels (the counts are host ints; JAX's are 4-byte device
+  scalars);
 - ``batch_stats``: the BatchNorm running means and variances, as in JAX.
 """
 
@@ -24,17 +31,19 @@ from typing import Dict
 
 def state_hbm_bytes(state, level: str = "off") -> Dict[str, int]:
     """Bytes one replica holds of a ``TrainState``, by kind; ``level`` is
-    the resolved ZeRO level (``off`` or ``zero2``)."""
+    the resolved ZeRO level."""
     flat = state.params
-    opt = state.opt_state
-    grads = flat.shard if level == "zero2" and flat.n_shards > 1 else flat.grad.numel()
+    item = flat.grad.element_size()
+    sharded = flat.n_shards > 1
+    params = flat.shard if level == "zero3" and sharded else flat.grad.numel()
+    grads = flat.shard if level in ("zero2", "zero3") and sharded else flat.grad.numel()
     stats = [b for name, b in state.model.named_buffers()
              if name.endswith(("running_mean", "running_var"))]
     return {
-        "params": flat.data.numel() * flat.data.element_size(),
-        "grads": grads * flat.grad.element_size(),
-        "grads_accum": flat.grad.numel() * flat.grad.element_size(),
-        "opt_state": sum(t.numel() * t.element_size() for t in (opt.mu, opt.nu)),
+        "params": params * item,
+        "grads": grads * item,
+        "grads_accum": flat.grad.numel() * item,
+        "opt_state": sum(t.numel() * t.element_size() for t in state.opt_state.buffers().values()),
         "batch_stats": sum(b.numel() * b.element_size() for b in stats),
     }
 
@@ -45,7 +54,7 @@ def publish_hbm_gauges(registry, state, level: str = "off") -> Dict[str, int]:
     gauge = registry.gauge(
         "ddlpc_hbm_bytes",
         "Per-device resident state bytes (grads = optimizer-boundary "
-        "gradient, this replica's chunk under zero2; grads_accum = the flat "
+        "gradient, this replica's chunks under zero2/zero3; grads_accum = the flat "
         "fp32 gradient buffer backward accumulates into).",
         labelnames=("kind",),
     )

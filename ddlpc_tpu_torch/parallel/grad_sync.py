@@ -28,13 +28,25 @@ stream from offset 0 of the flat buffer; a chunk of the mean draws from
 its own offset, so that it rounds as the same elements of the whole mean
 would.
 
+Gradient buckets (``compression.bucket_mb > 0``): the flat buffers are
+cut into regions, one a bucket (``train_step.FlatParams``, in the JAX
+package's leaf order), and each region is synced on its own: its own
+max-abs scale, its own collective, its own set of codec launches.  With
+more than one bucket, bucket ``b``'s rounding key is the step's with
+``b`` folded in, before the local/mean split, as the JAX package's
+``_bucketed`` folds it; one bucket is the unbucketed sync, bit for bit.
+
+``compression.transport='ring'`` swaps the all-reduce for the quantized
+ring of ``compressed_allreduce.py``, which puts the int8/int16 chunks
+themselves on the wire.
+
 The reduces over replicas run over the process group
 (``parallel/mesh.py``); with one replica they are the identity.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,7 +60,7 @@ from ddlpc_tpu_torch.ops.quantize import (
     times_reciprocal,
 )
 from ddlpc_tpu_torch.parallel import mesh
-from ddlpc_tpu_torch.parallel.compressed_allreduce import wire_dtype
+from ddlpc_tpu_torch.parallel.compressed_allreduce import ring_allreduce_mean_, wire_dtype
 from ddlpc_tpu_torch.parallel.shard_update import local_chunk
 
 Codec = Callable[[torch.Tensor, CompressionConfig], torch.Tensor]
@@ -167,20 +179,56 @@ def _fused_allreduce_mean(
 
 
 def check_supported(compression: CompressionConfig) -> None:
-    """Raise on a codec setting this slice does not implement."""
+    """Raise on a codec setting the JAX package refuses: an unknown
+    transport, level count, rounding or backend."""
     if compression.transport not in ("simulate", "ring"):
         raise ValueError(
             f"unknown compression transport {compression.transport!r} "
             "(expected 'simulate' or 'ring')"
         )
-    if compression.transport == "ring" and compression.mode != "none":
-        raise NotImplementedError("compression.transport='ring' is not yet ported")
-    if compression.bucket_mb > 0:
-        raise NotImplementedError("compression.bucket_mb > 0 is not yet ported")
     if compression.mode != "none":
         levels_for(compression)
         check_rounding(compression)
     resolve_codec_backend(compression)
+
+
+def _check_ring(compression: CompressionConfig) -> None:
+    """The JAX package's refusals of what the ring cannot do."""
+    if compression.bucket_mb > 0:
+        raise ValueError(
+            "bucket_mb composes only with transport='simulate' — the "
+            "ring's flatten/concat transport is whole-tree by "
+            "construction (one concatenated wire buffer per sync)"
+        )
+    if not (compression.quantize_local and compression.quantize_mean):
+        raise ValueError(
+            "transport='ring' quantizes at both loss points by "
+            "construction (integer wire sums + quantized gather hops); "
+            "quantize_local/quantize_mean=False ablations need "
+            "transport='simulate'"
+        )
+
+
+def _bucket_args(
+    flat: torch.Tensor,
+    buckets: Optional[Sequence[Tuple[int, int]]],
+    key: Optional[int],
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]],
+) -> List[Tuple[torch.Tensor, Optional[int], Optional[tuple]]]:
+    """``(region, key, noise)`` for each bucket's sync: the whole buffer
+    with the step's key for one bucket (``buckets`` None or one region);
+    else each region ``(start, elements)`` of ``flat``, the key with the
+    bucket's index folded in, the region's slice of the noise fields."""
+    if buckets is None or len(buckets) == 1:
+        return [(flat, key, noise)]
+    out = []
+    for b, (start, size) in enumerate(buckets):
+        out.append((
+            flat[start : start + size],
+            None if key is None else philox.fold_in(key, b),
+            None if noise is None else tuple(u[start : start + size] for u in noise),
+        ))
+    return out
 
 
 def _stage_draws(
@@ -221,17 +269,30 @@ def sync_gradients(
     axis_size: int = 1,
     key: Optional[int] = None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    buckets: Optional[Sequence[Tuple[int, int]]] = None,
+    n_elements: Optional[int] = None,
 ) -> torch.Tensor:
     """All-reduce-mean the flat gradient buffer IN PLACE, with the codec's
     loss injected at the configured points; returns ``flat``.
 
     ``key`` (the step's, ``philox.step_key``) drives stochastic rounding;
     ``noise=(local_u, mean_u)`` hands in both stages' U[0,1) fields
-    instead (fp32, ``flat``'s shape)."""
+    instead (fp32, ``flat``'s shape).  ``buckets`` are the regions
+    ``(start, elements)`` synced one by one (``FlatParams.buckets``; None
+    is one).  ``n_elements`` counts the gradients at the buffer's head
+    (the rest is zero padding); the ring chunks those, as the JAX
+    package chunks its tree."""
     check_supported(compression)
     fq = resolve_codec_backend(compression)
-    local, mean = _stage_draws(compression, axis_size, key, noise)
-    return _sync_tree(flat, compression, axis_size, fq, local, mean)
+    if compression.transport == "ring" and compression.mode != "none":
+        _check_ring(compression)
+        local, mean = _stage_draws(compression, axis_size, key, noise)
+        n = flat.numel() if n_elements is None else n_elements
+        return ring_allreduce_mean_(flat, n, compression, axis_size, local, mean)
+    for region, bkey, bnoise in _bucket_args(flat, buckets, key, noise):
+        local, mean = _stage_draws(compression, axis_size, bkey, bnoise)
+        _sync_tree(region, compression, axis_size, fq, local, mean)
+    return flat
 
 
 def _sync_tree(flat, compression, axis_size, fq, local: dict, mean: dict) -> torch.Tensor:
@@ -249,9 +310,15 @@ def _sync_tree(flat, compression, axis_size, fq, local: dict, mean: dict) -> tor
 
 def validate_scatter_compression(compression: CompressionConfig) -> None:
     """Reject codec settings the sharded update cannot reproduce bit for
-    bit, as the JAX package does (``resolve_shard_update``'s ``auto``
-    avoids them; the ring transport is not ported at all)."""
+    bit, in the JAX package's words (``resolve_shard_update``'s ``auto``
+    avoids them)."""
     check_supported(compression)
+    if compression.transport == "ring" and compression.mode != "none":
+        raise ValueError(
+            "sharded update composes only with transport='simulate' — "
+            "transport='ring' owns its own full-tree quantized collective "
+            "(set shard_update='off' to keep the ring)"
+        )
     if (
         compression.mode != "none"
         and compression.quantize_mean
@@ -270,22 +337,27 @@ def sync_gradients_scatter(
     axis_size: int,
     key: Optional[int] = None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> torch.Tensor:
-    """Reduce-scatter-mean the flat gradient buffer (``axis_size · K``
-    elements): returns this replica's chunk of the codec-processed mean,
-    written IN PLACE into its chunk of ``flat`` (the rest of ``flat`` is
-    left holding this replica's pre-sync gradient, or its fake-quantized
-    copy).
+    buckets: Optional[Sequence[Tuple[int, int]]] = None,
+) -> List[torch.Tensor]:
+    """Reduce-scatter-mean the flat gradient buffer: returns this replica's
+    chunks of the codec-processed mean, one a bucket region (``buckets``
+    as in :func:`sync_gradients`; each region ``axis_size · K_b``
+    elements), written IN PLACE into its rows of ``flat`` (the rest of
+    ``flat`` is left holding this replica's pre-sync gradient, or its
+    fake-quantized copy).
 
     Per element it equals :func:`sync_gradients`: the local stage encodes
-    the whole buffer exactly as there, the integer (or fp16) lattice sums
-    are exact in any order, and the mean stage quantizes the chunk against
-    the whole mean's max-abs with the chunk's slice of the mean stage's
-    draw.  ``noise=(local_u, mean_u)`` are full-buffer fields."""
+    each region exactly as there, the integer (or fp16) lattice sums are
+    exact in any order, and the mean stage quantizes the chunk against
+    the region's whole mean's max-abs with the chunk's slice of the mean
+    stage's draw.  ``noise=(local_u, mean_u)`` are full-buffer fields."""
     validate_scatter_compression(compression)
     fq = resolve_codec_backend(compression)
-    local, mean = _stage_draws(compression, axis_size, key, noise)
-    return _scatter_tree(flat, compression, axis_size, fq, local, mean)
+    shards = []
+    for region, bkey, bnoise in _bucket_args(flat, buckets, key, noise):
+        local, mean = _stage_draws(compression, axis_size, bkey, bnoise)
+        shards.append(_scatter_tree(region, compression, axis_size, fq, local, mean))
+    return shards
 
 
 def _scatter_tree(flat, compression, axis_size, fq, local: dict, mean: dict) -> torch.Tensor:

@@ -13,9 +13,10 @@ NCCL when each rank has a card of its own, gloo otherwise (the CPU, or
 several ranks time-sharing one card, which NCCL refuses).
 
 The collectives here are the ones the gradient sync and the train step
-use.  Neither backend sums int16 (NCCL has no such type; gloo raises
-"Invalid scalar type"), so an int16 operand is widened to int32 for the
-collective and narrowed back: exact, because every sum the codec puts on
+use, and the ring transport's point-to-point hop (:func:`ring_shift`).
+Neither backend sums int16 (NCCL has no such type; gloo raises "Invalid
+scalar type"), so an int16 operand is widened to int32 for a collective
+that sums and narrowed back: exact, because every sum the codec puts on
 that wire is bounded by ``world · levels ≤ 32767``.  That moves twice the
 bytes of the JAX package's s16 ``psum``.
 """
@@ -149,6 +150,24 @@ def all_gather_(buf: torch.Tensor) -> torch.Tensor:
     r = replica_index()
     dist.all_gather_into_tensor(buf, buf[r * k : (r + 1) * k])
     return buf
+
+
+def ring_shift(t: torch.Tensor) -> torch.Tensor:
+    """One hop of a unidirectional ring: send ``t`` to rank ``r + 1`` and
+    return what rank ``r − 1`` sent (a new tensor of ``t``'s shape and
+    dtype, on its device).  The send and the receive are posted together,
+    so no order of ranks can deadlock.  The bytes sent are ``t``'s own, in
+    its dtype; gloo moves a card's tensor through a host copy (its
+    point-to-point ops take CPU tensors)."""
+    world, rank = data_size(), replica_index()
+    host = t.is_cuda and dist.get_backend() == "gloo"
+    send = t.cpu() if host else t.contiguous()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, (rank + 1) % world),
+           dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(t.device) if host else recv
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:

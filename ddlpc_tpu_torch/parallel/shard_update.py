@@ -1,24 +1,29 @@
-"""ZeRO-2: the weight update sharded across replicas — the port's copy of
-the parts of ``ddlpc_tpu/parallel/shard_update.py`` its train step runs.
+"""ZeRO-1/2/3: the weight update sharded across replicas — the port's copy
+of the parts of ``ddlpc_tpu/parallel/shard_update.py`` its train step runs.
 
-Under ``zero2`` the gradient sync is a reduce-scatter: replica ``r`` gets
-only its chunk of the mean gradient, runs Adam on that chunk of the params
-with moments of the chunk's size, and one all-gather publishes the params.
+- ``zero1``: the moments persist as chunks.  The gradient sync stays the
+  full all-reduce (every codec and transport, the ring included); each
+  replica updates its chunk of the params and one all-gather publishes
+  them.
+- ``zero2``: the gradient sync is a reduce-scatter, so replica ``r`` gets
+  only its chunk of the mean; the update and the publish as zero1.
+- ``zero3``: the params persist as chunks too.  The step all-gathers them
+  into a temporary full buffer for the forward and backward, and the
+  fresh chunks are not gathered at its end.
 
 Chunk layout.  The JAX package chunks each leaf (``chunk_leaf``: flatten,
-zero-pad to a multiple of N, view as ``[N, K]``).  The port chunks its ONE
-flat buffer (``train_step.FlatParams``) the same way.  Per element the two
-are the same arithmetic (an exact integer sum on the narrow wire, one
-multiply by a scalar, a max over the whole model, elementwise Adam); only
-which replica owns which element differs.  ``FlatParams`` allocates its
-buffers at ``N·K`` elements with K rounded up to a multiple of 32
-(:func:`flat_chunk_rows`), so every chunk starts 128-byte aligned (the
-codec kernels' vector loads need 16) and the collectives read and write
-the buffers with no copy.  The zero tail stays zero: its max-abs is 0,
-its lattice point is 0 under either rounding, and Adam's update of a zero
-gradient from zero moments is 0.
-
-``zero1`` and ``zero3`` are not ported and raise.
+zero-pad to a multiple of N, view as ``[N, K]``).  The port chunks each
+region of its flat buffer (``train_step.FlatParams``: the whole buffer, or
+one region a gradient bucket) the same way.  Per element the two are the
+same arithmetic (an exact integer sum on the narrow wire, one multiply by
+a scalar, a max over the bucket, an elementwise update); only which
+replica owns which element differs.  A region holds ``N·K`` elements with
+K rounded up to a multiple of 32 (:func:`flat_chunk_rows`), so every
+chunk starts 128-byte aligned (the codec kernels' vector loads need 16)
+and the collectives read and write the buffers with no copy.  The zero
+tail stays zero: its max-abs is 0, its lattice point is 0 under either
+rounding, and every optimizer's update of a zero gradient from zero
+state at a zero param is 0.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 from ddlpc_tpu_torch.config import CompressionConfig
 
 CHUNK_LAYOUTS = ("zero1", "zero2", "zero3")
-PORTED_LEVELS = ("off", "zero2")
+PORTED_LEVELS = ("off",) + CHUNK_LAYOUTS
 _ALIGN_ELEMENTS = 32  # 128 bytes of fp32
 
 
@@ -48,9 +53,10 @@ def normalize_shard_update(value) -> str:
 
 
 def check_ported(level: str) -> None:
+    """Raise on a level that is not one of the four."""
     if level not in PORTED_LEVELS:
-        raise NotImplementedError(
-            f"shard_update level {level!r} is not yet ported (off and zero2 are)"
+        raise ValueError(
+            f"unknown shard_update level {level!r} (expected off|zero1|zero2|zero3)"
         )
 
 
@@ -66,6 +72,39 @@ def flat_chunk_rows(n_elements: int, n_shards: int) -> int:
         return n_elements
     k = chunk_rows(n_elements, n_shards)
     return -(-k // _ALIGN_ELEMENTS) * _ALIGN_ELEMENTS
+
+
+def region_rows(n_elements: int, n_shards: int, aligned: bool) -> int:
+    """K of one region of the flat buffers: :func:`flat_chunk_rows`, or,
+    where the buffer holds several regions (gradient buckets), always a
+    multiple of 32 elements, so that every region starts 128-byte aligned
+    on one replica too."""
+    if not aligned:
+        return flat_chunk_rows(n_elements, n_shards)
+    return -(-chunk_rows(n_elements, n_shards) // _ALIGN_ELEMENTS) * _ALIGN_ELEMENTS
+
+
+def flat_layout(sizes, n_shards: int, bucket_mb: float = 0.0):
+    """The flat buffers' layout for leaves of ``sizes`` elements (fp32, in
+    flatten order): ``(offsets, regions, total)``, each leaf's offset, each
+    gradient bucket's region ``(start, leaf elements, rows)`` — its leaves
+    contiguous from ``start``, then a zero tail up to ``n_shards · rows``
+    elements — and the buffers' length."""
+    from ddlpc_tpu_torch.parallel.bucketing import bucket_index_groups
+
+    groups = bucket_index_groups([4 * n for n in sizes], bucket_mb)
+    offsets = [0] * len(sizes)
+    regions = []
+    start = 0
+    for idxs in groups:
+        o = start
+        for i in idxs:
+            offsets[i] = o
+            o += sizes[i]
+        rows = region_rows(o - start, n_shards, aligned=len(groups) > 1)
+        regions.append((start, o - start, rows))
+        start += n_shards * rows
+    return offsets, regions, start
 
 
 def local_chunk(buf: torch.Tensor, n_shards: int, index: int) -> torch.Tensor:

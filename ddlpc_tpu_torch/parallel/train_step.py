@@ -2,18 +2,32 @@
 
 One optimizer step, as in the reference: ``A = sync_period`` micro-batches
 of forward/backward accumulate fp32 gradients, the mean gradient goes
-through the codec's sync, and Adam updates the params.  BatchNorm running
-statistics advance once per micro-batch.
+through the codec's sync, and the optimizer (``train/optim.py``) updates
+the params.  BatchNorm running statistics advance once per micro-batch.
+``remat`` recomputes each micro-batch's forward in its backward instead of
+keeping its activations (``torch.utils.checkpoint``, the JAX step's
+``jax.checkpoint``); the recompute does not advance the running
+statistics again (``layers.recomputing``), so the step is the remat-off
+step bit for bit.
 
 Data parallel over ``axis_size`` processes (``parallel/mesh.py``), each
-one replica with its own columns of the batch, at one of two ZeRO levels
+one replica with its own columns of the batch, at one of four ZeRO levels
 (``shard_update.resolve_shard_update``):
 
 - ``off``: ``grad_sync.sync_gradients`` all-reduces the mean, and every
-  replica runs the same Adam update on the whole model;
-- ``zero2``: ``grad_sync.sync_gradients_scatter`` leaves each replica its
-  chunk of the mean, Adam runs on that chunk with moments of the chunk's
-  size, and one all-gather publishes the params.
+  replica runs the same update on the whole model;
+- ``zero1``: the same all-reduce (every transport, the ring included),
+  then each replica updates its chunks of the params with moments of the
+  chunks' size, and one all-gather publishes the params;
+- ``zero2``: ``grad_sync.sync_gradients_scatter`` leaves each replica
+  only its chunks of the mean; the update and the all-gather as zero1;
+- ``zero3``: the params persist as this replica's chunks only
+  (``TrainState.owned``).  The step starts by all-gathering them into the
+  flat buffer the model's parameters view, and frees that buffer once
+  the update has run on the chunks; nothing is published at the end.
+
+Every level gives the same params bit for bit: the update is elementwise
+and sees the same mean gradient, element for element.
 
 After the micro-batches the BatchNorm running statistics are averaged over
 the replicas (as the JAX step's ``pmean`` does, equal or not), and the
@@ -22,12 +36,14 @@ logged loss and accuracy are the replicas' mean.
 PyTorch idiom instead of JAX's pure functions: the state is updated in
 place.  Every parameter is a view into one flat fp32 buffer
 (:class:`FlatParams`), and every ``.grad`` a view into a second one, so
-backward accumulates straight into the buffer the codec kernels and Adam
-each sweep in one launch — no per-leaf loop, no gather.
+backward accumulates straight into the buffer the codec kernels and the
+optimizer sweep — no per-leaf loop, no gather.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -35,58 +51,65 @@ import torch
 from torch import nn
 
 from ddlpc_tpu_torch.config import CompressionConfig
-from ddlpc_tpu_torch.models.layers import group_labels
+from ddlpc_tpu_torch.convert import flax_param_path
+from ddlpc_tpu_torch.models.layers import group_labels, recomputing
 from ddlpc_tpu_torch.ops.losses import nll_correct_valid, softmax_cross_entropy_sum
 from ddlpc_tpu_torch.ops.metrics import confusion_from_logits
 from ddlpc_tpu_torch.ops.philox import step_key
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import (
+    check_supported,
     sync_gradients,
     sync_gradients_scatter,
     validate_scatter_compression,
 )
 from ddlpc_tpu_torch.parallel.shard_update import (
+    CHUNK_LAYOUTS,
     check_ported,
-    flat_chunk_rows,
-    local_chunk,
+    flat_layout,
     normalize_shard_update,
 )
-from ddlpc_tpu_torch.train.optim import Adam, AdamState
+from ddlpc_tpu_torch.train.optim import OptState, Optimizer
 
 
 class FlatParams:
     """Re-homes every parameter of ``module`` into one contiguous fp32
     buffer (``data``) and points every ``.grad`` at a view of a second one
-    (``grad``), both on the module's device.  Offsets follow
-    ``named_parameters()`` order; ``views(buf)`` cuts any flat buffer of the
-    same layout (the Adam moments) into per-parameter views.
+    (``grad``), both on the module's device.  The leaves lie in the JAX
+    package's flatten order (their flax paths sorted,
+    ``convert.flax_param_path``); ``views(buf)`` cuts any flat buffer of
+    the same layout into per-parameter views.
 
-    For ``n_shards`` replicas the buffers hold ``n_shards · shard``
-    elements, ``shard`` being ``shard_update.flat_chunk_rows``: the
-    ``numel`` parameters, then a zero tail that no view covers."""
+    The buffers are cut into regions, one a gradient bucket
+    (``bucketing.py``, ``bucket_mb``; one region without buckets): region
+    ``b`` holds its leaves, contiguous, then a zero tail up to
+    ``n_shards · rows_b`` elements (``shard_update.region_rows``), and its
+    row ``r`` (``rows_b`` elements, 128-byte aligned) is replica ``r``'s
+    chunk of it.  A replica's chunks of all regions are what it owns under
+    the chunked ZeRO levels (``owned``), ``shard`` elements in all."""
 
-    def __init__(self, module: nn.Module, n_shards: int = 1):
-        params = list(module.named_parameters())
-        if not params:
+    def __init__(self, module: nn.Module, n_shards: int = 1, bucket_mb: float = 0.0):
+        named = dict(module.named_parameters())
+        if not named:
             raise ValueError("module has no parameters")
-        device = params[0][1].device
-        for name, p in params:
+        device = next(iter(named.values())).device
+        for name, p in named.items():
             if p.dtype != torch.float32 or p.device != device:
                 raise ValueError(f"parameter {name} must be float32 on {device}")
-        self.names: List[str] = [n for n, _ in params]
-        self.shapes = [tuple(p.shape) for _, p in params]
-        self.offsets = []
-        n = 0
-        for _, p in params:
-            self.offsets.append(n)
-            n += p.numel()
-        self.numel = n
+        self.names: List[str] = sorted(named, key=lambda n: flax_param_path(n, named[n].dim()))
+        params = [named[n] for n in self.names]
+        self.shapes = [tuple(p.shape) for p in params]
+        sizes = [p.numel() for p in params]
+        # regions: (start, leaf elements, rows) of each bucket.
+        self.offsets, self.regions, start = flat_layout(sizes, n_shards, bucket_mb)
+        self.numel = sum(sizes)
         self.n_shards = n_shards
-        self.shard = flat_chunk_rows(n, n_shards)
-        self.data = torch.zeros(n_shards * self.shard, dtype=torch.float32, device=device)
+        self.shard = sum(rows for _, _, rows in self.regions)
+        self.data = torch.zeros(start, dtype=torch.float32, device=device)
         self.grad = torch.zeros_like(self.data)
+        self.resident = True
         with torch.no_grad():
-            for (_, p), view, gview in zip(params, self.views(self.data), self.views(self.grad)):
+            for p, view, gview in zip(params, self.views(self.data), self.views(self.grad)):
                 view.copy_(p)
                 p.data = view
                 p.grad = gview
@@ -99,9 +122,51 @@ class FlatParams:
     def named_views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
         return dict(zip(self.names, self.views(buf)))
 
-    def local(self, buf: torch.Tensor, index: int) -> torch.Tensor:
-        """Replica ``index``'s chunk of a buffer of this layout, a view."""
-        return local_chunk(buf, self.n_shards, index)
+    def segments(self) -> List[Tuple[int, int]]:
+        """``(offset, numel)`` of each leaf, in flatten order."""
+        return [(o, _numel(s)) for o, s in zip(self.offsets, self.shapes)]
+
+    def buckets(self) -> List[Tuple[int, int]]:
+        """``(start, elements)`` of each region of the buffers."""
+        return [(start, self.n_shards * rows) for start, _, rows in self.regions]
+
+    def owned(self, buf: torch.Tensor, index: int) -> List[torch.Tensor]:
+        """Replica ``index``'s chunks of a buffer of this layout: row
+        ``index`` of each region, views."""
+        return [buf[start + index * rows : start + (index + 1) * rows]
+                for start, _, rows in self.regions]
+
+    def split_owned(self, owned: torch.Tensor) -> List[torch.Tensor]:
+        """A replica's ``shard`` owned elements, cut into its chunks."""
+        return list(owned.split([rows for _, _, rows in self.regions]))
+
+    def gather_owned(self, buf: torch.Tensor, index: int) -> torch.Tensor:
+        """A copy of replica ``index``'s chunks, concatenated."""
+        return torch.cat(self.owned(buf, index))
+
+    def put_owned(self, owned: torch.Tensor, buf: torch.Tensor, index: int) -> None:
+        """Write replica ``index``'s concatenated chunks into ``buf``."""
+        for dst, src in zip(self.owned(buf, index), self.split_owned(owned)):
+            dst.copy_(src)
+
+    def all_gather_(self, buf: torch.Tensor) -> torch.Tensor:
+        """Fill every region of ``buf`` with every replica's chunk, one
+        all-gather a region (each replica's own chunk in place)."""
+        for start, size in self.buckets():
+            mesh.all_gather_(buf[start : start + size])
+        return buf
+
+    def release(self) -> None:
+        """Free the param buffer's memory; the parameters' views keep their
+        storage, which :meth:`materialize` allocates again (uninitialised)."""
+        if self.resident:
+            self.data.untyped_storage().resize_(0)
+            self.resident = False
+
+    def materialize(self) -> None:
+        if not self.resident:
+            self.data.untyped_storage().resize_(self.data.numel() * self.data.element_size())
+            self.resident = True
 
 
 def _numel(shape) -> int:
@@ -114,27 +179,67 @@ def _numel(shape) -> int:
 @dataclass
 class TrainState:
     """The model (params + BatchNorm statistics), its flat buffers, the
-    Adam state (over the whole buffer under ``off``, over this replica's
-    chunk under ``zero2``) and the optimizer step count."""
+    optimizer state (over the whole buffer under ``off``, over this
+    replica's chunks under the chunked levels), the step count, the ZeRO
+    ``level``, the nesting of optax's state for the optimizer
+    (``Optimizer.layout``, what a checkpoint writes) and, under ``zero3``,
+    ``owned``: this replica's chunks of the params, their only persistent
+    copy."""
 
     model: nn.Module
     params: FlatParams
-    opt_state: AdamState
+    opt_state: OptState
     step: int = 0
+    level: str = "off"
+    layout: tuple = ("adam", "empty")
+    owned: Optional[torch.Tensor] = None
+
+    def owned_params(self) -> List[torch.Tensor]:
+        """This replica's chunks of the params the update writes."""
+        if self.owned is not None:
+            return self.params.split_owned(self.owned)
+        return self.params.owned(self.params.data, mesh.replica_index())
+
+    def gather_params(self) -> None:
+        """Under zero3, make the param buffer resident and all-gather the
+        replicas' chunks into it (every replica must call it); a no-op
+        where the buffer is resident, which it stays until the next
+        update."""
+        flat = self.params
+        if self.owned is None or flat.resident:
+            return
+        flat.materialize()
+        flat.put_owned(self.owned, flat.data, mesh.replica_index())
+        flat.all_gather_(flat.data)
+
+    def release_params(self) -> None:
+        """Under zero3, free the param buffer (its chunks stay owned)."""
+        if self.owned is not None:
+            self.params.release()
 
 
 def create_train_state(
-    model: nn.Module, tx: Adam, axis_size: int = 1, level: str = "off"
+    model: nn.Module, tx: Optimizer, axis_size: int = 1, level: str = "off",
+    bucket_mb: float = 0.0,
 ) -> TrainState:
     """Flatten an initialized model (already on its device, the same
     weights on every replica) into a state for ``axis_size`` replicas at
-    ZeRO ``level``."""
+    ZeRO ``level`` (one replica is ``off``), its buffers cut into the
+    gradient buckets of ``bucket_mb``."""
+    level = normalize_shard_update(level)
     check_ported(level)
-    flat = FlatParams(model, n_shards=axis_size)
-    owned = flat.data
-    if level == "zero2":
-        owned = flat.local(flat.data, mesh.replica_index())
-    return TrainState(model=model, params=flat, opt_state=tx.init(owned))
+    if axis_size == 1:
+        level = "off"
+    flat = FlatParams(model, n_shards=axis_size, bucket_mb=bucket_mb)
+    state = TrainState(model=model, params=flat, opt_state=None, level=level,
+                       layout=tx.layout())
+    if level in CHUNK_LAYOUTS:
+        if level == "zero3":
+            state.owned = flat.gather_owned(flat.data, mesh.replica_index())
+        state.opt_state = tx.init(state.owned_params())
+    else:
+        state.opt_state = tx.init(flat.data)
+    return state
 
 
 def loss_from_logits(
@@ -177,18 +282,30 @@ def loss_from_logits(
 
 
 def _accumulate_grads(
-    state: TrainState, images: torch.Tensor, labels: torch.Tensor
+    state: TrainState, images: torch.Tensor, labels: torch.Tensor, remat: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward/backward over the ``A`` micro-batches of ``images [A,B,H,W,C]``,
     leaving the MEAN fp32 gradient in ``state.params.grad``.  Returns the
-    per-micro-batch losses and accuracies ``[A]`` (on the device)."""
+    per-micro-batch losses and accuracies ``[A]`` (on the device).
+    ``remat`` keeps no activation between a micro-batch's forward and its
+    backward, which recomputes the forward (under ``layers.recomputing``)."""
     model = state.model
     model.train()
     layout = getattr(model, "train_head_layout", "fullres")
+    forward = model
+    if remat:
+        # Imported here: torch.utils.checkpoint loads torch._dynamo, whose
+        # threads a run without remat has no use for.
+        from torch.utils.checkpoint import checkpoint
+
+        forward = functools.partial(
+            checkpoint, model, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), recomputing()),
+        )
     state.params.grad.zero_()
     losses, accs = [], []
     for x, y in zip(images, labels):
-        loss, acc = loss_from_logits(model(x), y, layout)
+        loss, acc = loss_from_logits(forward(x), y, layout)
         loss.backward()
         losses.append(loss.detach())
         accs.append(acc.detach())
@@ -229,44 +346,67 @@ def mean_batch_stats(model: nn.Module, axis_size: int) -> None:
 
 
 def make_train_step(
-    tx: Adam,
+    tx: Optimizer,
     compression: CompressionConfig,
     axis_size: int = 1,
     seed: int = 0,
     level: str = "off",
+    remat: bool = False,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """The train step: ``step(state, images [A,B,H,W,C], labels [A,B,H,W])``
     (``B`` this replica's micro-batch) updates ``state`` in place and
     returns ``{loss, pixel_acc, grad_norm}`` as device scalars (averaged
     over the A micro-batches and the replicas).  ``seed`` (``train.seed``)
     keys stochastic rounding together with ``state.step``.  ``level`` is
-    the ZeRO level (``off`` or ``zero2``, or the historical bool; one
-    replica runs ``off``)."""
+    the ZeRO level (or the historical bool; one replica runs ``off``), the
+    state's own.  ``remat`` is ``train.remat``."""
     level = normalize_shard_update(level)
     check_ported(level)
     if axis_size == 1:
         level = "off"
-    if level == "zero2":
+    if level in ("zero2", "zero3"):
         validate_scatter_compression(compression)
+    else:
+        check_supported(compression)
+    if tx.grad_clip_norm and level != "off":
+        raise ValueError(
+            f"shard_update={level!r} cannot compose with grad_clip_norm > 0 — a "
+            "clip by global norm inside the update would clip each replica's 1/N "
+            "shard by its own partial norm, not the global norm; disable clipping"
+        )
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
-        losses, accs = _accumulate_grads(state, images, labels)
+        if state.level != level:
+            raise ValueError(f"a {state.level} state given to a {level} step")
+        state.gather_params()
+        losses, accs = _accumulate_grads(state, images, labels, remat)
         mean_batch_stats(state.model, axis_size)
         flat = state.params
         key = _rounding_rng(compression, seed, state.step)
-        if level == "zero2":
-            grads = sync_gradients_scatter(flat.grad, compression, axis_size, key=key)
-            tx.update(grads, state.opt_state, flat.local(flat.data, mesh.replica_index()))
-            mesh.all_gather_(flat.data)
-            sq = torch.linalg.vector_norm(grads).square()
+        buckets = flat.buckets()
+        sq = None
+        if level in ("zero2", "zero3"):
+            grads = sync_gradients_scatter(flat.grad, compression, axis_size, key=key,
+                                           buckets=buckets)
+            tx.update(grads, state.opt_state, state.owned_params())
+            if level == "zero2":
+                flat.all_gather_(flat.data)
+            else:
+                state.release_params()
+            sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
         else:
-            sync_gradients(flat.grad, compression, axis_size=axis_size, key=key)
-            tx.update(flat.grad, state.opt_state, flat.data)
-            sq = None
+            sync_gradients(flat.grad, compression, axis_size=axis_size, key=key,
+                           buckets=buckets, n_elements=flat.numel)
+            if level == "zero1":
+                index = mesh.replica_index()
+                tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())
+                flat.all_gather_(flat.data)
+            else:
+                tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
         state.step += 1
         # One reduce for the logged metrics: the replicas' summed loss and
-        # accuracy (then their mean) and, under zero2, the chunks' squared
-        # norms (then the root of their sum).
+        # accuracy (then their mean) and, under zero2/zero3, the chunks'
+        # squared norms (then the root of their sum).
         metrics = torch.stack([losses.mean(), accs.mean()] + ([] if sq is None else [sq]))
         if axis_size > 1:
             mesh.all_reduce_(metrics)
@@ -291,6 +431,7 @@ def make_eval_step(
 
     @torch.no_grad()
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+        state.gather_params()
         state.model.eval()
         logits = state.model(images)
         nll_sum, count = softmax_cross_entropy_sum(logits, labels, ignore_index=-1)

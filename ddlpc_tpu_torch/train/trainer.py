@@ -22,8 +22,9 @@ Data parallel across processes: the world that ``RANK``/``WORLD_SIZE``/
 ``LOCAL_RANK`` describe (``torchrun``) is joined before the model is
 built, one replica per process.  ``train.micro_batch_size`` is per
 replica, so the global micro-batch is that times the world size, as in the
-JAX trainer; ``parallel.shard_update`` resolves to ``off`` or ``zero2`` as
-it does there.
+JAX trainer; ``parallel.shard_update`` resolves to ``off``, ``zero1``,
+``zero2`` or ``zero3`` as it does there, and every codec transport,
+gradient bucket size, optimizer, schedule and ``train.remat`` runs.
 
 The loader is the JAX trainer's choice: ``data.device_cache`` uploads the
 split once and gathers on the device, else the host path prefetches
@@ -97,7 +98,6 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
         ("train.profile_epoch", t.profile_epoch >= 0, -1),
         ("train.trace", t.trace, False),
         ("train.telemetry_port", t.telemetry_port >= 0, -1),
-        ("train.remat", t.remat, False),
         ("data.compact_upload", d.compact_upload, False),
         ("data.augment", d.augment, False),
         ("data.lazy_tiles", d.lazy_tiles, False),
@@ -249,9 +249,14 @@ class Trainer:
         self.train_ds, self.test_ds = build_dataset(cfg.data)
         channels = self.train_ds.image_shape[-1]
         model = build_model_from_experiment(cfg, channels, self.world)
-        self.tx = build_optimizer(cfg.train)
+        # The schedule's horizon: the run's optimizer steps, as the JAX
+        # trainer passes it (the loader's steps an epoch; on a resume too).
+        super_batch = cfg.train.micro_batch_size * cfg.train.sync_period * self.world
+        steps_per_epoch = -(-len(self.train_ds) // super_batch)
+        self.tx = build_optimizer(cfg.train, total_steps=cfg.train.epochs * steps_per_epoch)
         self.state = create_train_state(
-            model.to(self.device), self.tx, self.world, self.shard_update
+            model.to(self.device), self.tx, self.world, self.shard_update,
+            bucket_mb=cfg.compression.bucket_mb,
         )
         loader_kw = dict(
             micro_batch=cfg.train.micro_batch_size,
@@ -268,9 +273,11 @@ class Trainer:
             self.loader = ShardedLoader(
                 self.train_ds, native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
             )
+        if len(self.loader) != steps_per_epoch:
+            raise RuntimeError(f"the loader takes {len(self.loader)} steps an epoch, not {steps_per_epoch}")
         self.train_step = make_train_step(
             self.tx, cfg.compression, self.world, seed=cfg.train.seed,
-            level=self.shard_update,
+            level=self.shard_update, remat=cfg.train.remat,
         )
         self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
         self.perf: Optional[obs_flops.PerfAccountant] = None
@@ -333,11 +340,12 @@ class Trainer:
             restart_gap_s=obs_flops.restart_gap_seconds(cfg.workdir),
         )
         obs_hbm.publish_hbm_gauges(self.registry, self.state, self.shard_update)
-        variant = "scatter" if self.shard_update == "zero2" else "allreduce"
+        variant = obs_comm.step_variant(cfg.compression, self.shard_update)
         flat = self.state.params
         self.comm = obs_comm.CommAccountant(
             self.registry,
-            obs_comm.comm_plan(flat.numel, flat.data.numel(), cfg.compression, self.world, variant),
+            obs_comm.comm_plan(flat.numel, flat.data.numel(), cfg.compression, self.world,
+                               variant, n_buckets=len(flat.regions), level=self.shard_update),
             variant,
         )
 
@@ -564,6 +572,7 @@ class Trainer:
         """The prediction, label and image PNGs of the first
         ``train.dump_images_per_epoch`` test tiles (rank 0)."""
         n = min(self.cfg.train.dump_images_per_epoch, len(self.test_ds))
+        self.state.gather_params()  # zero3: every replica joins
         if n <= 0 or self.rank != 0:
             return
         images = self.test_ds.images[:n]

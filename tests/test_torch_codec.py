@@ -254,8 +254,8 @@ def test_wrappers_raise_on_unsupported_input():
         cq.encode_to_wire(x.to("meta"), torch.ones(1, device="meta"), f16, torch.float16)
     with pytest.raises(ValueError, match="stochastic"):
         tsync.sync_gradients(x.clone(), sto)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tsync.sync_gradients(x.clone(), CompressionConfig(mode="int8", transport="ring"))
+    with pytest.raises(ValueError, match="bucket_mb composes only with transport='simulate'"):
+        tsync.sync_gradients(x.clone(), CompressionConfig(mode="int8", transport="ring", bucket_mb=1.0))
     with pytest.raises(ValueError, match="codec_backend"):
         tsync.sync_gradients(x.clone(), CompressionConfig(mode="int8", codec_backend="cuda"))
     # The CPU path launches nothing: no kernel count moves.

@@ -211,9 +211,10 @@ def test_flagship_v5e8_and_its_stochastic_arm_resolve_as_in_jax():
     assert tzero.resolve_shard_update("auto", fp16, 4, False) == "zero2"
     assert tzero.resolve_shard_update("auto", sr, 2, False) == "off"
     assert tzero.resolve_shard_update("auto", fp16, 1, False) == "off"
-    for level in ("zero1", "zero3"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tzero.check_ported(level)
+    for level in ("off", "zero1", "zero2", "zero3"):
+        tzero.check_ported(level)
+    with pytest.raises(ValueError, match="unknown shard_update level"):
+        tzero.check_ported("zero4")
     assert tzero.normalize_shard_update(True) == jzero.normalize_shard_update(True)
 
 

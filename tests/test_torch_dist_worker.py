@@ -11,15 +11,19 @@ the rank joins the world through ``file://<dir>/rendezvous``, reads
 Tasks:
 
 - ``sync``: each case of ``task.json`` syncs this rank's gradient
-  ``g<rank>`` (zero-padded to the flat layout) with ``sync_gradients``
-  (``shard_update='off'``) or ``sync_gradients_scatter`` (``zero2``, the
-  chunks then all-gathered), optionally with given noise fields, and
-  stores the synced buffer's first n elements;
+  ``g<rank>`` (laid out flat: one leaf, or the leaves of ``sizes`` in the
+  regions of the case's ``bucket_mb``, zero-padded) with
+  ``sync_gradients`` (``shard_update='off'``, or the ring) or
+  ``sync_gradients_scatter`` (the chunks then all-gathered), optionally
+  with given noise fields or, once each, with the stochastic keys of
+  ``keys``, and stores the synced leaves and, apart, the padding;
 - ``step``: the tiny U-Net from the canonical weights in ``in.npz``
-  trains ``steps`` optimizer steps on this rank's columns of the global
-  batches, recording the flat gradient before each sync, the metrics,
+  trains one optimizer step a batch of ``images`` (the first ``steps``)
+  on this rank's columns,
+  at the task's ZeRO level, codec, optimizer settings (``train``) and
+  ``remat``, recording the flat gradient before each sync, the metrics,
   and at the end the params, the BatchNorm statistics and the gathered
-  Adam moments;
+  optimizer moments;
 - ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
 - ``ckpt``: a Trainer from the CLI's arguments trains and checkpoints,
   then a fresh Trainer on the same workdir resumes; stores the canonical
@@ -41,7 +45,7 @@ from ddlpc_tpu_torch.convert import gather_canonical, load_canonical
 from ddlpc_tpu_torch.models import build_model
 from ddlpc_tpu_torch.parallel import grad_sync, mesh
 from ddlpc_tpu_torch.parallel import train_step as ts
-from ddlpc_tpu_torch.parallel.shard_update import flat_chunk_rows
+from ddlpc_tpu_torch.parallel.shard_update import flat_layout
 from ddlpc_tpu_torch.train.optim import build_optimizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,59 +57,90 @@ def _sync(task: dict, inputs, rank: int, world: int) -> dict:
         cfg = CompressionConfig(**case["cfg"])
         g = inputs[f"{case['tree']}/g{rank}"]
         n = g.size
-        k = flat_chunk_rows(n, world)
+        sizes = case.get("sizes", [n])
+        offsets, regions, total = flat_layout(sizes, world, cfg.bucket_mb)
+        covered = torch.zeros(total, dtype=torch.bool)
+        for o, size in zip(offsets, sizes):
+            covered[o : o + size] = True
 
         def padded(a: np.ndarray) -> torch.Tensor:
-            t = torch.zeros(world * k, dtype=torch.float32)
-            t[:n] = torch.from_numpy(a)
+            t = torch.zeros(total, dtype=torch.float32)
+            t[covered] = torch.from_numpy(a)
             return t
 
-        flat = padded(g)
-        noise = None
-        if case["noise"]:
-            noise = (padded(inputs[f"{case['tree']}/local{rank}"]), padded(inputs[f"{case['tree']}/mean"]))
-        if case["scatter"]:
-            shard = grad_sync.sync_gradients_scatter(flat, cfg, world, noise=noise)
-            out[f"{i}/shard"] = shard.numpy().copy()
-            mesh.all_gather_(flat)
-        else:
-            grad_sync.sync_gradients(flat, cfg, axis_size=world, noise=noise)
-        out[f"{i}/mean"] = flat[:n].numpy().copy()
-        out[f"{i}/tail"] = flat[n:].numpy().copy()
+        buckets = [(start, world * rows) for start, _, rows in regions]
+        for d, step in enumerate(case.get("keys", [None])):
+            flat = padded(g)
+            noise = None
+            if case["noise"]:
+                noise = (padded(inputs[f"{case['tree']}/local{rank}"]),
+                         padded(inputs[f"{case['tree']}/mean"]))
+            tag = f"{i}" if step is None else f"{i}/{d}"
+            if case["scatter"]:
+                shards = grad_sync.sync_gradients_scatter(flat, cfg, world, noise=noise,
+                                                          buckets=buckets)
+                out[f"{tag}/shard"] = torch.cat(shards).numpy().copy()
+                for start, size in buckets:
+                    mesh.all_gather_(flat[start : start + size])
+            else:
+                grad_sync.sync_gradients(flat, cfg, axis_size=world, noise=noise, key=step,
+                                         buckets=buckets, n_elements=n)
+            out[f"{tag}/mean"] = flat[covered].numpy().copy()
+            out[f"{tag}/tail"] = flat[~covered].numpy().copy()
     return out
 
 
 def _step(task: dict, inputs, rank: int, world: int) -> dict:
+    """One run, or each of ``task["runs"]`` (overrides of the task) in turn,
+    its outputs under ``"<i>:"``."""
+    if "runs" not in task:
+        return _step_run(task, inputs, rank, world)
+    out = {}
+    for i, run in enumerate(task["runs"]):
+        got = _step_run({**task, **run}, inputs, rank, world)
+        out.update({f"{i}:{k}": v for k, v in got.items()})
+    return out
+
+
+def _step_run(task: dict, inputs, rank: int, world: int) -> dict:
     model = build_model(ModelConfig(**task["model"]), norm_axis_size=world)
-    tx = build_optimizer(TrainConfig(learning_rate=task["lr"]))
-    state = ts.create_train_state(model, tx, world, task["level"])
-    load_canonical(state, {k[3:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("sd/")})
+    tx = build_optimizer(TrainConfig(learning_rate=task["lr"], **task.get("train", {})),
+                         total_steps=len(inputs["images"]))
     compression = CompressionConfig(**task["compression"])
+    state = ts.create_train_state(model, tx, world, task["level"], bucket_mb=compression.bucket_mb)
+    load_canonical(state, {k[3:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("sd/")})
     pre_sync = []
     real_scatter, real_sync = ts.sync_gradients_scatter, ts.sync_gradients
 
     def record(real):
         def wrapped(flat, *a, **kw):
-            pre_sync.append(flat[: state.params.numel].clone().numpy())
+            pre_sync.append(torch.cat([v.reshape(-1) for v in state.params.views(flat)]).numpy())
             return real(flat, *a, **kw)
         return wrapped
 
     ts.sync_gradients_scatter, ts.sync_gradients = record(real_scatter), record(real_sync)
-    step = ts.make_train_step(tx, compression, world, level=task["level"])
-    bl = task["local_batch"]
-    out = {}
-    for s, (x, y) in enumerate(zip(inputs["images"], inputs["labels"])):
-        cols = slice(rank * bl, (rank + 1) * bl)
-        m = step(state, torch.from_numpy(x[:, cols].copy()), torch.from_numpy(y[:, cols].astype(np.int64)))
-        for key, v in m.items():
-            out[f"{key}{s}"] = np.float32(v)
-        out[f"grad{s}"] = pre_sync[-1]
-    sd, adam = gather_canonical(state)
+    try:
+        step = ts.make_train_step(tx, compression, world, level=task["level"],
+                                  remat=task.get("remat", False))
+        bl = task["local_batch"]
+        out = {}
+        batches = list(zip(inputs["images"], inputs["labels"]))[: task.get("steps")]
+        for s, (x, y) in enumerate(batches):
+            cols = slice(rank * bl, (rank + 1) * bl)
+            m = step(state, torch.from_numpy(x[:, cols].copy()), torch.from_numpy(y[:, cols].astype(np.int64)))
+            for key, v in m.items():
+                out[f"{key}{s}"] = np.float32(v)
+            out[f"grad{s}"] = pre_sync[-1]
+    finally:
+        ts.sync_gradients_scatter, ts.sync_gradients = real_scatter, real_sync
+    out["resident"] = np.array(state.params.resident)
+    sd, opt = gather_canonical(state)
     for name, v in sd.items():
         out[f"sd/{name}"] = v.numpy()
-    for key in ("mu", "nu"):
-        for name, v in adam[key].items():
+    for key in state.opt_state.buffers():
+        for name, v in opt[key].items():
             out[f"{key}/{name}"] = v.numpy()
+    out["count"] = np.array(opt["count"])
     out["flat"] = state.params.data.numpy().copy()
     return out
 
@@ -118,11 +153,11 @@ def _cli(task: dict, inputs, rank: int, world: int) -> dict:
 
 
 def _canonical(trainer, prefix: str) -> dict:
-    sd, adam = gather_canonical(trainer.state)
+    sd, opt = gather_canonical(trainer.state)
     out = {f"{prefix}/sd/{k}": v.numpy().copy() for k, v in sd.items()}
-    for key in ("mu", "nu"):
-        out.update({f"{prefix}/{key}/{k}": v.numpy().copy() for k, v in adam[key].items()})
-    out[f"{prefix}/count"] = np.array(adam["count"])
+    for key in trainer.state.opt_state.buffers():
+        out.update({f"{prefix}/{key}/{k}": v.numpy().copy() for k, v in opt[key].items()})
+    out[f"{prefix}/count"] = np.array(opt["count"])
     out[f"{prefix}/step"] = np.array(trainer.state.step)
     return out
 

@@ -35,6 +35,7 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.ops.metrics",
     "ddlpc_tpu_torch.ops.philox",
     "ddlpc_tpu_torch.ops.quantize",
+    "ddlpc_tpu_torch.parallel.bucketing",
     "ddlpc_tpu_torch.parallel.compressed_allreduce",
     "ddlpc_tpu_torch.parallel.grad_sync",
     "ddlpc_tpu_torch.parallel.mesh",

@@ -37,6 +37,7 @@ from jax.sharding import Mesh
 
 from ddlpc_tpu.config import CompressionConfig as JCompression
 from ddlpc_tpu.config import ModelConfig as JModelConfig
+from ddlpc_tpu.config import TrainConfig as JTrainConfig
 from ddlpc_tpu.data import datasets as jdatasets
 from ddlpc_tpu.models import build_model as jbuild_model
 from ddlpc_tpu.parallel import train_step as jts
@@ -208,12 +209,23 @@ def test_sqrt_rn_is_correctly_rounded():
 
 
 def test_build_optimizer_rejects_what_is_not_ported():
-    for bad in (
-        dict(optimizer="sgd"), dict(lr_schedule="cosine"), dict(warmup_steps=5),
-        dict(weight_decay=1e-4), dict(grad_clip_norm=1.0),
+    """Every optimizer, schedule, weight decay and clip of the JAX package
+    is ported; what the JAX package refuses, the port refuses in its words."""
+    from ddlpc_tpu.train.optim import build_optimizer as jbuild
+
+    for ok in (dict(optimizer="sgd"), dict(optimizer="adamw", weight_decay=1e-4),
+               dict(warmup_steps=5), dict(weight_decay=1e-4), dict(grad_clip_norm=1.0)):
+        build_optimizer(TrainConfig(**ok))
+    for bad, total, match in (
+        (dict(optimizer="lamb"), None, "unknown optimizer"),
+        (dict(lr_schedule="step"), None, "unknown lr_schedule"),
+        (dict(lr_schedule="cosine"), None, "needs the run's total step count"),
+        (dict(grad_clip_norm=-1.0), None, "grad_clip_norm must be >= 0"),
     ):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_optimizer(TrainConfig(**bad))
+        with pytest.raises(ValueError, match=match):
+            jbuild(JTrainConfig(**bad), total)
+        with pytest.raises(ValueError, match=match):
+            build_optimizer(TrainConfig(**bad), total)
 
 
 def _tiny_cli_config(tmp_path) -> str:
@@ -276,12 +288,12 @@ def test_cli_refuses_settings_that_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError) as e:
         cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
                   "--workdir", str(tmp_path / "run"), "--set", "train.trace=True",
-                  "--set", "train.remat=True", "--set", "data.mmap_scenes=True"])
+                  "--set", "train.profile_epoch=0", "--set", "data.mmap_scenes=True"])
     msg = str(e.value)
-    for key in ("train.trace=False", "train.remat=False", "data.mmap_scenes=False"):
+    for key in ("train.trace=False", "train.profile_epoch=-1", "data.mmap_scenes=False"):
         assert f"--set {key}" in msg
     for ported in ("checkpoint", "dump_images", "stall", "device_cache", "native_gather",
-                   "perf_accounting"):
+                   "perf_accounting", "remat"):
         assert ported not in msg
     with pytest.raises(KeyError, match="unknown config key"):
         cli_main(["--device", "cpu", "--set", "train.no_such_knob=1"])
