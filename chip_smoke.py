@@ -74,6 +74,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with one; then the write and the restore with the native wire and with
    Python's zlib, in turns.  It prints one ``checkpoint row`` JSON line;
 
+4b'. ``flagship_options``: the flagship with every optimizer option of
+   the JAX trainer and remat (``FLAGSHIP_OPTIONS``: AdamW with weight
+   decay, a cosine schedule after one warmup step, clipping at global norm
+   1) through the CLI's entry for three optimizer steps: finite losses,
+   the fp16 codec's launches as on the main path, each step's rate the
+   schedule's (0, lr, lr / 2), and its peak memory and step time printed
+   beside the plain flagship's of the same run;
+
 4c. the other models' main paths: ``configs/vaihingen_unetpp.json``,
    ``vaihingen_unetpp_s2d.json`` and ``potsdam_deeplabv3p.json`` as
    written (no ``--set`` but the epochs) at full width on 512² tiles,
@@ -113,6 +121,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    state (the moments gathered, rank 0 writing), and then every rank
    builds a fresh Trainer that restores it: every rank's params and its
    own chunk of the moments must be bit-identical to the ones saved.
+   ``dp4_zero1_int8_ring`` (4 replicas, zero1, the int8 codec on the ring
+   transport: point-to-point hops of the int8 chunks themselves) and
+   ``dp4_zero3_fp16_bucket`` (4 replicas, zero3, 8 MiB gradient buckets:
+   5 of the flagship's gradient, one set of codec launches each) run the
+   same checks (the ring's plain simulation snaps the exact sum's mean
+   once, as its owners do; its comm record carries ``ring_wire_report``'s
+   bytes); the ring phase also times one hop.  The zero3 phase also
+   checks every rank's state bytes against ``obs/hbm.py`` and its live
+   buffers (the param buffer freed between steps), then trains a zero2
+   twin at the same ranks, buckets and steps in the same processes, whose
+   params must equal zero3's bit for bit and which must hold at least the
+   full param buffer less a chunk more memory, and one process at
+   ``shard_update='off'`` restores the zero3 checkpoint bit for bit.
 
 Before the main paths it also times the zero2 path's chunk-size kernels
 (decode, the max-abs pass, the fake-quantize against a given max-abs) at
@@ -182,12 +203,15 @@ STOCHASTIC = (
     "compression.rounding=stochastic",
     "compression.codec_backend=pallas",
 )
-# The data-parallel paths: (replicas, extra overrides, expected launches a
-# step of each kernel, whether the large-batch warning fires).  v5e8 at 4
-# replicas (8 do not fit one card) is fp16 nearest at 100 levels on the f16
-# wire (4 x 100 <= 2048) and resolves to zero2; its int8-stochastic arm
-# (codec_backend=pallas, with quantize_mean) resolves to the replicated
-# fused all-reduce on the int8 wire (2 x 10 <= 127).
+# The data-parallel paths: (replicas, extra overrides, resolved level,
+# expected launches a step and a gradient bucket of each kernel, whether
+# the large-batch warning fires).  v5e8 at 4 replicas (8 do not fit one
+# card) is fp16 nearest at 100 levels on the f16 wire (4 x 100 <= 2048)
+# and resolves to zero2; its int8-stochastic arm (codec_backend=pallas,
+# with quantize_mean) resolves to the replicated fused all-reduce on the
+# int8 wire (2 x 10 <= 127).  The ring at 4 replicas and int8's 10 levels
+# hops on int8 (4 x 10 <= 127) under zero1; zero3 with 8 MiB buckets cuts
+# the flagship's 33.5 MB of gradient into 5.
 DP_PHASES = {
     "dp4_zero2_fp16": (4, (), "zero2",
                        {"encode_to_wire": 1, "decode_from_wire": 1, "fake_quantize_fused": 1, "absmax": 2},
@@ -195,7 +219,17 @@ DP_PHASES = {
     "dp2_off_int8_sr": (2, STOCHASTIC, "off",
                         {"encode_sr": 1, "decode_from_wire": 1, "fake_quantize_sr": 1, "absmax": 2},
                         True),
+    "dp4_zero1_int8_ring": (4, ("parallel.shard_update=zero1", "compression.mode=int8",
+                                "compression.transport=ring"), "zero1",
+                            {"encode_to_wire": 1, "decode_from_wire": 1, "absmax": 1}, False),
+    "dp4_zero3_fp16_bucket": (4, ("parallel.shard_update=zero3", "compression.bucket_mb=8"), "zero3",
+                              {"encode_to_wire": 1, "decode_from_wire": 1, "fake_quantize_fused": 1,
+                               "absmax": 2},
+                              False),
 }
+# The flagship with every optimizer option the JAX trainer has, and remat.
+FLAGSHIP_OPTIONS = ("train.optimizer=adamw", "train.weight_decay=1e-4", "train.lr_schedule=cosine",
+                    "train.warmup_steps=1", "train.grad_clip_norm=1.0", "train.remat=true")
 # The other models' main paths, each config as written but for the epochs:
 # config, the conv FLOPs a step (the JAX package's integer) and the
 # optimizer steps an epoch (97 tiles over the super-batch, rounded up).
@@ -943,13 +977,13 @@ def reference_phase(compression: dict, loss_rtol: float, param_share: float,
 
 def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool, config: str = FLAGSHIP,
                     epochs: int = EPOCHS, micro_batch=MICRO_BATCH, flops: int = FLAGSHIP_FLOPS,
-                    loader: str = "DeviceCachedLoader") -> dict:
+                    loader: str = "DeviceCachedLoader", prepare=None) -> dict:
     """Train ``config`` (the flagship by default) for ``epochs`` epochs
     through the CLI's entry with the ``extra`` overrides (and the
     micro-batch, unless None); the launch counts are set to 0 just before
     and read just after, and must equal ``expect`` (0 for a kernel it does
     not name).  Every epoch's perf record must carry ``flops``, and the
-    run's loader be ``loader``."""
+    run's loader be ``loader``.  ``prepare(trainer)`` runs before ``fit``."""
     import shutil
 
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
@@ -978,6 +1012,8 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool, config:
     n_params = trainer.state.params.numel
     log(f"[{label}] {cfg.model.name}: {n_params} parameters in one flat buffer, "
         f"{len(trainer.state.params.names)} leaves")
+    if prepare is not None:
+        prepare(trainer)
     torch.cuda.reset_peak_memory_stats()
     cq.reset_launch_counts()
     trainer.fit()
@@ -1011,6 +1047,50 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool, config:
     return {"launches": launches, "n_params": n_params, "trainer": trainer, "argv": argv,
             "losses": [r["loss"] for r in records], "peak_bytes": peak,
             "epochs": path_row(label, records, perf)}
+
+
+def options_phase(flagship: dict) -> dict:
+    """The flagship with ``FLAGSHIP_OPTIONS`` (AdamW with decay, a cosine
+    schedule after one warmup step, clipping at norm 1, remat) through the
+    CLI's entry for ``EPOCHS`` epochs (``main_path_phase``; the fp16
+    codec's launches as on the main path): finite losses, and the rate of
+    each step the schedule's, ``warmup_cosine_decay_schedule(0, lr, 1,
+    3)`` = [0, lr, lr / 2] (float64, within 1e-6; optax's fp32 is that
+    within an ulp).  Prints its peak memory and step time beside the
+    plain flagship's of this run (``flagship``)."""
+    rates = []
+
+    def prepare(trainer) -> None:
+        step_size = trainer.tx.step_size
+
+        def recorded(count: int) -> float:
+            rates.append((count, -step_size(count)))
+            return step_size(count)
+
+        trainer.tx.step_size = recorded
+
+    run = main_path_phase(
+        "flagship_options", FLAGSHIP_OPTIONS, warns=False, prepare=prepare,
+        expect={"encode_to_wire": EPOCHS, "decode_from_wire": EPOCHS,
+                "fake_quantize_fused": EPOCHS, "absmax": 2 * EPOCHS},
+    )
+    trainer = run.pop("trainer")
+    lr = trainer.cfg.train.learning_rate
+    want = [0.0, lr, lr * 0.5 * (1 + math.cos(math.pi / 2))]
+    log(f"[flagship_options] rate each step (count, lr): {rates}; the schedule's {want}")
+    if [c for c, _ in rates] != list(range(EPOCHS)) or any(
+            abs(got - w) > 1e-6 * lr for (_, got), w in zip(rates, want)):
+        fail(f"[flagship_options] the rates {rates} are not the schedule's {want}")
+    step = [row["step_time_s"] for row in run["epochs"]]
+    base = [row["step_time_s"] for row in flagship["epochs"]]
+    log(f"[flagship_options] peak memory {run['peak_bytes']} bytes ({run['peak_bytes'] / 2**30:.2f} "
+        f"GiB), step_time_s {step}; the plain flagship in this run: {flagship['peak_bytes']} bytes "
+        f"({flagship['peak_bytes'] / 2**30:.2f} GiB), step_time_s {base} ({smi_line()})")
+    run["rates"] = rates
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
 
 
 def zoo_phase(label: str, profile: bool) -> dict:
@@ -1562,33 +1642,57 @@ def host_phase(trainer) -> list:
     return rows
 
 
-def simulate_sync(bufs: list, compression, key) -> torch.Tensor:
+def simulate_sync(bufs: list, compression, key, buckets=None, n_elements=None) -> torch.Tensor:
     """The whole world's sync of ``bufs`` (one flat buffer a replica) in
-    plain PyTorch, in one process: the shared scale, each replica's
-    encode with its own local draw, the exact integer (or fp16-lattice)
-    sum, the decode, the mean stage — what every replica must hold after
-    ``sync_gradients`` (``off``) or the all-gathered chunks of
-    ``sync_gradients_scatter`` (``zero2``)."""
+    plain PyTorch, in one process: what every replica must hold after
+    ``sync_gradients`` (``off``, ``zero1``; the ring too) or the
+    all-gathered chunks of ``sync_gradients_scatter`` (``zero2``,
+    ``zero3``).  Each bucket region ``(start, elements)`` of ``buckets``
+    (None: the whole buffer) is synced on its own: the shared scale, each
+    replica's encode with its own local draw, the exact integer (or
+    fp16-lattice) sum, the decode, the mean stage.  The ring
+    (``transport='ring'``, nearest) snaps the exact sum's mean once, as
+    its owners do, and the gathered lattice is decoded against
+    ``scale / levels``."""
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops import philox
     from ddlpc_tpu_torch.ops import quantize as plain
+    from ddlpc_tpu_torch.parallel.compressed_allreduce import wire_dtype
     from ddlpc_tpu_torch.parallel.grad_sync import simulate_wire_dtype
 
     world = len(bufs)
     levels = float(plain.levels_for(compression))
+    out = torch.zeros_like(bufs[0])
+    if compression.transport == "ring":
+        if key is not None:
+            fail("[sync check] the ring's plain simulation is nearest only")
+        m = world * -(-n_elements // world)
+        xs = [b[:m] for b in bufs]
+        scale = torch.stack([plain.global_absmax([x]) for x in xs]).amax().reshape(1)
+        wire = wire_dtype(world, int(levels))
+        total = sum(plain.encode_with_scale(x, plain.safe_divisor(scale), levels, wire).double()
+                    for x in xs).float()
+        snapped = plain.snap_to_lattice(plain.times_reciprocal(total, float(world)), levels).to(wire)
+        out[:m] = plain.decode_with_inv(snapped, plain.times_reciprocal(scale, levels))
+        return out
     wire = simulate_wire_dtype(world, compression)
     if wire is None:
         fail(f"[sync check] {compression} has no narrow wire at {world} replicas")
-    scale = torch.stack([plain.global_absmax([b]) for b in bufs]).amax().reshape(1)
-    total = torch.zeros(bufs[0].shape, dtype=torch.float64, device=bufs[0].device)
-    for r, b in enumerate(bufs):
-        local = None if key is None else philox.stage_key(key, "local", replica=r)
-        total += plain.encode_with_scale(b, plain.safe_divisor(scale), levels, wire, key=local).double()
-    mean = plain.decode_with_inv(total.float(), plain.times_reciprocal(scale, levels * world))
-    if compression.quantize_mean:
-        mean = cq.fake_quantize_plain(mean, compression,
-                                      key=None if key is None else philox.stage_key(key, "mean"))
-    return mean
+    regions = buckets if buckets and len(buckets) > 1 else [(0, out.numel())]
+    for b, (start, size) in enumerate(regions):
+        bkey = key if key is None or len(regions) == 1 else philox.fold_in(key, b)
+        parts = [buf[start : start + size] for buf in bufs]
+        scale = torch.stack([plain.global_absmax([p]) for p in parts]).amax().reshape(1)
+        total = torch.zeros(size, dtype=torch.float64, device=out.device)
+        for r, p in enumerate(parts):
+            local = None if bkey is None else philox.stage_key(bkey, "local", replica=r)
+            total += plain.encode_with_scale(p, plain.safe_divisor(scale), levels, wire, key=local).double()
+        mean = plain.decode_with_inv(total.float(), plain.times_reciprocal(scale, levels * world))
+        if compression.quantize_mean:
+            mean = cq.fake_quantize_plain(mean, compression,
+                                          key=None if bkey is None else philox.stage_key(bkey, "mean"))
+        out[start : start + size] = mean
+    return out
 
 
 def _timed_ms(fn, reps: int = 5) -> float:
@@ -1607,16 +1711,37 @@ def _timed_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().to("cpu", copy=True).contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _canonical_digest(state) -> str:
+    """The hash of a state's canonical params, moments, count and step (every
+    replica must call it: it gathers)."""
+    from ddlpc_tpu_torch.convert import gather_canonical
+
+    sd, opt = gather_canonical(state)
+    names = sorted(state.params.names)
+    tensors = [sd[k] for k in names]
+    for key in sorted(state.opt_state.buffers()):
+        tensors += [opt[key][k] for k in names]
+    return _digest(*tensors, torch.tensor([opt["count"], state.step]))
+
+
 def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     """One rank of a data-parallel phase (``mesh.spawn_world`` starts it
     with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``): the CLI's entry on v5e8
     for ``EPOCHS`` steps with the launch counts set to 0 just before and
     read just after, the params' hash all-gathered, the sync-level check,
     and the sync's cost; writes ``rank<r>.json`` for the parent."""
-    import hashlib
-
     import torch.distributed as dist
 
+    from ddlpc_tpu_torch.obs import hbm
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops.philox import step_key
     from ddlpc_tpu_torch.parallel import grad_sync, mesh
@@ -1626,13 +1751,17 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     world, extra, level = DP_PHASES[label][:3]
     mesh.initialize_distributed(backend, f"file://{os.path.join(workdir, 'rendezvous')}")
     rank = mesh.replica_index()
-    argv = ["--config", V5E8, "--device", device, "--dist-backend", backend, "--no-resume",
-            "--workdir", os.path.join(workdir, "run"), "--set", f"train.epochs={EPOCHS}",
-            "--set", f"train.micro_batch_size={MICRO_BATCH}",
-            "--set", f"parallel.data_axis_size={world}"]
-    for o in extra:
-        argv += ["--set", o]
-    cfg, resume, dev, backend_arg = parse_args(argv)
+
+    def argv_for(run: str, extra: tuple) -> list:
+        argv = ["--config", V5E8, "--device", device, "--dist-backend", backend, "--no-resume",
+                "--workdir", os.path.join(workdir, run), "--set", f"train.epochs={EPOCHS}",
+                "--set", f"train.micro_batch_size={MICRO_BATCH}",
+                "--set", f"parallel.data_axis_size={world}"]
+        for o in extra:
+            argv += ["--set", o]
+        return argv
+
+    cfg, resume, dev, backend_arg = parse_args(argv_for("run", extra))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         trainer = Trainer(cfg, resume=resume, device=dev, dist_backend=backend_arg)
@@ -1647,7 +1776,8 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     launches = dict(cq.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     free, total = torch.cuda.mem_get_info()
-    digest = hashlib.sha256(flat.data.cpu().numpy().tobytes()).hexdigest()
+    trainer.state.gather_params()
+    digest = _digest(flat.data)
     hashes = [None] * world
     dist.all_gather_object(hashes, digest)
     # The host path's batches: the run's own loader (the native gather into
@@ -1668,81 +1798,98 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
                  for row in trainer.comm.plan}
 
     # The sync-level check: each rank's gradient buffer from its own seed
-    # (the zero tail kept), synced by the path's own function; rank 0 holds
-    # the world's result against the plain simulation over all W buffers.
+    # (the padding kept zero), synced by the path's own function; rank 0
+    # holds the world's result against the plain simulation over all W
+    # buffers.
     n = flat.numel
+    buckets = flat.buckets()
+    covered = torch.zeros(flat.grad.numel(), dtype=torch.bool, device=flat.grad.device)
+    for o, size in flat.segments():
+        covered[o : o + size] = True
 
     def seeded(r: int) -> torch.Tensor:
         g = torch.Generator(device=flat.grad.device).manual_seed(1000 + r)
         buf = torch.zeros_like(flat.grad)
-        buf[:n] = torch.randn(n, generator=g, device=buf.device) * (0.01 * (1 + r))
+        buf[covered] = torch.randn(n, generator=g, device=buf.device) * (0.01 * (1 + r))
         return buf
 
     key = step_key(cfg.train.seed, SYNC_STEP) if cfg.compression.rounding == "stochastic" else None
+    scatter = level in ("zero2", "zero3")
 
     def sync(buf: torch.Tensor) -> torch.Tensor:
-        if level == "zero2":
-            grad_sync.sync_gradients_scatter(buf, cfg.compression, world, key=key)
-            return mesh.all_gather_(buf)
-        return grad_sync.sync_gradients(buf, cfg.compression, axis_size=world, key=key)
+        if scatter:
+            grad_sync.sync_gradients_scatter(buf, cfg.compression, world, key=key, buckets=buckets)
+            return flat.all_gather_(buf)
+        return grad_sync.sync_gradients(buf, cfg.compression, axis_size=world, key=key,
+                                        buckets=buckets, n_elements=n)
 
     synced = sync(seeded(rank))
     torch.cuda.synchronize()
-    sync_digest = hashlib.sha256(synced.cpu().numpy().tobytes()).hexdigest()
     sync_hashes = [None] * world
-    dist.all_gather_object(sync_hashes, sync_digest)
+    dist.all_gather_object(sync_hashes, _digest(synced))
     sync_equal = None
     if rank == 0:
-        want = simulate_sync([seeded(r) for r in range(world)], cfg.compression, key)
+        want = simulate_sync([seeded(r) for r in range(world)], cfg.compression, key,
+                             buckets=buckets, n_elements=n)
         torch.cuda.synchronize()
         sync_equal = bool(torch.equal(synced, want))
         if not sync_equal:
             log(f"[{label}] sync check: {int((synced != want).sum())} elements differ from the plain simulation")
 
-    # The sync's cost a step: the whole sync, then its collectives alone on
-    # buffers of the same sizes and dtypes, then its codec kernels alone.
+    # The sync's cost a step: the whole sync; for the two PR 5 phases its
+    # collectives alone on buffers of the same sizes and dtypes, then its
+    # codec kernels alone; for the ring one hop of its int8 chunk.
     from ddlpc_tpu_torch.parallel.grad_sync import simulate_wire_dtype
 
     buf = seeded(rank)
-    wire = simulate_wire_dtype(world, cfg.compression)
-    q = torch.zeros(buf.numel(), dtype=wire, device=buf.device)
-    one = torch.ones(1, device=buf.device)
-    k = flat.shard
+    cost = {"sync_ms": _timed_ms(lambda: sync(buf)), "collectives_ms": None, "codec_ms": None}
+    if label in ("dp4_zero2_fp16", "dp2_off_int8_sr"):
+        wire = simulate_wire_dtype(world, cfg.compression)
+        q = torch.zeros(buf.numel(), dtype=wire, device=buf.device)
+        one = torch.ones(1, device=buf.device)
+        k = flat.shard
 
-    def collectives():
-        mesh.all_reduce_(one, "max")
-        if level == "zero2":
-            mesh.reduce_scatter(q)
+        def collectives():
             mesh.all_reduce_(one, "max")
-            mesh.all_gather_(flat.data)
-        else:
-            mesh.all_reduce_(q)
+            if level == "zero2":
+                mesh.reduce_scatter(q)
+                mesh.all_reduce_(one, "max")
+                mesh.all_gather_(flat.data)
+            else:
+                mesh.all_reduce_(q)
 
-    def codec():
-        from ddlpc_tpu_torch.ops import quantize as plain
+        def codec():
+            from ddlpc_tpu_torch.ops import quantize as plain
 
-        scale = cq.absmax(buf)
-        draw = {} if key is None else {"key": (1, 2)}
-        qq = cq.encode_to_wire(buf, plain.safe_divisor(scale), cfg.compression, wire, **draw)
-        part = qq if level == "off" else qq[:k]
-        out = buf if level == "off" else buf[:k]
-        cq.decode_from_wire(part, scale, out=out)
-        if level == "off":
-            cq.fake_quantize_fused(out, cfg.compression, out=out, **draw)
-        else:
-            cq.fake_quantize_fused(out, cfg.compression, out=out, amax=cq.absmax(out))
+            scale = cq.absmax(buf)
+            draw = {} if key is None else {"key": (1, 2)}
+            qq = cq.encode_to_wire(buf, plain.safe_divisor(scale), cfg.compression, wire, **draw)
+            part = qq if level == "off" else qq[:k]
+            out = buf if level == "off" else buf[:k]
+            cq.decode_from_wire(part, scale, out=out)
+            if level == "off":
+                cq.fake_quantize_fused(out, cfg.compression, out=out, **draw)
+            else:
+                cq.fake_quantize_fused(out, cfg.compression, out=out, amax=cq.absmax(out))
 
-    cost = {"sync_ms": _timed_ms(lambda: sync(buf)), "collectives_ms": _timed_ms(collectives),
-            "codec_ms": _timed_ms(codec)}
+        cost.update(collectives_ms=_timed_ms(collectives), codec_ms=_timed_ms(codec))
+        del q
+    if cfg.compression.transport == "ring":
+        hop = torch.zeros(-(-n // world), dtype=torch.int8, device=buf.device)
+        cost["hop_ms"] = _timed_ms(lambda: mesh.ring_shift(hop), reps=9)
+        cost["hop_bytes"] = hop.numel()
+        del hop
     result = {
         "rank": rank, "world": world, "level": trainer.shard_update, "backend": backend,
         "device": str(trainer.device), "launches": launches, "warned": warned,
         "params_hashes": hashes, "sync_hashes": sync_hashes, "sync_equal": sync_equal,
         "peak_bytes": peak, "card_used_bytes": total - free, "fit_s": fit_s,
-        "last": last, "n_params": n, "padded": flat.data.numel(), "shard": k, **cost,
+        "last": last, "n_params": n, "padded": flat.data.numel(), "shard": flat.shard,
+        "n_buckets": len(flat.regions), **cost,
         "ring_batches": ring_batches, "comm_wire": comm_wire,
     }
-    if level == "zero2":
+    del buf
+    if label == "dp4_zero2_fp16":
         # The run checkpointed each epoch (the moments gathered, rank 0
         # writing): a fresh Trainer on every rank restores the newest, and
         # the params and this rank's chunk of the moments must be the bits
@@ -1750,11 +1897,10 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
 
         def digests(t) -> list:
             o = t.state.opt_state
-            return [hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
-                    for v in (t.state.params.data, o.mu, o.nu)] + [o.count, t.state.step]
+            return [_digest(v) for v in (t.state.params.data, o.mu, o.nu)] + [o.count, t.state.step]
 
         saved = digests(trainer)
-        del trainer, flat, buf, q
+        del trainer, flat
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1765,9 +1911,70 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
             "start_epoch": again.start_epoch, "equal": digests(again) == saved,
             "ckpt_steps": sorted(os.listdir(again.ckpt_dir)) if rank == 0 else None,
         }
+    if level == "zero3":
+        # The state bytes: the param buffer freed between steps, this
+        # replica's chunks the only copy, as obs/hbm.py counts them; the
+        # canonical state (for the parent's restore into off); then a zero2
+        # twin at the same ranks, buckets and steps, which must end on the
+        # same params bit for bit and hold the full param buffer more.
+        state = trainer.state
+        breakdown = hbm.state_hbm_bytes(state, "zero3")
+        canonical = _canonical_digest(state)
+        state.release_params()
+        torch.cuda.synchronize()
+        live = {"params": state.owned.numel() * 4 + flat.data.untyped_storage().nbytes(),
+                "opt_state": sum(v.numel() * 4 for v in state.opt_state.buffers().values())}
+        allocated = torch.cuda.memory_allocated()
+        del trainer, state, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+        twin_cfg, _, _, _ = parse_args(argv_for(
+            "twin", tuple(o for o in extra if not o.startswith("parallel.shard_update"))
+            + ("parallel.shard_update=zero2",)))
+        twin = Trainer(twin_cfg, resume=False, device=dev, dist_backend=backend_arg)
+        cq.reset_launch_counts()
+        twin.fit()
+        torch.cuda.synchronize()
+        twin_launches = dict(cq.LAUNCHES)
+        twin_hashes = [None] * world
+        dist.all_gather_object(twin_hashes, _digest(twin.state.params.data))
+        result["zero3"] = {
+            "canonical": canonical, "hbm": breakdown, "live": live, "allocated": allocated,
+            "twin_allocated": torch.cuda.memory_allocated(), "twin_level": twin.shard_update,
+            "twin_hashes": twin_hashes, "twin_launches": twin_launches,
+            "twin_hbm": hbm.state_hbm_bytes(twin.state, "zero2"),
+        }
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     mesh.destroy_distributed()
+
+
+def zero3_restore_into_off(label: str, workdir: str, want: str) -> dict:
+    """One process at ``shard_update='off'`` restores the zero3 world's
+    newest checkpoint: its canonical state must be the bits the world
+    ended on."""
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    argv = ["--config", V5E8, "--device", "cuda", "--workdir", os.path.join(workdir, "run"),
+            "--set", f"train.epochs={EPOCHS}", "--set", f"train.micro_batch_size={MICRO_BATCH}",
+            "--set", "parallel.data_axis_size=1", "--set", "parallel.shard_update=off"]
+    for o in DP_PHASES[label][1]:
+        if not o.startswith("parallel.shard_update"):
+            argv += ["--set", o]
+    cfg, _, dev, backend = parse_args(argv)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, resume=True, device=dev, dist_backend=backend)
+    got = _canonical_digest(trainer.state)
+    row = {"level": trainer.shard_update, "start_epoch": trainer.start_epoch,
+           "trainer_with_restore_s": time.perf_counter() - t0, "equal": got == want}
+    log(f"[{label}] the zero3 checkpoint restored into one process at off: " + json.dumps(row))
+    if not row["equal"] or row["level"] != "off" or row["start_epoch"] != EPOCHS:
+        fail(f"[{label}] the zero3 checkpoint did not restore into off bit for bit: {row}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def dp_phase(label: str) -> dict:
@@ -1779,7 +1986,7 @@ def dp_phase(label: str) -> dict:
 
     from ddlpc_tpu_torch.parallel import mesh
 
-    world, _, level, per_step, warns = DP_PHASES[label]
+    world, _, level, per_bucket, warns = DP_PHASES[label]
     workdir = os.path.join(WORKDIR, label)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -1801,24 +2008,27 @@ def dp_phase(label: str) -> dict:
     with open(os.path.join(workdir, "run", "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     records = [r for r in lines if "kind" not in r]
-    want = {name: EPOCHS * per_step.get(name, 0) for name in ranks[0]["launches"]}
+    n_buckets = ranks[0]["n_buckets"]
+    want = {name: EPOCHS * n_buckets * per_bucket.get(name, 0) for name in ranks[0]["launches"]}
+    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"  # noqa: E731
     for rr in ranks:
-        log(f"[{label}] rank {rr['rank']} on {rr['device']}: level {rr['level']}, kernels "
-            f"{json.dumps(rr['launches'])}, peak {rr['peak_bytes'] / 2**30:.2f} GiB, card in use "
-            f"{rr['card_used_bytes'] / 2**30:.2f} GiB; sync a step {rr['sync_ms']:.3f} ms "
-            f"(collectives alone {rr['collectives_ms']:.3f} ms, codec kernels alone "
-            f"{rr['codec_ms']:.3f} ms)")
+        log(f"[{label}] rank {rr['rank']} on {rr['device']}: level {rr['level']}, {rr['n_buckets']} "
+            f"bucket(s), kernels {json.dumps(rr['launches'])}, peak {rr['peak_bytes'] / 2**30:.2f} GiB, "
+            f"card in use {rr['card_used_bytes'] / 2**30:.2f} GiB; sync a step {rr['sync_ms']:.3f} ms "
+            f"(collectives alone {fmt(rr['collectives_ms'])} ms, codec kernels alone "
+            f"{fmt(rr['codec_ms'])} ms" + (f", one ring hop of {rr['hop_bytes']} bytes "
+                                            f"{rr['hop_ms']:.3f} ms" if "hop_ms" in rr else "") + ")")
         if rr["level"] != level:
             fail(f"[{label}] rank {rr['rank']} resolved shard_update to {rr['level']}, expected {level}")
         if rr["launches"] != want:
             fail(f"[{label}] rank {rr['rank']} kernel launches in {EPOCHS} steps: "
-                 f"{rr['launches']}, expected {want}")
+                 f"{rr['launches']}, expected {want} ({n_buckets} bucket(s))")
         if rr["warned"] != warns:
             fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {rr['warned']}")
     if len(set(ranks[0]["params_hashes"])) != 1:
         fail(f"[{label}] the replicas' params differ: {ranks[0]['params_hashes']}")
     restored = [rr.get("zero2_restore") for rr in ranks]
-    if level == "zero2":
+    if label == "dp4_zero2_fp16":
         for rr, z in zip(ranks, restored):
             if not z["equal"] or z["start_epoch"] != EPOCHS:
                 fail(f"[{label}] rank {rr['rank']}: the restored zero2 checkpoint differs from the "
@@ -1826,6 +2036,7 @@ def dp_phase(label: str) -> dict:
         log(f"[{label}] zero2 checkpoint {restored[0]['ckpt_steps']}: every rank's params and moment "
             f"chunk restored bit for bit; a fresh Trainer with the restore "
             f"{max(z['trainer_with_restore_s'] for z in restored):.2f} s")
+    zero3 = zero3_checks(label, ranks, workdir) if level == "zero3" else None
     if len(set(ranks[0]["sync_hashes"])) != 1 or not ranks[0]["sync_equal"]:
         fail(f"[{label}] the synced gradient differs between replicas or from the plain simulation")
     for rec in records:
@@ -1841,7 +2052,7 @@ def dp_phase(label: str) -> dict:
         f"== plain simulation bit for bit; world wall {wall_s:.1f} s")
     return {
         "world": world, "backend": backend, "device": device, "level": level,
-        "launches": ranks[0]["launches"], "wall_s": wall_s,
+        "launches": ranks[0]["launches"], "n_buckets": n_buckets, "wall_s": wall_s,
         "step_time_s": [rec["step_time_s"] for rec in records],
         "losses": [rec["loss"] for rec in records],
         "peak_bytes": [rr["peak_bytes"] for rr in ranks],
@@ -1849,21 +2060,68 @@ def dp_phase(label: str) -> dict:
         "sync_ms": [rr["sync_ms"] for rr in ranks],
         "collectives_ms": [rr["collectives_ms"] for rr in ranks],
         "codec_ms": [rr["codec_ms"] for rr in ranks],
+        "hop_ms": [rr.get("hop_ms") for rr in ranks], "hop_bytes": ranks[0].get("hop_bytes"),
         "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
-        "zero2_restore": restored[0], "epochs": path_row(label, records, perf),
+        "zero2_restore": restored[0], "zero3": zero3, "epochs": path_row(label, records, perf),
     }
 
 
-def comm_rows(n: int, padded: int, level: str, wire_bytes: int) -> dict:
+def zero3_checks(label: str, ranks: list, workdir: str) -> dict:
+    """The zero3 phase's own checks: every rank's state bytes as
+    ``obs/hbm.py`` counts them, and its live buffers the same (the param
+    buffer freed, the chunks and the moments ``K`` elements); the zero2
+    twin's params equal to zero3's bit for bit, its launches the same,
+    its memory larger by at least the full param buffer less a chunk (1
+    MiB of slack); and the checkpoint restored into one process at off."""
+    first = ranks[0]
+    k, padded = first["shard"], first["padded"]
+    want = {"params": 4 * k, "grads": 4 * k, "grads_accum": 4 * padded, "opt_state": 8 * k}
+    for rr in ranks:
+        z = rr["zero3"]
+        got = {key: z["hbm"][key] for key in want}
+        twin = {key: z["twin_hbm"][key] for key in want}
+        saved = z["twin_allocated"] - z["allocated"]
+        log(f"[{label}] rank {rr['rank']} state bytes (obs/hbm.py) zero3 {json.dumps(got)}, zero2 twin "
+            f"{json.dumps(twin)}; live zero3 {json.dumps(z['live'])}; memory_allocated zero3 "
+            f"{z['allocated']}, twin {z['twin_allocated']} (zero3 holds {saved} bytes less)")
+        if got != want or z["live"] != {"params": want["params"], "opt_state": want["opt_state"]}:
+            fail(f"[{label}] rank {rr['rank']}: zero3 state bytes {got} / live {z['live']}, expected {want}")
+        if twin["params"] != 4 * padded or saved < 4 * (padded - k) - (1 << 20):
+            fail(f"[{label}] rank {rr['rank']}: the zero2 twin holds {twin['params']} param bytes and "
+                 f"{saved} bytes more than zero3, expected {4 * padded} and >= {4 * (padded - k)}")
+        if z["twin_level"] != "zero2" or z["twin_launches"] != rr["launches"]:
+            fail(f"[{label}] rank {rr['rank']}: twin level {z['twin_level']}, launches "
+                 f"{z['twin_launches']} against zero3's {rr['launches']}")
+    twin_hashes = first["zero3"]["twin_hashes"]
+    if twin_hashes != first["params_hashes"]:
+        fail(f"[{label}] the zero2 twin's params {twin_hashes} != zero3's {first['params_hashes']}")
+    log(f"[{label}] after {EPOCHS} steps the zero2 twin (same ranks, buckets, steps) holds zero3's "
+        f"params bit for bit ({twin_hashes[0][:16]})")
+    restore = zero3_restore_into_off(label, workdir, first["zero3"]["canonical"])
+    return {"hbm": first["zero3"]["hbm"], "twin_hbm": first["zero3"]["twin_hbm"],
+            "allocated": [rr["zero3"]["allocated"] for rr in ranks],
+            "twin_allocated": [rr["zero3"]["twin_allocated"] for rr in ranks],
+            "restore_into_off": restore}
+
+
+def comm_rows(label: str, n: int, padded: int, level: str, world: int, buckets: int) -> dict:
     """The closed form of a step's collectives (obs/comm.py): the codec's
     declared payload on the ``n`` gradients, and the bytes the port moves,
     the flat buffer of ``padded`` elements on the wire plus a 4-byte
-    max-abs all-reduce for the shared scale and, under zero2, one for the
-    mean stage."""
-    grad = "reduce_scatter" if level == "zero2" else "all_reduce"
-    rows = {grad: {"bytes_pre": 4 * n, "bytes_post": wire_bytes * n + 4,
-                   "bytes_wire": wire_bytes * padded + 4 * (2 if level == "zero2" else 1)}}
-    if level == "zero2":
+    max-abs all-reduce a bucket for the shared scale and, under
+    zero2/zero3, one for the mean stage; the ring's 2(N−1) hops of
+    ``ceil(n/N)`` int8 elements (``ring_wire_report``); the params'
+    all-gather of every chunked level."""
+    if label == "dp4_zero1_int8_ring":
+        hops = 2 * (world - 1) * -(-n // world)
+        rows = {"ring_all_reduce": {"bytes_pre": 4 * hops, "bytes_post": hops, "bytes_wire": hops}}
+    else:
+        item = {"dp4_zero2_fp16": 2, "dp2_off_int8_sr": 1, "dp4_zero3_fp16_bucket": 2}[label]
+        scatter = level in ("zero2", "zero3")
+        grad = "reduce_scatter" if scatter else "all_reduce"
+        rows = {grad: {"bytes_pre": 4 * n, "bytes_post": item * n + 4 * buckets,
+                       "bytes_wire": item * padded + 4 * buckets * (2 if scatter else 1)}}
+    if level != "off":
         rows["all_gather"] = {"bytes_pre": 4 * n, "bytes_post": 4 * n, "bytes_wire": 4 * padded}
     return rows
 
@@ -1871,8 +2129,9 @@ def comm_rows(n: int, padded: int, level: str, wire_bytes: int) -> dict:
 def comm_checks(label: str, lines: list, ranks: list, level: str) -> None:
     """Rank 0's ``kind="comm"`` record each epoch, and every rank's byte
     counter after the run, against :func:`comm_rows`."""
-    wire_bytes = {"dp4_zero2_fp16": 2, "dp2_off_int8_sr": 1}[label]
-    want = comm_rows(ranks[0]["n_params"], ranks[0]["padded"], level, wire_bytes)
+    first = ranks[0]
+    want = comm_rows(label, first["n_params"], first["padded"], level, first["world"],
+                     first["n_buckets"])
     recs = [r for r in lines if r.get("kind") == "comm"]
     if len(recs) != EPOCHS:
         fail(f"[{label}] expected {EPOCHS} comm records, got {len(recs)}")
@@ -1958,10 +2217,11 @@ def main() -> int:
     del sr["trainer"]
     gc.collect()
     torch.cuda.empty_cache()
+    opts = options_phase(main)
     zoo = {label: zoo_phase(label, profile) for label in ZOO_PATHS}
     dp = {label: dp_phase(label) for label in DP_PHASES}
     stall_row = stall_phase()
-    for run in (main, sr, *dp.values()):
+    for run in (main, sr, opts, *dp.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
     # Each row's launches are read from the single-process path that runs
@@ -1972,17 +2232,20 @@ def main() -> int:
         for row in path_rows:
             by_path = {"nearest_fp16": main["launches"][row["name"]],
                        "stochastic_int8": sr["launches"][row["name"]],
+                       "flagship_options": opts["launches"][row["name"]],
                        **{label: run["launches"][row["name"]] for label, run in dp.items()},
                        **{label: run["launches"][row["name"]] for label, run in zoo.items()}}
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
     paths = {"nearest_fp16": main["epochs"], "stochastic_int8": sr["epochs"],
+             "flagship_options": opts["epochs"],
              **{label: run["epochs"] for label, run in dp.items()},
              **{label: run["epochs"] for label, run in zoo.items()}}
     log("paths: " + json.dumps({"card": smi, "epochs": paths,
                                 "peak_bytes": {"nearest_fp16": main["peak_bytes"],
                                                "stochastic_int8": sr["peak_bytes"],
+                                               "flagship_options": opts["peak_bytes"],
                                                **{k: r["peak_bytes"] for k, r in zoo.items()}}}))
     print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
                       "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row,

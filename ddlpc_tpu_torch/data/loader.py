@@ -38,6 +38,11 @@ from ddlpc_tpu_torch.data.datasets import TileDataset
 from ddlpc_tpu_torch.utils import native
 
 
+def steps_per_epoch(n_tiles: int, super_batch: int) -> int:
+    """Optimizer steps an epoch: the tiles wrap-filled to whole super-batches."""
+    return -(-n_tiles // super_batch)
+
+
 class EpochSampler:
     """Seeded per-epoch permutation, wrap-filled to whole super-batches
     (the reference's default ``tail='wrap'``, the only one ported)."""
@@ -58,7 +63,7 @@ class EpochSampler:
         self._epoch = 0
 
     def __len__(self) -> int:
-        return -(-len(self.ds) // self.super_batch)
+        return steps_per_epoch(len(self.ds), self.super_batch)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)

@@ -33,7 +33,6 @@ import torch
 from ddlpc_tpu_torch.config import CompressionConfig
 
 CHUNK_LAYOUTS = ("zero1", "zero2", "zero3")
-PORTED_LEVELS = ("off",) + CHUNK_LAYOUTS
 _ALIGN_ELEMENTS = 32  # 128 bytes of fp32
 
 
@@ -50,14 +49,6 @@ def normalize_shard_update(value) -> str:
         f"unknown shard_update level {value!r} "
         f"(expected off|zero1|zero2|zero3 or a bool)"
     )
-
-
-def check_ported(level: str) -> None:
-    """Raise on a level that is not one of the four."""
-    if level not in PORTED_LEVELS:
-        raise ValueError(
-            f"unknown shard_update level {level!r} (expected off|zero1|zero2|zero3)"
-        )
 
 
 def chunk_rows(n_elements: int, n_shards: int) -> int:

@@ -65,7 +65,6 @@ from ddlpc_tpu_torch.parallel.grad_sync import (
 )
 from ddlpc_tpu_torch.parallel.shard_update import (
     CHUNK_LAYOUTS,
-    check_ported,
     flat_layout,
     normalize_shard_update,
 )
@@ -227,7 +226,6 @@ def create_train_state(
     ZeRO ``level`` (one replica is ``off``), its buffers cut into the
     gradient buckets of ``bucket_mb``."""
     level = normalize_shard_update(level)
-    check_ported(level)
     if axis_size == 1:
         level = "off"
     flat = FlatParams(model, n_shards=axis_size, bucket_mb=bucket_mb)
@@ -361,7 +359,6 @@ def make_train_step(
     the ZeRO level (or the historical bool; one replica runs ``off``), the
     state's own.  ``remat`` is ``train.remat``."""
     level = normalize_shard_update(level)
-    check_ported(level)
     if axis_size == 1:
         level = "off"
     if level in ("zero2", "zero3"):

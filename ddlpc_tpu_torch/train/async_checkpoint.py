@@ -19,8 +19,9 @@ Semantics:
   permissions) is raised again by the next ``save()`` or ``wait()``.
 - **Exit barrier**: ``Trainer.fit`` calls ``wait()`` before the next save,
   at its end, and before exit 43.
-- **Replica gate**: under zero2 every replica joins the gather of the
-  moments; only replica 0 copies to the host and writes.
+- **Replica gate**: under the chunked ZeRO levels every replica joins the
+  gather of the moments (and under zero3 of the params); only replica 0
+  copies to the host and writes.
 """
 
 from __future__ import annotations

@@ -2,10 +2,12 @@
 chunked format (``ckpt_<step>.dwc``, DWC2) only.
 
 A blob holds the state tree that flax's ``to_state_dict(TrainState)``
-gives the JAX package — ``step``, ``params``, ``batch_stats``,
-``opt_state/0/{count,mu,nu}`` and ``opt_state/1`` as an empty-dict leaf —
-in the flax layout (``convert.py``), so the same blob restores in either
-package.  Its leaves, in sorted path order, are cut into chunks of at most
+gives the JAX package — ``step``, ``params``, ``batch_stats`` and
+``opt_state``, optax's chain of the optimizer's stages (Adam's
+``opt_state/0/{count,mu,nu}`` and ``opt_state/1`` as an empty-dict leaf;
+SGD's ``trace``, a schedule's ``count``, the empty states of clipping and
+weight decay: ``convert.optax_tree``) — in the flax layout, so the same
+blob restores in either package.  Its leaves, in sorted path order, are cut into chunks of at most
 ``chunk_bytes`` raw bytes, each compressed independently into a DWZ1 frame
 (``utils/wire.py``; adaptive: stored when deflate would barely shrink it)
 and streamed to disk.  A JSON manifest (leaf paths, dtypes, shapes, each
@@ -125,8 +127,8 @@ def unflatten(flat: dict) -> dict:
 
 @dataclass
 class Snapshot:
-    """A train state's canonical copy in host memory: the model's state dict
-    and the Adam state (``convert.gather_canonical``) and the step."""
+    """A train state's canonical copy in host memory: the model's state dict,
+    the optimizer's state (``convert.gather_canonical``) and the step."""
 
     state_dict: Dict[str, torch.Tensor]
     adam: dict
@@ -144,9 +146,10 @@ class Snapshot:
 def snapshot_state(state, host: Optional[dict] = None, to_host: bool = True) -> Optional[Snapshot]:
     """The training thread's part of a save: the canonical state copied to
     host memory, one copy of each flat buffer (into ``host``'s reusable
-    buffers when given, else into new ones).  Under zero2 the moments are
-    all-gathered first, a collective every replica joins; a replica that
-    does not write passes ``to_host=False`` and gets None."""
+    buffers when given, else into new ones).  Under the chunked ZeRO levels
+    the moments (and under zero3 the params) are all-gathered first, a
+    collective every replica joins; a replica that does not write passes
+    ``to_host=False`` and gets None."""
     sd, adam = convert.gather_canonical(state, host=host, to_host=to_host)
     return Snapshot(sd, adam, int(state.step)) if to_host else None
 
@@ -428,7 +431,7 @@ def save_checkpoint(
     compression: str = "adaptive",
 ) -> Optional[str]:
     """Write a train state as checkpoint ``step`` (default: its own step)
-    synchronously; every replica calls it (zero2 gathers), replica 0
+    synchronously; every replica calls it (the chunked levels gather), replica 0
     writes and gets the path, the others None."""
     from ddlpc_tpu_torch.parallel.mesh import replica_index
 

@@ -57,6 +57,7 @@ from ddlpc_tpu_torch.ops.quantize import true_div
 
 Schedule = Callable[[int], float]
 F32 = np.float32
+SGD_MOMENTUM = 0.9  # the JAX package's optax.sgd(lr, momentum=0.9)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -96,7 +97,8 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int) 
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
-    """optax's ``cosine_decay_schedule`` at ``alpha=0``, ``exponent=1``."""
+    """optax's ``cosine_decay_schedule`` at ``alpha=0``, ``exponent=1``
+    (where its ``(1 − alpha)·c**exponent + alpha`` is ``c`` exactly)."""
     if not decay_steps > 0:
         raise ValueError(
             "The cosine_decay_schedule requires positive decay_steps, got"
@@ -106,8 +108,7 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
     def schedule(count: int) -> float:
         c = F32(min(count, decay_steps))
         cosine = F32(0.5) * (F32(1) + _cosf(F32(math.pi) * c / F32(decay_steps)))
-        decayed = F32(1.0) * cosine + F32(0.0)
-        return float(F32(init_value) * decayed)
+        return float(F32(init_value) * cosine)
 
     return schedule
 
@@ -177,15 +178,14 @@ class Optimizer:
 
     def __init__(self, kind: str = "adam", lr: Union[float, Schedule] = 1e-3,
                  weight_decay: float = 0.0, grad_clip_norm: float = 0.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 momentum: float = 0.9):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         if kind not in self.MOMENTS:
             raise ValueError(f"unknown optimizer {kind!r}")
         self.kind = kind
         self.lr = lr
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
-        self.b1, self.b2, self.eps, self.momentum = b1, b2, eps, momentum
+        self.b1, self.b2, self.eps = b1, b2, eps
 
     # -- the optax state tree's shape -------------------------------------
 
@@ -270,7 +270,7 @@ class Optimizer:
                 g = self._clipped(g, norm)
             if self.kind == "sgd":
                 t = moments["trace"][i]
-                torch.add(g, self.momentum * t, out=t)
+                torch.add(g, SGD_MOMENTUM * t, out=t)
                 u = t
             else:
                 if self.kind == "adam" and self.weight_decay:

@@ -64,7 +64,12 @@ from ddlpc_tpu_torch import resolve_device
 from ddlpc_tpu_torch.config import ExperimentConfig
 from ddlpc_tpu_torch.convert import load_state_tree
 from ddlpc_tpu_torch.data.datasets import build_dataset
-from ddlpc_tpu_torch.data.loader import DeviceCachedLoader, ShardedLoader, eval_batches
+from ddlpc_tpu_torch.data.loader import (
+    DeviceCachedLoader,
+    ShardedLoader,
+    eval_batches,
+    steps_per_epoch,
+)
 from ddlpc_tpu_torch.kernels.build import load_library
 from ddlpc_tpu_torch.models import build_model_from_experiment
 from ddlpc_tpu_torch.obs import comm as obs_comm
@@ -75,7 +80,7 @@ from ddlpc_tpu_torch.obs.registry import MetricsRegistry
 from ddlpc_tpu_torch.ops.metrics import accuracy_from_confusion, iou_per_class, mean_iou
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
-from ddlpc_tpu_torch.parallel.shard_update import check_ported, resolve_shard_update
+from ddlpc_tpu_torch.parallel.shard_update import resolve_shard_update
 from ddlpc_tpu_torch.parallel.train_step import (
     create_train_state,
     make_eval_step,
@@ -223,7 +228,6 @@ class Trainer:
             cfg.parallel.shard_update, cfg.compression, self.world, spatial=False,
             grad_clip_norm=cfg.train.grad_clip_norm,
         )
-        check_ported(self.shard_update)
         warn_large_batch_stochastic(cfg, self.world)
         self.cfg = cfg
         self.workdir = cfg.workdir
@@ -252,8 +256,8 @@ class Trainer:
         # The schedule's horizon: the run's optimizer steps, as the JAX
         # trainer passes it (the loader's steps an epoch; on a resume too).
         super_batch = cfg.train.micro_batch_size * cfg.train.sync_period * self.world
-        steps_per_epoch = -(-len(self.train_ds) // super_batch)
-        self.tx = build_optimizer(cfg.train, total_steps=cfg.train.epochs * steps_per_epoch)
+        epoch_steps = steps_per_epoch(len(self.train_ds), super_batch)
+        self.tx = build_optimizer(cfg.train, total_steps=cfg.train.epochs * epoch_steps)
         self.state = create_train_state(
             model.to(self.device), self.tx, self.world, self.shard_update,
             bucket_mb=cfg.compression.bucket_mb,
@@ -273,8 +277,6 @@ class Trainer:
             self.loader = ShardedLoader(
                 self.train_ds, native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
             )
-        if len(self.loader) != steps_per_epoch:
-            raise RuntimeError(f"the loader takes {len(self.loader)} steps an epoch, not {steps_per_epoch}")
         self.train_step = make_train_step(
             self.tx, cfg.compression, self.world, seed=cfg.train.seed,
             level=self.shard_update, remat=cfg.train.remat,

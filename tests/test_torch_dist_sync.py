@@ -211,10 +211,13 @@ def test_flagship_v5e8_and_its_stochastic_arm_resolve_as_in_jax():
     assert tzero.resolve_shard_update("auto", fp16, 4, False) == "zero2"
     assert tzero.resolve_shard_update("auto", sr, 2, False) == "off"
     assert tzero.resolve_shard_update("auto", fp16, 1, False) == "off"
-    for level in ("off", "zero1", "zero2", "zero3"):
-        tzero.check_ported(level)
-    with pytest.raises(ValueError, match="unknown shard_update level"):
-        tzero.check_ported("zero4")
+    for level in ("off", "zero1", "zero2", "zero3"):  # every level is ported
+        assert tzero.normalize_shard_update(level) == jzero.normalize_shard_update(level)
+    for bad in ("zero4", "auto"):
+        with pytest.raises(ValueError, match="unknown shard_update level"):
+            tzero.normalize_shard_update(bad)
+        with pytest.raises(ValueError, match="unknown shard_update level"):
+            jzero.normalize_shard_update(bad)
     assert tzero.normalize_shard_update(True) == jzero.normalize_shard_update(True)
 
 
