@@ -1836,9 +1836,10 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
         if not sync_equal:
             log(f"[{label}] sync check: {int((synced != want).sum())} elements differ from the plain simulation")
 
-    # The sync's cost a step: the whole sync; for the two PR 5 phases its
-    # collectives alone on buffers of the same sizes and dtypes, then its
-    # codec kernels alone; for the ring one hop of its int8 chunk.
+    # The sync's cost a step: the whole sync; for dp4_zero2_fp16 and
+    # dp2_off_int8_sr its collectives alone on buffers of the same sizes
+    # and dtypes, then its codec kernels alone; for the ring one hop of its
+    # int8 chunk.
     from ddlpc_tpu_torch.parallel.grad_sync import simulate_wire_dtype
 
     buf = seeded(rank)
