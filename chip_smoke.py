@@ -94,6 +94,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    batches equal to ``DeviceLoader``'s.  Each prints its epochs' step
    time, MFU and goodput and its peak memory beside the card;
 
+4d. the data paths, each through the CLI's entry for two epochs, with the
+   same checks as the main paths (exact launches, the FLOP integer, PNGs,
+   the loader's batches equal to ``DeviceLoader``'s on the same wire) and,
+   for each run, a ``data path row``: the last epoch's step time,
+   ``t_data_s`` and ``t_loader_{gather,cast,upload}_s``, the producer's
+   tiles/s over its stages, the loader's delivered tiles/s alone against
+   the ≈ 985 tiles/s that the flagship's 512 tiles in 0.52 s need, the
+   idle share of a profiled step (``profile_phase``), the peak memory,
+   MFU and the codec's launches, beside the card:
+   ``flagship_tiles_dir`` writes 157 Vaihingen-like tiles of 512² from
+   the seed (the reference's 127 and 30 held out), as ``--format npy`` and
+   as PNG, and trains the flagship as written from them
+   (``--set data.data_dir=``): npy eager on the device cache, png eager
+   (its losses must be npy's bits), and npy with ``lazy_tiles``, the host
+   loader, four workers and the compact wire (its first loss npy's bits,
+   the second within one fp32 ulp); ``flagship_scenes`` writes 33 uint8
+   scenes at the sizes of ``docs/disk_fit/scene_scale.json`` (152.3
+   MPix) and trains in crop mode (``crops_per_epoch=512,
+   test_split_scenes=1, device_cache=false``), eager and then with
+   ``mmap_scenes``, ``augment``, the compact wire and four workers, each
+   run's loader equal by digest, epoch for epoch, to the same loader over
+   the other residency; ``cityscapes_full_width`` trains
+   ``configs/cityscapes_unet_v5e64.json`` as written at one replica
+   (``--set parallel.data_axis_size=-1``; 33,445,104 parameters, its fp16
+   codec with ``quantize_local=false`` launching the fake-quantize of the
+   mean and its max-abs once a step), synthetic, and then from a
+   Cityscapes layout of 24 frames of 2048×1024 with void label ids,
+   converted by ``python -m ddlpc_tpu_torch.data.prepare_cityscapes``.
+   The codec's kernels are then timed and held against their plain
+   versions again at the Cityscapes gradient size (``cityscapes_kernels``);
+
 5. the data-parallel paths, each a world of W processes of this script
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
    kills the world) through the CLI's entry on
@@ -163,6 +194,7 @@ of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -248,6 +280,24 @@ TINY_ZOO = {
     "deeplabv3p": ({"name": "deeplabv3p", "features": [64, 128, 256, 512], "width_divisor": 8},
                    128),
 }
+# The data-path phases: the flagship from a tile directory (the reference's
+# 127 training tiles and 30 held out) and from scenes at the reference
+# scale of docs/disk_fit/scene_scale.json (its six sizes, cycled over 33
+# scenes: 152.3 MPix), and the Cityscapes config at full width.
+DATA_EPOCHS = 2
+TILES_DIR_TILES = 157
+TILE_PX = 512
+SCENE_SIZES = ((2566, 1893), (2428, 2006), (2500, 1934), (1281, 2336), (2546, 1903), (2064, 2494))
+N_SCENES = 33
+CITYSCAPES = os.path.join(REPO, "configs", "cityscapes_unet_v5e64.json")
+CITYSCAPES_FRAMES = 24
+CITYSCAPES_FRAME = (1024, 2048)  # a frame's (H, W), before the converter's downscale of 2
+CITYSCAPES_STEPS = {"cityscapes_synthetic": 7, "cityscapes_dir": 1}  # steps an epoch: 97/16, 16/16
+CITYSCAPES_PARAMS = 33_445_104
+CITYSCAPES_FLOPS = 2_588_254_666_752  # micro 16 x sync 1, as the JAX package counts them
+# Tiles a second the host path must deliver to keep the card busy: the
+# flagship's 512 tiles a step at 0.52 s.
+NEED_TILES_PER_S = 512 / 0.52
 DP_DEADLINE_S = 420  # a world still running then is killed, and the run fails
 SYNC_STEP = 7  # the step whose key the sync-level check's stochastic rounding uses
 SNAP_OPS_PER_ELEM = 7  # divide, multiply, add, floor, 2 compares, convert
@@ -1116,16 +1166,293 @@ def zoo_phase(label: str, profile: bool) -> dict:
     return run
 
 
+def vaihingen_like(rng, h: int, w: int):
+    """uint8 imagery [h, w, 3] and int32 labels [h, w] of six classes in
+    32-pixel blocks, each class a colour with noise (the synthetic tiles'
+    structure, drawn as integers so that gigapixel fixtures take seconds)."""
+    import numpy as np
+
+    palette = rng.integers(25, 231, (6, 3))
+    grid = rng.integers(0, 6, (-(-h // 32), -(-w // 32)))
+    labels = np.repeat(np.repeat(grid, 32, 0), 32, 1)[:h, :w].astype(np.int32)
+    noise = rng.integers(-12, 13, (h, w, 3))
+    return np.clip(palette[labels] + noise, 0, 255).astype(np.uint8), labels
+
+
+def write_tile_dirs(root: str) -> tuple:
+    """``TILES_DIR_TILES`` tiles of 512², from the seed, with void pixels
+    in every fifth label, written once as ``--format npy`` (``<stem>_img.npy``)
+    and once as PNG, each beside its ``<stem>.npy`` int32 mask."""
+    import numpy as np
+
+    from ddlpc_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    npy_dir, png_dir = os.path.join(root, "tiles_npy"), os.path.join(root, "tiles_png")
+    for d in (npy_dir, png_dir):
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(0)
+    for i in range(TILES_DIR_TILES):
+        img, lab = vaihingen_like(rng, TILE_PX, TILE_PX)
+        if i % 5 == 0:
+            lab[:16, :16] = -1
+        np.save(os.path.join(npy_dir, f"top_{i:03d}_img.npy"), img)
+        png.write_png(os.path.join(png_dir, f"top_{i:03d}.png"), img, level=1)
+        for d in (npy_dir, png_dir):
+            np.save(os.path.join(d, f"top_{i:03d}.npy"), lab)
+    log(f"tile directories: {TILES_DIR_TILES} tiles of {TILE_PX}², npy and png, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return npy_dir, png_dir
+
+
+def write_scene_dir(root: str) -> str:
+    """``N_SCENES`` uint8 scenes at the sizes of
+    ``docs/disk_fit/scene_scale.json`` (its six, cycled: 152.3 MPix in
+    all), ``<stem>_img.npy`` and int32 ``<stem>.npy``, from the seed."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    path = os.path.join(root, "scenes")
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(1)
+    pixels = 0
+    for i in range(N_SCENES):
+        h, w = SCENE_SIZES[i % len(SCENE_SIZES)]
+        img, lab = vaihingen_like(rng, h, w)
+        np.save(os.path.join(path, f"scene_{i:02d}_img.npy"), img)
+        np.save(os.path.join(path, f"scene_{i:02d}.npy"), lab)
+        pixels += h * w
+    log(f"scene directory: {N_SCENES} scenes, {pixels / 1e6:.1f} MPix, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def write_cityscapes(root: str) -> str:
+    """A Cityscapes checkout's layout (``leftImg8bit/train/<city>`` RGB
+    frames and ``gtFine/train/<city>`` labelIds, 2048×1024 PNGs) of
+    ``CITYSCAPES_FRAMES`` frames from the seed, with void label ids (0, 1
+    and 4 have no trainId), converted with the port's
+    ``prepare_cityscapes`` (downscale 2, ``--format npy``) into 1024×512
+    tiles.  Returns the tile directory."""
+    import numpy as np
+
+    from ddlpc_tpu_torch.data import png, prepare_cityscapes
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    ids = np.array([0, 1, 4, 7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 26, 27, 28, 32, 33])
+    for i in range(CITYSCAPES_FRAMES):
+        city = ("aachen", "bochum")[i % 2]
+        for kind in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, kind, "train", city), exist_ok=True)
+        stem = f"{city}_{i:06d}_000019"
+        img, lab = vaihingen_like(rng, *CITYSCAPES_FRAME)
+        png.write_png(os.path.join(root, "leftImg8bit", "train", city, f"{stem}_leftImg8bit.png"), img,
+                      level=1)
+        label_ids = ids[(lab * 3 + rng.integers(0, 4, lab.shape)) % len(ids)].astype(np.uint8)
+        png.write_png(os.path.join(root, "gtFine", "train", city, f"{stem}_gtFine_labelIds.png"),
+                      label_ids, level=1)
+    t1 = time.perf_counter()
+    tiles = os.path.join(root, "tiles")
+    prepare_cityscapes.main(["--root", root, "--split", "train", "--out", tiles, "--downscale", "2",
+                             "--format", "npy"])
+    log(f"cityscapes layout: {CITYSCAPES_FRAMES} frames of {CITYSCAPES_FRAME} written in {t1 - t0:.1f} s, "
+        f"converted (python -m ddlpc_tpu_torch.data.prepare_cityscapes --downscale 2 --format npy) "
+        f"in {time.perf_counter() - t1:.1f} s")
+    return tiles
+
+
+def host_rate(loader, epochs: int = 1) -> float:
+    """Tiles a second the loader alone delivers onto the card: ``epochs``
+    epochs through it, host clock, ending in a synchronize."""
+    n = 0
+    t0 = time.perf_counter()
+    for e in range(epochs):
+        loader.set_epoch(e)
+        for images, _ in loader:
+            n += images.shape[0] * images.shape[1]
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def loader_digest(loader, epoch: int) -> str:
+    """The hash of one epoch of ``loader``'s batches (bf16 images by their
+    bits)."""
+    loader.set_epoch(epoch)
+    return _digest(*(t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+                     for batch in loader for t in batch))
+
+
+def data_path_row(label: str, run: dict) -> dict:
+    """One data path's numbers, printed beside the card: the last epoch's
+    step time, data wait and loader stages, the producer's tiles/s over
+    its stages, the loader's delivered tiles/s alone (``host_rate``)
+    against ``NEED_TILES_PER_S``, the idle share of a profiled step, the
+    peak memory, MFU and the codec's launches."""
+    trainer = run["trainer"]
+    rec = run["epochs"][-1]
+    stages = [rec.get(f"t_loader_{s}_s") or 0.0 for s in ("gather", "cast", "upload")]
+    profiled = profile_phase(trainer, label)
+    row = {"path": label, "loader": type(trainer.loader).__name__,
+           "tiles_a_step": trainer.loader.super_batch, "step_time_s": rec["step_time_s"],
+           "t_data_s": rec["t_data_s"], "t_loader_gather_s": rec.get("t_loader_gather_s"),
+           "t_loader_cast_s": rec.get("t_loader_cast_s"), "t_loader_upload_s": rec.get("t_loader_upload_s"),
+           "producer_tiles_per_s": trainer.loader.super_batch / sum(stages) if sum(stages) else None,
+           "host_tiles_per_s": host_rate(trainer.loader), "need_tiles_per_s": NEED_TILES_PER_S,
+           "idle_share": profiled["idle_share"], "profiled_step_ms": profiled["wall_ms"],
+           "peak_gib": run["peak_bytes"] / 2**30, "mfu": rec["mfu"], "launches": run["launches"]}
+    log(f"data path row: {json.dumps(row)} ({smi_line()})")
+    return row
+
+
+def free(run: dict) -> None:
+    run.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def codec_expect(steps: int) -> dict:
+    """The flagship's launches in ``steps`` steps (the nearest fp16 codec)."""
+    return {"encode_to_wire": steps, "decode_from_wire": steps, "fake_quantize_fused": steps,
+            "absmax": 2 * steps}
+
+
+def tiles_dir_phase(root: str) -> dict:
+    """``flagship_tiles_dir``: the flagship as written from a tile
+    directory (``--set data.data_dir=``), two epochs (one step each) three
+    ways: (a) npy, eager, the device cache as written; (b) png, eager,
+    whose losses must be (a)'s bits; (c) npy, ``lazy_tiles``, the host
+    loader with four workers and the compact wire, whose first loss must
+    be (a)'s bits and the second within one fp32 ulp of it."""
+    import numpy as np
+
+    npy_dir, png_dir = write_tile_dirs(root)
+    runs, rows = {}, {}
+    for label, data_dir, extra, loader in (
+        ("tiles_npy_eager", npy_dir, (), "DeviceCachedLoader"),
+        ("tiles_png_eager", png_dir, (), "DeviceCachedLoader"),
+        ("tiles_npy_lazy_compact_w4", npy_dir, ("data.lazy_tiles=True", "data.device_cache=False",
+                                                 "data.loader_workers=4", "data.compact_upload=True"),
+         "ShardedLoader"),
+    ):
+        run = main_path_phase(label, (f"data.data_dir={data_dir}", *extra), codec_expect(DATA_EPOCHS),
+                              warns=False, epochs=DATA_EPOCHS, micro_batch=None, loader=loader)
+        if len(run["trainer"].train_ds) != TILES_DIR_TILES - 30:
+            fail(f"[{label}] {len(run['trainer'].train_ds)} training tiles, expected {TILES_DIR_TILES - 30}")
+        rows[label] = data_path_row(label, run)
+        free(run)
+        runs[label] = run
+    a = runs["tiles_npy_eager"]["losses"]
+    if runs["tiles_png_eager"]["losses"] != a:
+        fail(f"[flagship_tiles_dir] png losses {runs['tiles_png_eager']['losses']} != npy's {a}")
+    c = runs["tiles_npy_lazy_compact_w4"]["losses"]
+    ulp = [float(abs(np.float32(x) - np.float32(y)) / np.spacing(np.float32(y))) for x, y in zip(c, a)]
+    if c[0] != a[0] or max(ulp) > 1:
+        fail(f"[flagship_tiles_dir] lazy compact losses {c} against npy's {a}: {ulp} ulp")
+    log(f"[flagship_tiles_dir] losses: npy {a}, png == npy bit for bit, lazy+compact+4 workers {c} "
+        f"({ulp} ulp from npy's)")
+    return {"runs": runs, "rows": rows}
+
+
+def scenes_phase(root: str) -> dict:
+    """``flagship_scenes``: the flagship as written over a scene directory
+    at the reference's scale (``write_scene_dir``) in crop mode,
+    ``crops_per_epoch=512, test_split_scenes=1, device_cache=false``, two
+    epochs: eager, then ``mmap_scenes, augment, compact_upload,
+    loader_workers=4``.  Each loader's first epoch must equal by digest
+    the same loader's over the other residency: the eager run's against an
+    mmap loading of the same settings, the mmap run's against the eager
+    scenes under its own augmentation, wire and workers."""
+    from ddlpc_tpu_torch.data.datasets import DihedralAugment, build_dataset
+    from ddlpc_tpu_torch.data.loader import ShardedLoader
+
+    scenes = write_scene_dir(root)
+    base = (f"data.data_dir={scenes}", "data.crops_per_epoch=512", "data.test_split_scenes=1",
+            "data.device_cache=False")
+    rows, runs = {}, {}
+    eager = main_path_phase("scenes_eager", base, codec_expect(DATA_EPOCHS), warns=False,
+                            epochs=DATA_EPOCHS, micro_batch=None, loader="ShardedLoader")
+    rows["scenes_eager"] = data_path_row("scenes_eager", eager)
+    data_cfg = eager["trainer"].cfg.data
+
+    def twin(ds, loader):
+        return ShardedLoader(ds, micro_batch=loader.micro_batch, sync_period=loader.sync_period,
+                             device=loader.device, seed=data_cfg.seed, compact=loader.compact,
+                             workers=loader.workers)
+
+    t0 = time.perf_counter()
+    mmap_train, _ = build_dataset(dataclasses.replace(data_cfg, mmap_scenes=True))
+    log(f"[flagship_scenes] mmap load {time.perf_counter() - t0:.3f} s")
+    loader = eager["trainer"].loader
+    digest = loader_digest(loader, 0)
+    if digest != loader_digest(twin(mmap_train, loader), 0):
+        fail("[flagship_scenes] the eager loader's batches differ from mmap's by digest")
+    eager_train = eager["trainer"].train_ds
+    del loader, mmap_train
+    free(eager)
+    runs["scenes_eager"] = eager
+    mmap = main_path_phase(
+        "scenes_mmap_aug_compact_w4",
+        (*base, "data.mmap_scenes=True", "data.augment=True", "data.compact_upload=True",
+         "data.loader_workers=4"),
+        codec_expect(DATA_EPOCHS), warns=False, epochs=DATA_EPOCHS, micro_batch=None,
+        loader="ShardedLoader")
+    rows["scenes_mmap_aug_compact_w4"] = data_path_row("scenes_mmap_aug_compact_w4", mmap)
+    loader = mmap["trainer"].loader
+    if loader_digest(loader, 0) != loader_digest(
+            twin(DihedralAugment(eager_train, seed=data_cfg.seed), loader), 0):
+        fail("[flagship_scenes] the mmap loader's batches differ from eager's by digest")
+    log(f"[flagship_scenes] an epoch of 512 crops: eager == mmap by digest, plain ({digest}) and "
+        f"augmented + compact + 4 workers")
+    del loader
+    free(mmap)
+    runs["scenes_mmap_aug_compact_w4"] = mmap
+    return {"runs": runs, "rows": rows}
+
+
+def cityscapes_phase(root: str) -> dict:
+    """``cityscapes_full_width``: ``configs/cityscapes_unet_v5e64.json`` as
+    written at one replica (``parallel.data_axis_size=-1``), synthetic, two
+    epochs of 7 steps (fp16 codec with ``quantize_local=false``: the
+    fake-quantize of the mean and its max-abs, once a step); then two
+    epochs from a converted Cityscapes layout (``write_cityscapes``) with
+    void labels, ``data.test_split`` cut to 8 for the 24 frames."""
+    rows, runs = {}, {}
+    for label in CITYSCAPES_STEPS:
+        extra = ()
+        if label == "cityscapes_dir":
+            extra = (f"data.data_dir={write_cityscapes(os.path.join(root, 'cityscapes'))}",
+                     "data.test_split=8")
+        steps = CITYSCAPES_STEPS[label]
+        run = main_path_phase(label, ("parallel.data_axis_size=-1", *extra),
+                              {"fake_quantize_fused": DATA_EPOCHS * steps, "absmax": DATA_EPOCHS * steps},
+                              warns=False, config=CITYSCAPES, epochs=DATA_EPOCHS, micro_batch=None,
+                              flops=CITYSCAPES_FLOPS, loader="ShardedLoader")
+        trainer = run["trainer"]
+        if trainer.state.step != DATA_EPOCHS * steps:
+            fail(f"[{label}] {trainer.state.step} optimizer steps, expected {DATA_EPOCHS} x {steps}")
+        void = float((trainer.test_ds.labels == -1).mean())
+        if label == "cityscapes_dir" and not 0 < void < 1:
+            fail(f"[{label}] eval labels void share {void}: the layout's void ids were lost")
+        log(f"[{label}] {run['n_params']} parameters, {trainer.state.step} steps, eval void share "
+            f"{void:.4f}, peak {run['peak_bytes'] / 2**30:.2f} GiB ({smi_line()})")
+        del trainer
+        rows[label] = data_path_row(label, run)
+        free(run)
+        runs[label] = run
+    return {"runs": runs, "rows": rows}
+
+
 def path_row(label: str, records: list, perf: list) -> list:
     """Each epoch's times, MFU and goodput, printed beside the card."""
     rows = [{"epoch": r["epoch"], "epoch_time_s": r["epoch_time_s"], "step_time_s": r["step_time_s"],
-             "t_data_s": r.get("t_data_s"), "t_step_s": r.get("t_step_s"), "mfu": p["mfu"],
-             "goodput": p["goodput"]} for r, p in zip(records, perf)]
+             "t_data_s": r.get("t_data_s"), "t_step_s": r.get("t_step_s"),
+             **{k: r[k] for k in ("t_loader_gather_s", "t_loader_cast_s", "t_loader_upload_s") if k in r},
+             "mfu": p["mfu"], "goodput": p["goodput"]} for r, p in zip(records, perf)]
     card = smi_line()
     for row in rows:
-        log(f"[{label}] epoch {row['epoch']}: epoch_time_s {row['epoch_time_s']} step_time_s "
-            f"{row['step_time_s']} t_data_s {row['t_data_s']} t_step_s {row['t_step_s']} mfu "
-            f"{row['mfu']} goodput {row['goodput']} ({card})")
+        log(f"[{label}] epoch {row['epoch']}: " + " ".join(f"{k} {v}" for k, v in row.items() if k != "epoch")
+            + f" ({card})")
     return rows
 
 
@@ -1150,13 +1477,14 @@ def perf_checks(label: str, lines: list, flops: int, epochs: int = EPOCHS) -> li
 def loader_equal(label: str, trainer, loader, epochs: int) -> int:
     """``loader``'s batches of ``epochs`` epochs, every batch held at once,
     against ``DeviceLoader``'s (the plain host path) on the same split,
-    seed and replica, with ``torch.equal``.  Returns the batch count."""
+    seed, replica and wire, with ``torch.equal``.  Returns the batch
+    count."""
     from ddlpc_tpu_torch.data.loader import DeviceLoader
 
     plain = DeviceLoader(trainer.train_ds, micro_batch=loader.micro_batch,
                          sync_period=loader.sync_period, device=trainer.device,
                          shuffle=trainer.cfg.data.shuffle, seed=trainer.cfg.data.seed,
-                         replica=loader.replica, world=loader.world)
+                         replica=loader.replica, world=loader.world, compact=loader.compact)
     n = 0
     for e in range(epochs):
         loader.set_epoch(e)
@@ -1170,8 +1498,8 @@ def loader_equal(label: str, trainer, loader, epochs: int) -> int:
             n += 1
         del held
     log(f"[{label}] {type(loader).__name__}: {n} batches of {epochs} epoch(s), micro {loader.micro_batch} "
-        f"x sync {loader.sync_period}, replica {loader.replica} of {loader.world}, == DeviceLoader's "
-        f"(torch.equal)")
+        f"x sync {loader.sync_period}, replica {loader.replica} of {loader.world}, compact "
+        f"{loader.compact}, == DeviceLoader's (torch.equal)")
     return n
 
 
@@ -1210,8 +1538,8 @@ def read_png(path: str):
 
 def png_checks(label: str, trainer, epochs: int = EPOCHS) -> None:
     """``IMAGES_PER_EPOCH`` triples an epoch; the last epoch's decode to
-    the palette of the final state's predictions and of the labels, and to
-    the image at x255."""
+    the palette of the final state's predictions and of the labels (void
+    drawn as class 0, as the writer draws it), and to the image at x255."""
     import numpy as np
 
     from ddlpc_tpu_torch.train.observability import class_palette
@@ -1228,7 +1556,7 @@ def png_checks(label: str, trainer, epochs: int = EPOCHS) -> None:
     pal = class_palette(trainer.cfg.model.num_classes)
     last = os.path.join(root, f"epoch_{epochs - 1:04d}")
     for i in range(IMAGES_PER_EPOCH):
-        for kind, rgb in (("Model", pal[preds[i]]), ("Label", pal[labels[i]]),
+        for kind, rgb in (("Model", pal[preds[i]]), ("Label", pal[np.clip(labels[i], 0, len(pal) - 1)]),
                           ("Image", np.clip(images[i] * 255.0, 0, 255).astype(np.uint8))):
             if not np.array_equal(read_png(os.path.join(last, f"{kind} {i}.png")), rgb):
                 fail(f"[{label}] {kind} {i}.png of epoch {epochs - 1} does not decode to its pixels")
@@ -1385,12 +1713,13 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
     return row
 
 
-def profile_phase(trainer, label: str) -> None:
+def profile_phase(trainer, label: str) -> dict:
     """One more optimizer step of the path under ``torch.profiler``: device
     time by kernel, the device's idle share over the step (1 − summed
     kernel time / wall time; one stream, so kernels do not overlap), and
     the step's FLOPs — counted with ``FlopCounterMode`` on one tile's
-    forward and backward, times the super-batch — against the bf16 peak."""
+    forward and backward, times the super-batch — against the bf16 peak.
+    Returns the step's wall and busy ms, idle share and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
@@ -1429,6 +1758,8 @@ def profile_phase(trainer, label: str) -> None:
              if any(k in n for k in ("encode_", "decode_kernel", "fake_quantize_", "absmax"))}
     log(f"[{label}] codec kernels in the step: {sum(codec.values()):.4f} ms, "
         + ", ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in sorted(codec.items())))
+    return {"wall_ms": wall_s * 1e3, "busy_ms": busy_s * 1e3, "idle_share": 1.0 - busy_s / wall_s,
+            "launches": len(kernels)}
 
 
 def shard_kernel_rows(n: int) -> list:
@@ -2220,9 +2551,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     opts = options_phase(main)
     zoo = {label: zoo_phase(label, profile) for label in ZOO_PATHS}
+    data_root = os.path.join(WORKDIR, "data")
+    data = {}
+    for phase in (tiles_dir_phase, scenes_phase, cityscapes_phase):
+        data = {key: {**data.get(key, {}), **part} for key, part in phase(data_root).items()}
+    data_runs = data["runs"]
+    cs_run = data_runs.pop("cityscapes_synthetic")
+    cs_dir_run = data_runs.pop("cityscapes_dir")
+    if cs_run["n_params"] != CITYSCAPES_PARAMS:
+        fail(f"the Cityscapes config has {cs_run['n_params']} parameters, not {CITYSCAPES_PARAMS}")
+    # The codec's kernels at the Cityscapes config's gradient size.
+    cs_rows = kernel_phase(cs_run["n_params"])
+    for row in cs_rows:
+        row["launches"] = cs_run["launches"][row["name"]]
+        row["launches_by_path"] = {"cityscapes_synthetic": row["launches"],
+                                   "cityscapes_dir": cs_dir_run["launches"][row["name"]]}
     dp = {label: dp_phase(label) for label in DP_PHASES}
     stall_row = stall_phase()
-    for run in (main, sr, opts, *dp.values()):
+    for run in (main, sr, opts, *dp.values(), *data_runs.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
     # Each row's launches are read from the single-process path that runs
@@ -2235,22 +2581,29 @@ def main() -> int:
                        "stochastic_int8": sr["launches"][row["name"]],
                        "flagship_options": opts["launches"][row["name"]],
                        **{label: run["launches"][row["name"]] for label, run in dp.items()},
-                       **{label: run["launches"][row["name"]] for label, run in zoo.items()}}
+                       **{label: run["launches"][row["name"]] for label, run in zoo.items()},
+                       **{label: run["launches"][row["name"]] for label, run in data_runs.items()}}
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
     paths = {"nearest_fp16": main["epochs"], "stochastic_int8": sr["epochs"],
              "flagship_options": opts["epochs"],
              **{label: run["epochs"] for label, run in dp.items()},
-             **{label: run["epochs"] for label, run in zoo.items()}}
+             **{label: run["epochs"] for label, run in zoo.items()},
+             **{label: run["epochs"] for label, run in data_runs.items()},
+             "cityscapes_synthetic": cs_run["epochs"], "cityscapes_dir": cs_dir_run["epochs"]}
     log("paths: " + json.dumps({"card": smi, "epochs": paths,
                                 "peak_bytes": {"nearest_fp16": main["peak_bytes"],
                                                "stochastic_int8": sr["peak_bytes"],
                                                "flagship_options": opts["peak_bytes"],
-                                               **{k: r["peak_bytes"] for k, r in zoo.items()}}}))
-    print(json.dumps({"kernels": rows, "floor": floor, "chunk_rows": chunk_rows,
-                      "data_parallel": dp, "checkpoint": ckpt_row, "sqrt": sqrt_row,
-                      "host": host_rows, "stall": stall_row, "paths": paths}))
+                                               **{k: r["peak_bytes"] for k, r in zoo.items()},
+                                               **{k: r["peak_bytes"] for k, r in data_runs.items()},
+                                               "cityscapes_synthetic": cs_run["peak_bytes"],
+                                               "cityscapes_dir": cs_dir_run["peak_bytes"]}}))
+    print(json.dumps({"kernels": rows, "cityscapes_kernels": cs_rows, "floor": floor,
+                      "chunk_rows": chunk_rows, "data_parallel": dp, "data_paths": data["rows"],
+                      "checkpoint": ckpt_row, "sqrt": sqrt_row, "host": host_rows,
+                      "stall": stall_row, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,23 +4,28 @@ three ways to put a super-batch on the device, byte for byte the same.
 ``EpochSampler`` is ``ddlpc_tpu/data/loader.py:_EpochSampler``: the same
 per-epoch permutation (``default_rng(seed + epoch).shuffle``) and the same
 wrap-fill, so a run trains on the same tiles in the same order as the
-reference.  Each loader yields one optimizer step's ``sync_period``
-micro-batches as images ``[A,B,H,W,C]`` float32 and labels ``[A,B,H,W]``
-int64 on its device.  In a world of W replicas every replica computes the
-same permutation and takes its own columns ``[r·B, (r+1)·B)`` of each
-``[A, W·B]`` super-batch (``DeviceLoader.index_chunks``), as the JAX
-``ShardedLoader`` does per process (``loader.py:305-313``).
+reference; ``set_epoch`` also sets the dataset's epoch (crop plans and
+augmentations are drawn per epoch).  Each loader yields one optimizer
+step's ``sync_period`` micro-batches as images ``[A,B,H,W,C]`` and labels
+``[A,B,H,W]`` int64 on its device.  In a world of W replicas every replica
+computes the same permutation and takes its own columns ``[r·B, (r+1)·B)``
+of each ``[A, W·B]`` super-batch (``DeviceLoader.index_chunks``), as the
+JAX ``ShardedLoader`` does per process (``loader.py:305-313``).
 
-- :class:`DeviceLoader`: numpy gathers the tiles, and they go to the
-  device through pinned memory, one batch at a time.  The plain version
-  the other two are held against.
+``compact`` (``data.compact_upload``) ships the images as bfloat16 and the
+labels as int8 (:func:`compact_cast`, the JAX ``_compact_cast``): the
+images arrive on the device as bf16, which every model casts to its
+compute dtype first, and the labels are widened to int64 there.
+
+- :class:`DeviceLoader`: numpy gathers the tiles (``dataset.gather``), and
+  they go to the device through pinned memory, one batch at a time.  The
+  plain version the other two are held against.
 - :class:`DeviceCachedLoader` (``data.device_cache``): the split is
   uploaded once and each super-batch is gathered on the device, the JAX
   ``DeviceCachedLoader``.
-- :class:`ShardedLoader` (the host path, ``device_cache`` off): a producer
-  thread gathers up to ``prefetch`` batches ahead into a ring of pinned
-  buffers (with ``native_gather``, the port's ``dwb_gather_pack``) and
-  copies them to the device, the JAX ``ShardedLoader``.
+- :class:`ShardedLoader` (the host path, ``device_cache`` off): producer
+  threads assemble batches ahead into a ring of pinned buffers and copy
+  them to the device, the JAX ``ShardedLoader``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ddlpc_tpu_torch.data.datasets import TileDataset
+from ddlpc_tpu_torch.data.datasets import TileDataset, gather_into
 from ddlpc_tpu_torch.utils import native
 
 
@@ -43,13 +48,45 @@ def steps_per_epoch(n_tiles: int, super_batch: int) -> int:
     return -(-n_tiles // super_batch)
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 → the bit patterns (uint16) of bfloat16, rounded to nearest
+    even as ``ml_dtypes`` rounds (numpy has no bfloat16): a NaN becomes
+    the quiet NaN of its sign, ±inf and overflow ±inf, subnormals round
+    like any other value."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    rne = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+    nan = (((bits >> 16) & 0x8000) | 0x7FC0).astype(np.uint16)
+    return np.where((bits & 0x7FFFFFFF) > 0x7F800000, nan, rne)
+
+
+def compact_cast(imgs: np.ndarray, labs: np.ndarray, img_out: np.ndarray,
+                 lab_out: np.ndarray) -> None:
+    """fp32/int32 tiles into bf16 bits (uint16 or int16) and int8 buffers,
+    a tile at a time (no batch-sized temporaries).  Labels must fit int8
+    with the -1 void sentinel (``utils/native.check_label_range``)."""
+    if labs.size:
+        native.check_label_range(labs.min(), labs.max())
+    img_out = img_out.reshape(imgs.shape).view(np.uint16)
+    for i in range(len(imgs)):
+        img_out[i] = bf16_bits(imgs[i])
+    np.copyto(lab_out.reshape(labs.shape), labs, casting="unsafe")
+
+
+def _compact_arrays(imgs: np.ndarray, labs: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compact_cast` into new bf16/int8 tensors."""
+    img_t = torch.empty(imgs.shape, dtype=torch.bfloat16)
+    lab_t = torch.empty(labs.shape, dtype=torch.int8)
+    compact_cast(imgs, labs, img_t.view(torch.int16).numpy(), lab_t.numpy())
+    return img_t, lab_t
+
+
 class EpochSampler:
     """Seeded per-epoch permutation, wrap-filled to whole super-batches
     (the reference's default ``tail='wrap'``, the only one ported)."""
 
     def __init__(
         self,
-        dataset: TileDataset,
+        dataset,
         super_batch: int,
         shuffle: bool = True,
         seed: int = 0,
@@ -67,6 +104,7 @@ class EpochSampler:
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
+        self.ds.set_epoch(epoch)
 
     def epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
@@ -78,11 +116,12 @@ class EpochSampler:
 class DeviceLoader(EpochSampler):
     """Iterates ``(images [A,B,H,W,C], labels [A,B,H,W])`` on ``device``,
     one item per optimizer step (A = ``sync_period``, B = ``micro_batch``,
-    the per-replica micro-batch), for replica ``replica`` of ``world``."""
+    the per-replica micro-batch), for replica ``replica`` of ``world``;
+    images fp32, or bf16 with ``compact``."""
 
     def __init__(
         self,
-        dataset: TileDataset,
+        dataset,
         micro_batch: int,
         sync_period: int,
         device: torch.device,
@@ -90,6 +129,7 @@ class DeviceLoader(EpochSampler):
         seed: int = 0,
         replica: int = 0,
         world: int = 1,
+        compact: bool = False,
     ):
         if not 0 <= replica < world:
             raise ValueError(f"replica {replica} is not in a world of {world}")
@@ -99,6 +139,7 @@ class DeviceLoader(EpochSampler):
         self.device = device
         self.replica = replica
         self.world = world
+        self.compact = compact
 
     def index_chunks(self) -> Iterator[np.ndarray]:
         """This replica's flat tile indices ``[A·B]``, one array per
@@ -113,22 +154,22 @@ class DeviceLoader(EpochSampler):
         a, b = self.sync_period, self.micro_batch
         for local in self.index_chunks():
             images, labels = self.ds.gather(local)
-            yield (
-                to_device(images.reshape(a, b, *images.shape[1:]), self.device),
-                to_device(
-                    labels.reshape(a, b, *labels.shape[1:]).astype(np.int64),
-                    self.device,
-                ),
-            )
-
+            images = images.reshape(a, b, *images.shape[1:])
+            labels = labels.reshape(a, b, *labels.shape[1:])
+            if self.compact:
+                img_t, lab_t = _compact_arrays(images, labels)
+                yield to_device(img_t, self.device), to_device(lab_t, self.device).long()
+            else:
+                yield to_device(images, self.device), to_device(labels.astype(np.int64), self.device)
 
 
 class DeviceCachedLoader(DeviceLoader):
     """The train split on the device, uploaded once (images fp32
-    ``[N,H,W,C]``, labels int32 ``[N,H,W]``); each super-batch is
-    ``index_select``-ed there into ``[A,B,H,W,C]``/``[A,B,H,W]``, the
-    labels widened to int64 on the device.  The batches are
-    :class:`DeviceLoader`'s, byte for byte.
+    ``[N,H,W,C]`` and labels int32 ``[N,H,W]``, or bf16 and int8 with
+    ``compact``: 44 % of the bytes); each super-batch is ``index_select``-ed
+    there into ``[A,B,H,W,C]``/``[A,B,H,W]``, the labels widened to int64
+    on the device.  The batches are :class:`DeviceLoader`'s, byte for
+    byte.  It needs a fixed-tile :class:`TileDataset`, as JAX's does.
 
     In a world of W processes each rank caches the whole split and gathers
     only its own columns.  That reproduces the batches of the JAX
@@ -138,31 +179,45 @@ class DeviceCachedLoader(DeviceLoader):
     processes are hosts of a multi-host mesh, which the port does not
     have."""
 
-    def __init__(self, dataset: TileDataset, *args, **kwargs):
+    def __init__(self, dataset, *args, **kwargs):
+        if not isinstance(dataset, TileDataset):
+            raise ValueError(
+                "DeviceCachedLoader needs a fixed-tile TileDataset (crop "
+                "datasets materialize tiles on the host per epoch)"
+            )
         super().__init__(dataset, *args, **kwargs)
-        self._images = torch.from_numpy(dataset.images).to(self.device)
-        self._labels = torch.from_numpy(dataset.labels).to(self.device)
+        if self.compact:
+            img_t, lab_t = _compact_arrays(dataset.images, dataset.labels)
+        else:
+            img_t, lab_t = torch.from_numpy(dataset.images), torch.from_numpy(dataset.labels)
+        self._images = img_t.to(self.device)
+        self._labels = lab_t.to(self.device)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         a, b = self.sync_period, self.micro_batch
         for local in self.index_chunks():
             idx = torch.from_numpy(local).to(self.device)
-            # One expression, so that no local keeps the int32 gather alive
+            # One expression, so that no local keeps the narrow gather alive
             # while the consumer holds the batch.
             yield (self._images.index_select(0, idx).view(a, b, *self._images.shape[1:]),
                    self._labels.index_select(0, idx).view(a, b, *self._labels.shape[1:]).long())
 
 
 class _Slot:
-    """A ring entry: the ``[A,B,H,W,C]`` fp32 / ``[A,B,H,W]`` int32 host
-    destination (pinned on a card) and the CUDA event of the last copy that
-    read it (None on the CPU, where the copy is done when it returns)."""
+    """A ring entry: the ``[A,B,H,W,C]`` / ``[A,B,H,W]`` host destination
+    (fp32/int32, or bf16/int8 under ``compact``; pinned on a card), the
+    fp32/int32 scratch of a compact cast that cannot fuse with the gather
+    (allocated at its first use), and the CUDA event of the last copy that
+    read the destination (None on the CPU, where the copy is done when it
+    returns)."""
 
-    __slots__ = ("imgs", "labs", "copied")
+    __slots__ = ("imgs", "labs", "scratch_imgs", "scratch_labs", "copied")
 
     def __init__(self, imgs: torch.Tensor, labs: torch.Tensor):
         self.imgs = imgs
         self.labs = labs
+        self.scratch_imgs: Optional[np.ndarray] = None
+        self.scratch_labs: Optional[np.ndarray] = None
         self.copied: Optional[torch.cuda.Event] = None
 
 
@@ -190,71 +245,130 @@ class _Ring:
             self._cv.notify()
 
 
-class ShardedLoader(DeviceLoader):
-    """The host path: one producer thread gathers each super-batch into a
-    slot of a ring of ``prefetch + 1`` host buffers, pinned on a card, and
-    copies it to the device without blocking, up to ``prefetch`` batches
-    ahead of the consumer.  With ``native_gather`` the gather is the port's
-    ``dwb_gather_pack`` (``kernels/host/batch.cc``, one multithreaded pass
-    straight into the slot), else numpy's ``take``; a failed build of the
-    native library raises (``utils/native.NativeBuildError``).  Labels go
-    to the device as int32 and are widened there.  The batches are
-    :class:`DeviceLoader`'s, byte for byte.
+def host_view(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's storage as numpy (bf16 as its int16 bit pattern)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
-    ``timer`` (a ``train/observability.StageTimer``) gets the producer's
-    ``loader_gather`` and ``loader_upload`` stages."""
+
+class ShardedLoader(DeviceLoader):
+    """The host path, the JAX ``ShardedLoader``: ``workers`` producer
+    threads assemble the super-batches into a ring of
+    ``max(prefetch, workers) + 1`` host buffers, pinned on a card, and copy
+    them to the device without blocking, up to ``max(prefetch, workers)``
+    batches ahead of the consumer.  Batches are yielded in epoch order and
+    are :class:`DeviceLoader`'s, byte for byte, for any worker count; a
+    producer's exception surfaces at its batch, and a consumer that stops
+    early waits for the batches in flight.
+
+    Assembly takes one of three routes (:meth:`_assemble`): a resident
+    source (a :class:`TileDataset`) with ``native_gather`` goes through the
+    port's ``dwb_gather_pack`` (``kernels/host/batch.cc``: gather, the
+    compact cast, and the pack in one multithreaded pass); any other
+    source under ``compact`` is gathered into the slot's fp32/int32
+    scratch (``datasets.gather_into``: lazy reads, crops, augmentation) and
+    then cast and packed in one pass (native, or numpy's); and a plain fp32
+    batch is gathered into the slot directly.  A failed build of the native
+    library raises (``utils/native.NativeBuildError``).  Labels go to the
+    device as int32 (int8 under ``compact``) and are widened there.
+
+    ``timer`` (a ``train/observability.StageTimer``) gets the producers'
+    ``loader_gather``, ``loader_cast`` and ``loader_upload`` stages."""
 
     def __init__(
         self,
-        dataset: TileDataset,
+        dataset,
         *args,
         native_gather: bool = True,
         prefetch: int = 2,
+        workers: int = 1,
         timer=None,
         **kwargs,
     ):
         super().__init__(dataset, *args, **kwargs)
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        if workers < 1:
+            raise ValueError(f"workers must be >= 1, got {workers}")
         self.prefetch = prefetch
+        self.workers = workers
         self.timer = timer
         self._native = native.load_batch() if native_gather else None
         self._ring: Optional[_Ring] = None
+        self._iota_cache: Optional[np.ndarray] = None
 
     def _stage(self, name: str):
         return self.timer.stage(f"loader_{name}") if self.timer is not None else nullcontext()
 
     def _get_ring(self) -> _Ring:
+        """The ring: one slot for each batch in flight and one for the
+        batch being consumed, so that no worker waits for a slot."""
         if self._ring is None:
             a, b = self.sync_period, self.micro_batch
             h, w, c = self.ds.image_shape
             pin = self.device.type == "cuda"
+            img_dt, lab_dt = (torch.bfloat16, torch.int8) if self.compact else (torch.float32, torch.int32)
             self._ring = _Ring([
-                _Slot(torch.empty((a, b, h, w, c), dtype=torch.float32, pin_memory=pin),
-                      torch.empty((a, b, h, w), dtype=torch.int32, pin_memory=pin))
-                for _ in range(self.prefetch + 1)
+                _Slot(torch.empty((a, b, h, w, c), dtype=img_dt, pin_memory=pin),
+                      torch.empty((a, b, h, w), dtype=lab_dt, pin_memory=pin))
+                for _ in range(max(self.prefetch, self.workers) + 1)
             ])
         return self._ring
 
-    def _gather(self, flat: np.ndarray, slot: _Slot) -> None:
-        images, labels = self.ds.images, self.ds.labels
-        imgs, labs = slot.imgs.numpy(), slot.labs.numpy()
-        if self._native is not None:
-            self._native.gather_pack(images, labels, flat, imgs, labs)
-            return
-        if len(flat) and (flat.min() < 0 or flat.max() >= len(images)):
-            raise IndexError(f"gather index out of range for dataset of {len(images)} tiles")
-        # mode='clip' writes straight into ``out`` (numpy buffers 'raise');
-        # the bounds are checked above.
-        np.take(images, flat, axis=0, mode="clip", out=imgs.reshape(len(flat), *images.shape[1:]))
-        np.take(labels, flat, axis=0, mode="clip", out=labs.reshape(len(flat), *labels.shape[1:]))
+    def _native_source(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The dataset's resident fp32/int32 arrays, which the fused kernel
+        gathers from; None for lazy, crop and augmented sources."""
+        imgs = getattr(self.ds, "images", None)
+        labs = getattr(self.ds, "labels", None)
+        if (
+            isinstance(imgs, np.ndarray)
+            and isinstance(labs, np.ndarray)
+            and imgs.dtype == np.float32
+            and labs.dtype == np.int32
+            and imgs.flags.c_contiguous
+            and labs.flags.c_contiguous
+        ):
+            return imgs, labs
+        return None
+
+    def _iota(self, n: int) -> np.ndarray:
+        if self._iota_cache is None or len(self._iota_cache) != n:
+            self._iota_cache = np.arange(n, dtype=np.int64)
+        return self._iota_cache
+
+    def _ensure_scratch(self, slot: _Slot) -> None:
+        if slot.scratch_imgs is None:
+            h, w, c = self.ds.image_shape
+            n = self.sync_period * self.micro_batch
+            slot.scratch_imgs = np.empty((n, h, w, c), np.float32)
+            slot.scratch_labs = np.empty((n, h, w), np.int32)
+
+    def _assemble(self, flat: np.ndarray, slot: _Slot) -> None:
+        """The tiles ``flat`` into the slot's destination, by one of the
+        three routes of the class docstring (all byte-identical)."""
+        imgs, labs = host_view(slot.imgs), host_view(slot.labs)
+        src = self._native_source() if self._native is not None else None
+        if src is not None:
+            with self._stage("gather"):
+                self._native.gather_pack(src[0], src[1], flat, imgs, labs, self.compact)
+        elif self.compact:
+            self._ensure_scratch(slot)
+            with self._stage("gather"):
+                gather_into(self.ds, flat, slot.scratch_imgs, slot.scratch_labs)
+            with self._stage("cast"):
+                if self._native is not None:
+                    self._native.gather_pack(slot.scratch_imgs, slot.scratch_labs,
+                                             self._iota(len(flat)), imgs, labs, True)
+                else:
+                    compact_cast(slot.scratch_imgs, slot.scratch_labs, imgs, labs)
+        else:
+            with self._stage("gather"):
+                gather_into(self.ds, flat, imgs, labs)
 
     def _produce(self, flat: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         ring = self._get_ring()
         slot = ring.acquire()
         try:
-            with self._stage("gather"):
-                self._gather(np.ascontiguousarray(flat, np.int64), slot)
+            self._assemble(np.ascontiguousarray(flat, np.int64), slot)
             with self._stage("upload"):
                 if self.device.type != "cuda":
                     return slot.imgs.clone(), slot.labs.long()
@@ -268,15 +382,16 @@ class ShardedLoader(DeviceLoader):
             ring.release(slot)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-        """Batches in epoch order, the gather and copy of up to
-        ``prefetch`` later ones running on the producer thread meanwhile.
-        A producer's exception surfaces at its batch."""
-        self._get_ring()
-        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="loader") as ex:
+        """Batches in epoch order, the assembly and copy of up to
+        ``max(prefetch, workers)`` later ones running on the workers
+        meanwhile (fewer in flight would leave workers idle)."""
+        self._get_ring()  # built here, not raced by the workers
+        depth = max(self.prefetch, self.workers)
+        with ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="loader") as ex:
             pending: deque = deque()
             for flat in self.index_chunks():
                 pending.append(ex.submit(self._produce, flat))
-                while len(pending) > self.prefetch:
+                while len(pending) > depth:
                     yield pending.popleft().result()
             while pending:
                 yield pending.popleft().result()
@@ -318,10 +433,10 @@ def eval_batches(
         yield to_device(images, device), to_device(labels, device)
 
 
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → ``device``: through pinned memory with a non-blocking
-    copy on CUDA, a plain tensor on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """Host array or tensor → ``device``: through pinned memory with a
+    non-blocking copy on CUDA, a plain tensor on the CPU."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)

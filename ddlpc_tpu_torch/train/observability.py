@@ -2,23 +2,23 @@
 ``StageTimer``, ``class_palette`` and ``dump_prediction_triples`` from
 ``ddlpc_tpu/train/observability.py``.
 
-The PNGs are written by a small stdlib encoder (:func:`write_png`: 8-bit
-RGB, filter 0 on every row, one zlib stream), so the port needs no image
-library; the files decode to the same pixels as the JAX package's
+The PNGs are written by the port's stdlib encoder (``data/png.py``:
+8-bit RGB, filter 0 on every row, one zlib stream), so the port needs no
+image library; the files decode to the same pixels as the JAX package's
 PIL-written ones.
 """
 
 from __future__ import annotations
 
 import os
-import struct
 import threading
 import time
-import zlib
 from contextlib import contextmanager
 from typing import Dict
 
 import numpy as np
+
+from ddlpc_tpu_torch.data.png import write_png
 
 # ISPRS-style 6-class palette (imp surface, building, low veg, tree, car,
 # clutter), extended by a seeded draw for datasets with more classes.
@@ -77,23 +77,6 @@ class StageTimer:
         with self._lock:
             self.totals.clear()
             self.counts.clear()
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """``rgb`` ``[H, W, 3]`` uint8 as an 8-bit RGB PNG."""
-    rgb = np.ascontiguousarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected [H, W, 3] uint8, got {rgb.shape} {rgb.dtype}")
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB, no interlace
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
 def dump_prediction_triples(

@@ -26,17 +26,25 @@ JAX trainer; ``parallel.shard_update`` resolves to ``off``, ``zero1``,
 ``zero2`` or ``zero3`` as it does there, and every codec transport,
 gradient bucket size, optimizer, schedule and ``train.remat`` runs.
 
+The data are the JAX trainer's (``data/datasets.py:build_dataset``):
+synthetic tiles, or a ``data.data_dir`` of tiles (eager, or read per
+gather under ``data.lazy_tiles``) or of scenes cropped ``data.crops_per_epoch``
+times an epoch (eager, or memory-mapped under ``data.mmap_scenes``), with
+``data.augment``'s dihedral transforms; the eval split is always resident.
 The loader is the JAX trainer's choice: ``data.device_cache`` uploads the
-split once and gathers on the device, else the host path prefetches
-through a pinned ring, gathering with the native ``dwb_gather_pack`` under
-``data.native_gather`` (``data/loader.py``).  ``data.native_gather`` also
-picks the checkpoint wire's native deflate (``utils/wire.py``); a host
-library that does not build raises.  ``train.stall_timeout_s`` arms the
-stall watchdog (``train/watchdog.py``): a data fetch, step or eval batch
-that stalls is diagnosed in ``<workdir>/stall.log``, and with
-``stall_action='abort'`` the process exits 42 after the ``stalled``
-breadcrumb.  ``train.dump_images_per_epoch`` writes the prediction, label
-and image PNGs of the first test tiles under ``<workdir>/images/``.
+split once and gathers on the device, else the host path's
+``data.loader_workers`` threads prefetch through a pinned ring, gathering
+with the native ``dwb_gather_pack`` under ``data.native_gather``
+(``data/loader.py``); ``data.compact_upload`` ships bf16 images and int8
+labels on either.  ``data.native_gather`` also picks the checkpoint
+wire's native deflate (``utils/wire.py``); a host library that does not
+build raises.  ``train.stall_timeout_s`` arms the stall watchdog
+(``train/watchdog.py``): a data fetch (with the lazy read or mmap page-in
+behind it), step or eval batch that stalls is diagnosed in
+``<workdir>/stall.log``, and with ``stall_action='abort'`` the process
+exits 42 after the ``stalled`` breadcrumb.  ``train.dump_images_per_epoch``
+writes the prediction, label and image PNGs of the first test tiles under
+``<workdir>/images/``.
 ``train.perf_accounting`` adds a ``kind="perf"`` record (MFU, goodput and
 its debits, ``obs/flops.py``) and a ``kind="comm"`` record (each
 collective's bytes, ``obs/comm.py``) to ``metrics.jsonl`` every epoch.
@@ -98,17 +106,11 @@ from ddlpc_tpu_torch.utils import wire
 def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
     """``key=value`` overrides that switch off every enabled setting this
     slice does not implement (empty when the config is supported)."""
-    t, d, p = cfg.train, cfg.data, cfg.parallel
+    t, p = cfg.train, cfg.parallel
     checks = [  # (key, enabled, value that switches it off)
         ("train.profile_epoch", t.profile_epoch >= 0, -1),
         ("train.trace", t.trace, False),
         ("train.telemetry_port", t.telemetry_port >= 0, -1),
-        ("data.compact_upload", d.compact_upload, False),
-        ("data.augment", d.augment, False),
-        ("data.lazy_tiles", d.lazy_tiles, False),
-        ("data.mmap_scenes", d.mmap_scenes, False),
-        ("data.crops_per_epoch", d.crops_per_epoch != 0, 0),
-        ("data.loader_workers", d.loader_workers != 1, 1),
         ("parallel.space_axis_size", p.space_axis_size != 1, 1),
         ("parallel.pipeline_stages", p.pipeline_stages != 1, 1),
     ]
@@ -116,14 +118,19 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
 
 
 def check_exclusive(cfg: ExperimentConfig) -> None:
-    """The JAX trainer's refusals of settings that exclude each other
-    (``ddlpc_tpu/train/trainer.py:103-125``)."""
+    """The JAX trainer's refusals of settings that exclude each other or
+    that its data path cannot carry (``ddlpc_tpu/train/trainer.py:103-125``)."""
     d = cfg.data
     if d.device_cache and d.augment:
         raise ValueError(
             "data.device_cache and data.augment are mutually exclusive: "
             "augmentation runs in the host gather path that the device "
             "cache bypasses"
+        )
+    if d.compact_upload and d.num_classes > 127:
+        raise ValueError(
+            f"data.compact_upload ships int8 labels, which cannot hold "
+            f"num_classes={d.num_classes} (max 127)"
         )
     if d.lazy_tiles and d.device_cache:
         raise ValueError(
@@ -272,10 +279,11 @@ class Trainer:
             world=self.world,
         )
         if cfg.data.device_cache:
-            self.loader = DeviceCachedLoader(self.train_ds, **loader_kw)
+            self.loader = DeviceCachedLoader(self.train_ds, compact=cfg.data.compact_upload, **loader_kw)
         else:
             self.loader = ShardedLoader(
-                self.train_ds, native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
+                self.train_ds, compact=cfg.data.compact_upload, workers=cfg.data.loader_workers,
+                native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
             )
         self.train_step = make_train_step(
             self.tx, cfg.compression, self.world, seed=cfg.train.seed,

@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX, flax, optax, msgpack,
-``ddlpc_tpu``, PIL or ml_dtypes (the card's machine has neither of the
-last two; the PNG writer and the bf16 cast are the port's own).
+``ddlpc_tpu``, PIL, imageio or ml_dtypes (the card's machine has none of
+the last three; the PNG decoder and encoder and the bf16 cast are the
+port's own, and imageio is imported only to read a file that is not a PNG).
 
 Pinned in a subprocess, where a fresh interpreter imports the whole port
 and then lists what got loaded (the same pattern as the jax-free tier
@@ -19,6 +20,9 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.convert",
     "ddlpc_tpu_torch.data.datasets",
     "ddlpc_tpu_torch.data.loader",
+    "ddlpc_tpu_torch.data.png",
+    "ddlpc_tpu_torch.data.prepare_cityscapes",
+    "ddlpc_tpu_torch.data.prepare_isprs",
     "ddlpc_tpu_torch.kernels.build",
     "ddlpc_tpu_torch.models",
     "ddlpc_tpu_torch.models.deeplabv3p",
@@ -54,7 +58,7 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.utils.native",
     "ddlpc_tpu_torch.utils.wire",
 )
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu", "PIL", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu", "PIL", "ml_dtypes", "imageio")
 
 
 def test_port_loads_no_jax_flax_optax_or_ddlpc_tpu():

@@ -274,26 +274,28 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_settings_that_are_not_ported(tmp_path):
-    """The committed flagship and v5e8 configs enable nothing the port
-    lacks (image dumps, the stall watchdog, the device cache, the native
-    gather and the perf accounting are ported, as are checkpoints).  A
-    setting still unported is refused, the trainer naming each ``--set``
-    that switches one off, and only those."""
+    """The committed flagship, v5e8 and Cityscapes configs enable nothing
+    the port lacks (image dumps, the stall watchdog, the device cache, the
+    native gather, the perf accounting and every data mode are ported, as
+    are checkpoints).  A setting still unported is refused, the trainer
+    naming each ``--set`` that switches one off, and only those."""
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.train.trainer import unsupported_settings
 
-    for name in ("vaihingen_unet_tpu_flagship.json", "vaihingen_unet_v5e8.json"):
+    for name in ("vaihingen_unet_tpu_flagship.json", "vaihingen_unet_v5e8.json",
+                 "cityscapes_unet_v5e64.json"):
         with open(os.path.join(os.path.dirname(FLAGSHIP), name)) as f:
             assert unsupported_settings(ExperimentConfig.from_json(f.read())) == [], name
     with pytest.raises(NotImplementedError) as e:
         cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
                   "--workdir", str(tmp_path / "run"), "--set", "train.trace=True",
-                  "--set", "train.profile_epoch=0", "--set", "data.mmap_scenes=True"])
+                  "--set", "train.profile_epoch=0", "--set", "parallel.space_axis_size=2"])
     msg = str(e.value)
-    for key in ("train.trace=False", "train.profile_epoch=-1", "data.mmap_scenes=False"):
+    for key in ("train.trace=False", "train.profile_epoch=-1", "parallel.space_axis_size=1"):
         assert f"--set {key}" in msg
     for ported in ("checkpoint", "dump_images", "stall", "device_cache", "native_gather",
-                   "perf_accounting", "remat"):
+                   "perf_accounting", "remat", "compact_upload", "augment", "lazy_tiles",
+                   "mmap_scenes", "crops_per_epoch", "loader_workers"):
         assert ported not in msg
     with pytest.raises(KeyError, match="unknown config key"):
         cli_main(["--device", "cpu", "--set", "train.no_such_knob=1"])
