@@ -74,6 +74,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with one; then the write and the restore with the native wire and with
    Python's zlib, in turns.  It prints one ``checkpoint row`` JSON line;
 
+4b''. the serve phase, from a copy of the fp16 main path's run (its
+   ``config.json`` and checkpoints): the flagship U-Net served at full
+   width through ``configs/serve_vaihingen.json`` as written.  In this
+   process, per weight mode ``off``, ``int8`` and ``bf16``:
+   ``InferenceEngine.from_workdir(device="cuda")``, ``warmup()``, the
+   2566×1893 scene (35 windows), a ``reload()``, with the codec's launches
+   set to 0 just before and read just after (int8: ``absmax`` and
+   ``encode_to_wire`` once a param leaf at each restore, ``decode_from_wire``
+   once a leaf a forward; the other modes none; the ``serve_int8`` path of
+   the kernels line); ``hbm_bytes()`` exactly fp32 4 B, bf16 2 B, int8 1 B a
+   param plus 4 B a leaf, and the bytes the restore's tensors request from
+   the allocator the same (plus, at most, the max-abs pass's scratch); each bucket 1, 2, 4, 8: one forward's device
+   ms on the kernel rows' clock and tiles/s, the whole ``forward_windows``
+   on the host's, and the launches of one forward at 1 and 8 (profiler);
+   two windows through a CPU engine of the same mode (max |Δlogit| ≤ 5e-2 ·
+   max |logit| and ≥ 99 % of the classes equal: both compute in bf16) and
+   the int8 and bf16 trees, and their dequantized weights, bit-equal
+   between card and CPU.  Then three ``python -m
+   ddlpc_tpu_torch.serve.server`` processes start on free ports while
+   ``python -m ddlpc_tpu_torch.predict`` writes the class-map PNGs of two
+   images, which must decode to the in-process engine's class maps; the
+   first server answers ``/healthz`` (ready, the mode, the step), the scene
+   (its class map must equal the in-process engine's of the config's
+   mode), a load of 4 clients × 16 tiles plus 2 scenes in the bulk class
+   (no error, shed or expired deadline; the ``/metrics`` quantiles and
+   tiles/s printed), and a ``POST /reload`` to a newer checkpoint written
+   while requests are in flight (all answered 200, the version and step
+   advance); then each server is sent SIGTERM with a scene in flight: the
+   scene is answered, the process exits 0 within ``drain_timeout_s`` and
+   its stderr holds no "terminate called";
+
 4b'. ``flagship_options``: the flagship with every optimizer option of
    the JAX trainer and remat (``FLAGSHIP_OPTIONS``: AdamW with weight
    decay, a cosine schedule after one warmup step, clipping at global norm
@@ -2480,6 +2511,439 @@ def comm_checks(label: str, lines: list, ranks: list, level: str) -> None:
         + f"; every rank's wire counter == {EPOCHS} steps of it")
 
 
+SERVE_CONFIG = os.path.join(REPO, "configs", "serve_vaihingen.json")
+SERVE_MODES = ("off", "int8", "bf16")
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_SCENE = SCENE_SIZES[0]  # (H, W): the largest of docs/disk_fit/scene_scale.json, 35 windows
+SERVE_CLIENTS, SERVE_TILE_REQUESTS, SERVE_SCENES = 4, 16, 2
+SERVE_PREDICT_IMAGES = ((1100, 900), (700, 1300))
+# Card against CPU, the flagship's bf16 compute on both (the tests' bf16
+# rule, tests/test_torch_model.py): max |Δlogit| ≤ 5e-2 · max |logit|, and
+# the class of at least 99 % of the pixels the same.
+SERVE_CPU_LOGIT_SHARE, SERVE_CPU_AGREE = 5e-2, 0.99
+
+
+def _serve_image(seed: int, h: int, w: int):
+    import numpy as np
+
+    img, _ = vaihingen_like(np.random.default_rng(seed), h, w)
+    return img.astype(np.float32) / 255.0
+
+
+def _npy(a) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None, timeout: float = 300.0):
+    """(status, headers, body) of one request to the server on localhost."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _ServerProc:
+    """``python -m ddlpc_tpu_torch.serve.server`` on the card as a user
+    starts it: the config as written, the run as ``--workdir``, a free
+    ``--port``; ready once its port file exists (written after warmup)."""
+
+    def __init__(self, run: str, tag: str):
+        self.tag = tag
+        self.port = _free_port()
+        self.port_file = os.path.join(WORKDIR, f"serve_{tag}.port")
+        if os.path.exists(self.port_file):
+            os.remove(self.port_file)
+        self.out = open(os.path.join(WORKDIR, f"serve_{tag}.out"), "w+")
+        self.err = open(os.path.join(WORKDIR, f"serve_{tag}.err"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ddlpc_tpu_torch.serve.server", "--config", SERVE_CONFIG,
+             "--workdir", run, "--port", str(self.port), "--port-file", self.port_file],
+            cwd=REPO, stdout=self.out, stderr=self.err,
+            env=dict(os.environ, PYTHONPATH=REPO),
+        )
+
+    def wait_ready(self, timeout: float = 300.0) -> float:
+        while not os.path.exists(self.port_file):
+            if self.proc.poll() is not None:
+                fail(f"[serve {self.tag}] server exited {self.proc.returncode} before ready: "
+                     f"{self.stderr()[-2000:]}")
+            if time.perf_counter() - self.t0 > timeout:
+                self.proc.kill()
+                fail(f"[serve {self.tag}] not ready in {timeout} s")
+            time.sleep(0.1)
+        return time.perf_counter() - self.t0
+
+    def stderr(self) -> str:
+        self.err.flush()
+        self.err.seek(0)
+        return self.err.read()
+
+    def drain(self, drain_timeout_s: float, inflight_body: bytes) -> dict:
+        """SIGTERM with one request in flight: that request must be answered,
+        the process must exit 0 within ``drain_timeout_s`` and its stderr
+        must hold no "terminate called" (C13)."""
+        import signal
+        import threading
+
+        got = []
+
+        def request():
+            try:
+                got.append(_http(self.port, "POST", "/predict", inflight_body)[0])
+            except OSError as e:
+                got.append(f"{type(e).__name__}: {e}")
+
+        t = threading.Thread(target=request)
+        t.start()
+        time.sleep(0.5)  # the scene's body is on the server, its windows queued
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=drain_timeout_s + 30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            fail(f"[serve {self.tag}] still running {drain_timeout_s + 30} s after SIGTERM")
+        exit_s = time.perf_counter() - t0
+        t.join(60)
+        err = self.stderr()
+        row = {"tag": self.tag, "rc": rc, "exit_s": exit_s, "inflight": got,
+               "terminate_called": "terminate called" in err}
+        log(f"[serve {self.tag}] SIGTERM: " + json.dumps(row))
+        if rc != 0 or exit_s > drain_timeout_s or row["terminate_called"] or got != [200]:
+            fail(f"[serve {self.tag}] drain: {row}; stderr tail {err[-2000:]}")
+        self.out.close()
+        self.err.close()
+        return row
+
+
+def serve_engine_phase(run: str, scfg, scene) -> dict:
+    """The engine in this process, per weight mode: restore + quantize
+    time and launches, resident bytes, per-bucket forward time and
+    launches, the card against a CPU engine, the quantized trees against
+    their plain versions."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.serve import quantized as sq
+    from ddlpc_tpu_torch.serve.engine import InferenceEngine
+
+    rows, engines = {}, {}
+    for mode in SERVE_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        base_req = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+        # The path: restore, warmup, one scene, a reload — launches counted.
+        cq.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = InferenceEngine.from_workdir(run, max_bucket=scfg.max_batch, echo=False, quantize=mode,
+                                           quantize_activations=scfg.quantize_activations,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated() - base
+        requested = torch.cuda.memory_stats().get("requested_bytes.all.current", 0) - base_req
+        hbm = eng.hbm_bytes()
+        leaves = len(eng.state.params)
+        n = sum(p.numel() for p in eng.state.params.values())
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        classes = eng.predict_classes(scene, overlap=scfg.overlap, batch=scfg.max_batch)
+        scene_s = time.perf_counter() - t0
+        meta = eng.reload()
+        torch.cuda.synchronize()
+        launches = dict(cq.LAUNCHES)
+        forwards = eng.forward_calls
+        want = {k: 0 for k in launches}
+        if mode == "int8":
+            want.update(absmax=2 * leaves, encode_to_wire=2 * leaves,
+                        decode_from_wire=forwards * leaves)
+        if launches != want:
+            fail(f"[serve {mode}] launches {launches}, expected {want} ({leaves} leaves, "
+                 f"{forwards} forwards, 2 restores)")
+        param_bytes = {"off": 4 * n, "int8": n + 4 * leaves, "bf16": 2 * n + 4 * leaves}[mode]
+        if hbm["params"] != param_bytes:
+            fail(f"[serve {mode}] hbm_bytes {hbm}, expected params {param_bytes}")
+        # The bytes the tensors asked for (the allocator's blocks round them
+        # up): the state and, with int8, at most the max-abs pass's scratch.
+        if not hbm["params"] + hbm["batch_stats"] <= requested <= (
+                hbm["params"] + hbm["batch_stats"] + 4 * 1025):
+            fail(f"[serve {mode}] {requested} bytes requested against hbm_bytes {hbm}")
+        # Per bucket: the device work of one forward (dequantization, the
+        # cast, the model) on the kernel rows' clock, the whole
+        # forward_windows (upload, forward, download) on the host's, and
+        # the launches of one forward.
+        state = eng.qstate if mode != "off" else eng.state
+        th, tw = eng.tile
+        gen = torch.Generator(device=eng.device).manual_seed(0)
+        buckets = {}
+        for b in SERVE_BUCKETS:
+            x = torch.rand(b, th, tw, eng.channels, device=eng.device, generator=gen)
+            with torch.inference_mode():
+                ms = time_ms(lambda: eng.device_logits(state, x), reps=10)
+            xs = x.cpu().numpy()
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.forward_windows(xs)
+                walls.append(time.perf_counter() - t0)
+            row = {"device_ms": ms, "tiles_per_s": b / ms * 1e3,
+                   "wall_ms": statistics.median(walls) * 1e3,
+                   "wall_tiles_per_s": b / statistics.median(walls)}
+            if b in (1, 8):
+                torch.cuda.synchronize()
+                with torch.inference_mode(), profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    eng.device_logits(state, x)
+                    torch.cuda.synchronize()
+                kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+                row["launches"] = len(kernels)
+                row["decode_launches"] = sum("decode" in k for k in kernels)
+            buckets[b] = row
+        # The card against a CPU engine on two windows of the scene.
+        cpu = InferenceEngine.from_workdir(run, max_bucket=scfg.max_batch, echo=False, quantize=mode,
+                                           quantize_activations=scfg.quantize_activations,
+                                           device="cpu")
+        wins = np.stack([scene[:th, :tw], scene[-th:, -tw:]])
+        a, c = eng.forward_windows(wins), cpu.forward_windows(wins)
+        d = float(np.abs(a - c).max())
+        agree = float((a.argmax(-1) == c.argmax(-1)).mean())
+        if not (np.isfinite(a).all() and d <= SERVE_CPU_LOGIT_SHARE * float(np.abs(c).max())
+                and agree >= SERVE_CPU_AGREE):
+            fail(f"[serve {mode}] card vs CPU: max |dlogit| {d} (max |logit| {np.abs(c).max()}), "
+                 f"classes agree on {agree}")
+        if mode != "off":
+            # The quantized trees, and the dequantized weights, card = CPU.
+            for k, q in eng.qstate.params.items():
+                bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+                if not (torch.equal(bits(q.cpu()), bits(cpu.qstate.params[k]))
+                        and torch.equal(eng.qstate.scales[k].cpu().view(torch.int32),
+                                        cpu.qstate.scales[k].view(torch.int32))):
+                    fail(f"[serve {mode}] quantized leaf {k} differs between card and CPU")
+            with torch.inference_mode():
+                card_w = sq.dequantize_params(eng.qstate, mode)
+                cpu_w = sq.dequantize_params(cpu.qstate, mode)
+            for k in card_w:
+                if not torch.equal(card_w[k].cpu().view(torch.int32), cpu_w[k].view(torch.int32)):
+                    fail(f"[serve {mode}] dequantized leaf {k} differs between card and CPU")
+        del cpu
+        rows[mode] = {"card": smi_line(), "leaves": leaves, "params": n, "restore_s": restore_s,
+                      "reload_restore_s": meta["restore_seconds"], "warmup_s": warmup_s,
+                      "scene_s": scene_s, "hbm_bytes": hbm, "requested_bytes": requested,
+                      "allocated_bytes": resident,
+                      "path_launches": {k: v for k, v in launches.items() if v},
+                      "path_forwards": forwards, "buckets": buckets,
+                      "cpu_max_abs_dlogit": d, "cpu_class_agree": agree}
+        log(f"serve row [{mode}]: " + json.dumps(rows[mode]))
+        engines[mode] = (eng, classes)
+    return {"rows": rows, "engines": engines}
+
+
+def _new_checkpoint(run: str, seed: int) -> int:
+    """A newer checkpoint (the step after the newest) with other weights:
+    every param times 1 + 5 % seeded noise."""
+    import numpy as np
+
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+
+    ckdir = os.path.join(run, "checkpoints")
+    tree, meta = ckpt.restore_checkpoint(ckdir)
+    rng = np.random.default_rng(seed)
+
+    def perturb(node):
+        if isinstance(node, dict):
+            return {k: perturb(v) for k, v in node.items()}
+        a = np.asarray(node)
+        return (a * (1 + 0.05 * rng.standard_normal(a.shape))).astype(a.dtype)
+
+    tree["params"] = perturb(tree["params"])
+    step = int(meta["step"]) + 1
+    keep = {k: meta[k] for k in ("epoch", "input_channels") if k in meta}
+    ckpt.save_snapshot(ckdir, ckpt.flatten_tree(tree), step, metadata=keep)
+    return step
+
+
+def serve_phase(argv: list) -> dict:
+    """Serving the flagship's own checkpoint (module docstring, phase 4e)."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from ddlpc_tpu_torch.config import ServeConfig
+    from ddlpc_tpu_torch.data.datasets import load_image_file
+    from ddlpc_tpu_torch.data.png import read_png, write_png
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+    from ddlpc_tpu_torch.train.observability import class_palette
+
+    src = argv[argv.index("--workdir") + 1]
+    run = os.path.join(WORKDIR, "serve_run")
+    shutil.rmtree(run, ignore_errors=True)
+    os.makedirs(run)
+    shutil.copy(os.path.join(src, "config.json"), run)
+    shutil.copytree(os.path.join(src, "checkpoints"), os.path.join(run, "checkpoints"))
+    step = ckpt.latest_step(os.path.join(run, "checkpoints"))
+    with open(SERVE_CONFIG) as f:
+        scfg = ServeConfig.from_json(f.read())
+    scene = _serve_image(11, *SERVE_SCENE)
+    eng_phase = serve_engine_phase(run, scfg, scene)
+    off, _ = eng_phase["engines"]["off"]
+    live, live_classes = eng_phase["engines"][scfg.quantize]
+
+    # The servers start (three: each is drained once) while predict runs.
+    servers = [_ServerProc(run, tag) for tag in ("a", "b", "c")]
+
+    # python -m ddlpc_tpu_torch.predict on two images, onto the card.
+    pin = os.path.join(WORKDIR, "serve_predict_in")
+    pout = os.path.join(WORKDIR, "serve_predict_out")
+    shutil.rmtree(pin, ignore_errors=True)
+    shutil.rmtree(pout, ignore_errors=True)
+    os.makedirs(pin)
+    for i, (h, w) in enumerate(SERVE_PREDICT_IMAGES):
+        img, _ = vaihingen_like(np.random.default_rng(20 + i), h, w)
+        write_png(os.path.join(pin, f"img{i}.png"), img)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ddlpc_tpu_torch.predict", "--workdir", run,
+                        "--input", pin, "--output", pout], cwd=REPO, capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    predict_s = time.perf_counter() - t0
+    if r.returncode != 0 or "wrote 2 predictions" not in r.stdout:
+        fail(f"[serve predict] rc {r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+    pal = class_palette(off.cfg.model.num_classes)
+    for i in range(len(SERVE_PREDICT_IMAGES)):
+        got = read_png(os.path.join(pout, f"img{i}_pred.png"))
+        image = load_image_file(os.path.join(pin, f"img{i}.png"), None, channels=off.channels)
+        want = pal[off.predict_classes(image, overlap=0.25, batch=8)]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"[serve predict] img{i}: the CLI's PNG differs from the engine's class map "
+                 f"in {int((got != want).any(-1).sum())} pixels")
+    log(f"[serve predict] 2 PNGs equal the in-process engine's class maps ({predict_s:.1f} s)")
+
+    ready = {s.tag: s.wait_ready() for s in servers}
+    a = servers[0]
+    status, _, body = _http(a.port, "GET", "/healthz")
+    health = json.loads(body)
+    if (status != 200 or health["status"] != "ok" or health["quant_mode"] != scfg.quantize
+            or health["checkpoint_step"] != step):
+        fail(f"[serve http] healthz {status} {health}")
+    # One scene, against the in-process engine of the same weight mode.
+    t0 = time.perf_counter()
+    status, headers, body = _http(a.port, "POST", "/predict", _npy(scene))
+    scene_http_s = time.perf_counter() - t0
+    if status != 200 or headers.get("X-DDLPC-Model-Step") != str(step):
+        fail(f"[serve http] scene predict {status} {headers}")
+    got = np.load(__import__("io").BytesIO(body))
+    differ = int((got != live_classes).sum())
+    if got.shape != live_classes.shape or differ:
+        fail(f"[serve http] the server's class map differs from the engine's in {differ} pixels")
+    log(f"[serve http] scene {SERVE_SCENE}: class map == the in-process {scfg.quantize} engine's "
+        f"({scene_http_s:.2f} s)")
+
+    # A short load: tiles from 4 clients, and 2 scenes in the bulk class.
+    def load(n_tiles: int, scenes: int, during=None) -> list:
+        statuses, lock = [], threading.Lock()
+
+        def client(seed, count, path, make):
+            for j in range(count):
+                s, _, _ = _http(a.port, "POST", path, _npy(make(seed * 100 + j)))
+                with lock:
+                    statuses.append(s)
+
+        tile = lambda sd: _serve_image(sd, *off.tile)  # noqa: E731
+        threads = [threading.Thread(target=client, args=(c, n_tiles, "/predict", tile))
+                   for c in range(SERVE_CLIENTS)]
+        threads += [threading.Thread(target=client, args=(50 + c, 1, "/predict?priority=batch",
+                                                          lambda sd: scene)) for c in range(scenes)]
+        for t in threads:
+            t.start()
+        if during is not None:
+            during()
+        for t in threads:
+            t.join(600)
+        return statuses
+
+    tiles0 = json.loads(_http(a.port, "GET", "/metrics")[2])["tiles"]
+    t0 = time.perf_counter()
+    statuses = load(SERVE_TILE_REQUESTS, SERVE_SCENES)
+    load_s = time.perf_counter() - t0
+    _, _, body = _http(a.port, "GET", "/metrics")
+    snap = json.loads(body)
+    errors = sum(s != 200 for s in statuses)
+    # /metrics' own rate spans the time since its last periodic emit; the
+    # load's rate is its tiles counter's growth over the load's wall.
+    load_row = {"requests": len(statuses), "errors": errors, "wall_s": load_s,
+                "load_tiles": snap["tiles"] - tiles0,
+                "load_tiles_per_s": (snap["tiles"] - tiles0) / load_s,
+                **{k: snap.get(k) for k in ("p50_ms", "p95_ms", "p99_ms", "interactive_p99_ms",
+                                            "batch_p99_ms", "tiles_per_sec", "requests_per_sec",
+                                            "shed", "deadline_exceeded", "batch_occupancy")}}
+    log("[serve http] load: " + json.dumps(load_row))
+    if errors or snap.get("shed") or snap.get("deadline_exceeded"):
+        fail(f"[serve http] load: {load_row}")
+    _, _, text = _http(a.port, "GET", "/metrics", headers={"Accept": "text/plain"})
+    families = sorted({ln.split()[2] for ln in text.decode().splitlines() if ln.startswith("# TYPE")})
+
+    # A reload while requests are in flight, to a newer checkpoint.
+    new_step = _new_checkpoint(run, seed=5)
+    reload_ans = {}
+
+    def do_reload():
+        time.sleep(0.3)
+        s, _, b = _http(a.port, "POST", "/reload", b"{}")
+        reload_ans.update(json.loads(b), status=s)
+
+    statuses = load(8, 1, during=do_reload)
+    status, _, body = _http(a.port, "GET", "/healthz")
+    health = json.loads(body)
+    if (reload_ans.get("status") != 200 or reload_ans.get("step") != new_step
+            or health["version"] != 1 or health["checkpoint_step"] != new_step
+            or any(s != 200 for s in statuses)):
+        fail(f"[serve http] reload: {reload_ans}; healthz {health}; statuses {statuses}")
+    log(f"[serve http] reload under load: step {step} -> {new_step}, version {health['version']}, "
+        f"restore_seconds {reload_ans['restore_seconds']}, {len(statuses)} requests all 200")
+
+    tile_body = _npy(_serve_image(7, *off.tile))
+    for s in servers[1:]:
+        if _http(s.port, "POST", "/predict", tile_body)[0] != 200:
+            fail(f"[serve {s.tag}] predict failed")
+    drains = [s.drain(scfg.drain_timeout_s, _npy(scene)) for s in servers]
+    del eng_phase["engines"], off, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": smi_line(), "config": os.path.relpath(SERVE_CONFIG, REPO), "step": step,
+            "modes": eng_phase["rows"], "ready_s": ready, "scene_http_s": scene_http_s,
+            "load": load_row, "metric_families": len(families),
+            "reload": {"step": new_step, "restore_seconds": reload_ans["restore_seconds"],
+                       "restore_format": reload_ans.get("restore_format")},
+            "predict_cli_s": predict_s, "drains": drains}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2539,6 +3003,7 @@ def main() -> int:
     # torch._dynamo, and torch.fx's import keeps the importing frames.
     gc.collect()
     torch.cuda.empty_cache()
+    serve = serve_phase(main["argv"])
     sr = main_path_phase(
         "stochastic_int8", STOCHASTIC, warns=True,
         expect={"encode_sr": EPOCHS, "decode_from_wire": EPOCHS,
@@ -2583,6 +3048,7 @@ def main() -> int:
                        **{label: run["launches"][row["name"]] for label, run in dp.items()},
                        **{label: run["launches"][row["name"]] for label, run in zoo.items()},
                        **{label: run["launches"][row["name"]] for label, run in data_runs.items()}}
+            by_path["serve_int8"] = serve["modes"]["int8"]["path_launches"].get(row["name"], 0)
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
@@ -2603,7 +3069,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "cityscapes_kernels": cs_rows, "floor": floor,
                       "chunk_rows": chunk_rows, "data_parallel": dp, "data_paths": data["rows"],
                       "checkpoint": ckpt_row, "sqrt": sqrt_row, "host": host_rows,
-                      "stall": stall_row, "paths": paths}))
+                      "stall": stall_row, "paths": paths, "serve": serve}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,25 @@ against; nothing here imports it (or JAX).  The layout mirrors it:
 - ``parallel``   — gradient sync and the train/eval steps
 - ``train``      — Adam, the Trainer and the CLI (``python -m ddlpc_tpu_torch.train``)
 - ``convert``    — flax ⇄ torch state conversion
+- ``serve``      — the inference engine, its batchers and the HTTP server
+  (``python -m ddlpc_tpu_torch.serve.server``); ``predict`` — the batch CLI
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; they
 raise when CUDA is absent and the CPU was not asked for.
 """
 
+import argparse
+import re
+
 import torch
+
+
+def device_arg(value: str) -> str:
+    """argparse type of the CLIs' ``--device``: ``cuda``, ``cuda:N`` or
+    ``cpu``."""
+    if value == "cpu" or re.fullmatch(r"cuda(:\d+)?", value):
+        return value
+    raise argparse.ArgumentTypeError(f"expected cuda, cuda:N or cpu, got {value!r}")
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -133,6 +133,9 @@ class ExperimentConfig:
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
 
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "ExperimentConfig":
         """Build from a nested dict; unknown keys inside a section raise
@@ -162,4 +165,53 @@ class ExperimentConfig:
         return cls.from_dict(json.loads(s))
 
     def replace(self, **kwargs) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The serving deploy (``serve/``) — one artifact per deploy, read from
+    ``configs/serve_*.json``; ``ddlpc_tpu/config.py`` documents each field.
+    The device is the serve CLI's ``--device``, never a key here."""
+
+    workdir: str = "runs/default"  # training run to restore + reload from
+    host: str = "127.0.0.1"
+    port: int = 8571
+    max_batch: int = 8  # tiles in one forward
+    max_wait_ms: float = 5.0  # coalescing latency (coalesce batcher only)
+    queue_limit: int = 64  # admission bound (tiles), then Overloaded
+    deadline_ms: float = 2000.0  # per-request queue deadline; 0 = none
+    batcher: str = "continuous"  # continuous | coalesce
+    slots: int = 2  # concurrent in-flight forwards (continuous batcher)
+    batch_queue_limit: int = 256  # bulk-class admission bound (tiles)
+    starvation_every: int = 4
+    quantize: str = "bf16"  # off | int8 | bf16 (serve/quantized.py)
+    quantize_activations: bool = False  # input windows cast to bf16
+    overlap: float = 0.25  # sliding-window overlap for full scenes
+    metrics_window: int = 2048  # latency ring size for p50/p95/p99
+    metrics_every_s: float = 10.0  # periodic JSONL snapshot cadence; 0 = off
+    trace: bool = False  # request-path spans to serve_spans.jsonl
+    profile_steps: int = 8  # batched forwards per /debug/trace capture
+    drain_timeout_s: float = 30.0  # SIGTERM: wait for in-flight requests
+    metrics_dir: str = ""  # serve_metrics.jsonl and traces; "" = workdir
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ServeConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - fields
+        if unknown:
+            raise ValueError(f"unknown config key ServeConfig.{sorted(unknown)[0]}")
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ServeConfig":
+        return cls.from_dict(json.loads(s))
+
+    def replace(self, **kwargs) -> "ServeConfig":
         return dataclasses.replace(self, **kwargs)

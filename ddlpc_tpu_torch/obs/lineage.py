@@ -1,5 +1,5 @@
 """The lineage record a checkpoint carries — the part of
-``ddlpc_tpu/obs/lineage.py`` that checkpoint metadata needs.
+``ddlpc_tpu/obs/lineage.py`` that checkpoint metadata and the server need.
 
 A record is a small dict stamped into each checkpoint's manifest and JSON
 sidecar at save:
@@ -24,6 +24,20 @@ import uuid
 from typing import Optional
 
 LINEAGE_UNKNOWN = "lineage_unknown"
+
+# Response header carrying the serving checkpoint step, so a client can
+# attribute any prediction to a training step.
+MODEL_STEP_HEADER = "X-DDLPC-Model-Step"
+
+# The fields every lineage record carries.
+LINEAGE_FIELDS = (
+    "lineage_id",
+    "run_id",
+    "step",
+    "config_hash",
+    "fingerprint",
+    "saved_at",
+)
 
 _fingerprint_cache: Optional[str] = None
 
@@ -103,3 +117,15 @@ def is_unknown(lineage: Optional[dict]) -> bool:
         not isinstance(lineage, dict)
         or lineage.get("lineage_id") in (None, LINEAGE_UNKNOWN)
     )
+
+
+def flatten(lineage: Optional[dict], prefix: str = "lineage_") -> dict:
+    """Flat-schema projection of a lineage record for JSONL emitters and
+    healthz payloads: ``{lineage_id, lineage_run_id, ...}`` — scalars
+    only.  ``lineage_id`` keeps its natural name."""
+    src = lineage if isinstance(lineage, dict) else unknown_lineage()
+    out = {}
+    for field in LINEAGE_FIELDS:
+        key = field if field == "lineage_id" else prefix + field
+        out[key] = src.get(field)
+    return out

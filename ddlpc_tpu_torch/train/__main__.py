@@ -43,10 +43,10 @@ from __future__ import annotations
 
 import argparse
 import ast
-import re
 import sys
 from typing import Optional
 
+from ddlpc_tpu_torch import device_arg
 from ddlpc_tpu_torch.config import ExperimentConfig
 
 
@@ -65,12 +65,6 @@ def apply_override(d: dict, dotted: str, value: str) -> None:
         cur[keys[-1]] = value  # bare string
 
 
-def _device_arg(value: str) -> str:
-    if value == "cpu" or re.fullmatch(r"cuda(:\d+)?", value):
-        return value
-    raise argparse.ArgumentTypeError(f"expected cuda, cuda:N or cpu, got {value!r}")
-
-
 def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str, Optional[str]]:
     """(config, resume, device, dist_backend) from the command line."""
     p = argparse.ArgumentParser(prog="python -m ddlpc_tpu_torch.train", description=__doc__)
@@ -81,7 +75,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, bool, str, Optional[str]]:
     )
     p.add_argument("--workdir", help="run directory (metrics.jsonl)")
     p.add_argument("--no-resume", action="store_true", help="ignore existing checkpoints")
-    p.add_argument("--device", type=_device_arg, default="cuda",
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (cuda:LOCAL_RANK in a world), cuda:N or cpu")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                    help="default: nccl on a card, gloo on the CPU")

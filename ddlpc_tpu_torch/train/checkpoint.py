@@ -33,9 +33,13 @@ each flat buffer to host memory (``convert.gather_canonical``); the
 layout conversion, compression and I/O run on the writer thread
 (``train/async_checkpoint.py``).
 
-Not ported: the monolithic format (a flax msgpack blob; it raises), the
-JAX package's chaos hooks, and its version-1 blobs without CRCs are read
-but not written.
+The chaos harness (``resilience/chaos.py``, inert unless ``DDLPC_CHAOS``
+is set) acts where the JAX writer calls it: ``disk_full@K`` raises ENOSPC
+before the Kth blob write, ``flip_ckpt@K`` flips a byte of the Kth blob
+after its rename.
+
+Not ported: the monolithic format (a flax msgpack blob; it raises); the
+JAX package's version-1 blobs without CRCs are read but not written.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch
 
 from ddlpc_tpu_torch import convert
 from ddlpc_tpu_torch.obs import lineage as _lineage
+from ddlpc_tpu_torch.resilience.chaos import active as _chaos_active
 from ddlpc_tpu_torch.utils import wire
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.(?:msgpack\.z|dwc)$")
@@ -484,6 +489,12 @@ def save_snapshot(
         if os.path.exists(meta_tmp):
             os.unlink(meta_tmp)
         raise
+    chaos = _chaos_active()
+    if chaos is not None:
+        # A scheduled disk-full raises here, inside the write path proper,
+        # where a real ENOSPC would (the async writer re-raises it on the
+        # training thread).
+        chaos.on_checkpoint_save()
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -504,7 +515,12 @@ def save_snapshot(
     finally:
         os.close(dir_fd)
     _prune(ckpt_dir, keep)
-    return os.path.join(ckpt_dir, name)
+    final = os.path.join(ckpt_dir, name)
+    if chaos is not None:
+        # Post-rename bit-flip: corrupts the durable blob, the case the CRCs
+        # and the restore's fallback must survive.
+        chaos.on_checkpoint_written(final)
+    return final
 
 
 def _steps(ckpt_dir: str) -> List[int]:

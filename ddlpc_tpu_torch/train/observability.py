@@ -1,6 +1,6 @@
-"""Stage timing and the qualitative image dumps — the port's copy of
-``StageTimer``, ``class_palette`` and ``dump_prediction_triples`` from
-``ddlpc_tpu/train/observability.py``.
+"""Metric streams, stage timing and the qualitative image dumps — the
+port's copy of ``MetricsLogger``, ``StageTimer``, ``class_palette`` and
+``dump_prediction_triples`` from ``ddlpc_tpu/train/observability.py``.
 
 The PNGs are written by the port's stdlib encoder (``data/png.py``:
 8-bit RGB, filter 0 on every row, one zlib stream), so the port needs no
@@ -10,6 +10,7 @@ PIL-written ones.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -19,6 +20,8 @@ from typing import Dict
 import numpy as np
 
 from ddlpc_tpu_torch.data.png import write_png
+from ddlpc_tpu_torch.obs.registry import sanitize_name
+from ddlpc_tpu_torch.obs.schema import SCHEMA_VERSION
 
 # ISPRS-style 6-class palette (imp surface, building, low veg, tree, car,
 # clutter), extended by a seeded draw for datasets with more classes.
@@ -41,6 +44,76 @@ def class_palette(num_classes: int) -> np.ndarray:
     rng = np.random.default_rng(0)
     extra = rng.integers(0, 256, size=(num_classes - len(_PALETTE), 3), dtype=np.uint8)
     return np.concatenate([_PALETTE, extra])
+
+
+class MetricsLogger:
+    """Append-only txt + JSONL metric streams under ``workdir``.
+
+    txt mirrors the reference's epoch lines; JSONL is the machine-readable
+    record.  ``basename`` lets other subsystems share the format without
+    clobbering the training log (the serve CLI writes
+    ``serve_metrics.jsonl``).  Only replica 0 of a ``torch.distributed``
+    world writes."""
+
+    def __init__(self, workdir: str, basename: str = "metrics"):
+        import torch.distributed as dist
+
+        self.enabled = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+        self.workdir = workdir
+        self.registry = None
+        self._records_total = None
+        if not self.enabled:
+            return
+        os.makedirs(workdir, exist_ok=True)
+        self.txt_path = os.path.join(workdir, f"{basename}.txt")
+        self.jsonl_path = os.path.join(workdir, f"{basename}.jsonl")
+
+    def attach_registry(self, registry) -> None:
+        """Publish every numeric scalar logged from now on as a gauge in a
+        MetricsRegistry, so the Prometheus exposition shows the latest
+        value of everything the JSONL stream carries (the serve frontend
+        owns its registry but receives a logger built before it)."""
+        self.registry = registry
+        self._records_total = registry.counter(
+            "ddlpc_log_records_total",
+            "JSONL records written, by record kind.",
+            labelnames=("kind",),
+        )
+
+    def log(self, record: Dict[str, object], echo: bool = True) -> None:
+        if not self.enabled:
+            return
+        record = {k: (float(v) if isinstance(v, np.floating) else v) for k, v in record.items()}
+        record.setdefault("time", time.time())
+        record.setdefault("schema", SCHEMA_VERSION)
+        with open(self.jsonl_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        if self.registry is not None:
+            self._publish(record)
+        line = "  ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in record.items()
+            if k not in ("time", "schema")
+        )
+        with open(self.txt_path, "a") as f:
+            f.write(line + "\n")
+        if echo:
+            print(line, flush=True)
+
+    def _publish(self, record: Dict[str, object]) -> None:
+        """Numeric scalars → ``ddlpc_<kind>_<key>`` gauges in the registry."""
+        kind = str(record.get("kind", "train"))
+        self._records_total.inc(kind=kind)
+        prefix = sanitize_name(f"ddlpc_{kind}")
+        for k, v in record.items():
+            if k in ("time", "schema", "kind"):
+                continue
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            self.registry.gauge(
+                f"{prefix}_{sanitize_name(k)}",
+                f"Latest {k!r} from the {kind} JSONL stream.",
+            ).set(float(v))
 
 
 class StageTimer:

@@ -94,10 +94,12 @@ from ddlpc_tpu_torch.parallel.train_step import (
     make_eval_step,
     make_train_step,
 )
+from ddlpc_tpu_torch.resilience import chaos as _chaos_mod
 from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED, write_breadcrumb
 from ddlpc_tpu_torch.train import checkpoint as ckpt
 from ddlpc_tpu_torch.train.async_checkpoint import AsyncCheckpointer
 from ddlpc_tpu_torch.train.observability import StageTimer, dump_prediction_triples
+from ddlpc_tpu_torch.utils.fsio import atomic_write_text
 from ddlpc_tpu_torch.train.optim import build_optimizer
 from ddlpc_tpu_torch.train.watchdog import StallWatchdog
 from ddlpc_tpu_torch.utils import wire
@@ -306,6 +308,11 @@ class Trainer:
         # checkpoint, and ``preempted`` tells the CLI to exit 43.
         self._preempt = threading.Event()
         self._preempt_done = threading.Event()
+        # Chaos fault injection (resilience/chaos.py): None unless the
+        # DDLPC_CHAOS env var schedules faults; steps count loop iterations
+        # since process start, as in the JAX trainer.
+        self._chaos = _chaos_mod.active()
+        self._chaos_step = 0
         self._grace_timer: Optional[threading.Timer] = None
         self.preempted = False
         # Skip-replay of a mid-epoch (emergency) checkpoint: train_epoch
@@ -459,9 +466,19 @@ class Trainer:
             write_breadcrumb(self.workdir, "preempted", epoch=epoch, steps_done=steps_done, ckpt_step=step)
         self.preempted = True
         self._preempt_done.set()
-        if self._grace_timer is not None:
-            self._grace_timer.cancel()
-            self._grace_timer = None
+        self._stop_grace_timer()
+
+    def _stop_grace_timer(self) -> None:
+        """Cancel the grace timer and wait for its thread.  The timer holds
+        this trainer (its callback is a bound method): a daemon thread that
+        outlived ``fit`` could drop the last reference and free the train
+        state's tensors while the interpreter finalizes, where CPython ends
+        the thread and the unwind aborts the process ("terminate called
+        without an active exception", ROADMAP C13)."""
+        t, self._grace_timer = self._grace_timer, None
+        if t is not None:
+            t.cancel()
+            t.join()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -485,6 +502,8 @@ class Trainer:
         while True:
             # "data": the wait for the next batch on the device; "step": the
             # step and the device's sync that ends it.
+            if self._chaos is not None:
+                self._chaos.on_data_fetch()
             self.watchdog.beat("data")
             with self.timer.stage("data"):
                 batch = next(it, None)
@@ -496,6 +515,12 @@ class Trainer:
                 self._sync()
             if self.comm is not None:
                 self.comm.on_step()
+            if self._chaos is not None:
+                self._chaos_step += 1
+                # kill/stall act inside on_step; preempt comes back as an
+                # action so it runs the trainer's own graceful path.
+                if "preempt" in self._chaos.on_step(self._chaos_step):
+                    self.request_preempt()
             if self._preempt.is_set():
                 raise PreemptedRun(epoch, skipped + len(metrics))
         if not metrics:
@@ -614,6 +639,10 @@ class Trainer:
         except ValueError:
             pass
         if self.rank == 0:
+            # The run's config beside its checkpoints, as the JAX trainer
+            # writes it: what the serve engine and predict restore from.
+            atomic_write_text(os.path.join(self.workdir, "config.json"), self.cfg.to_json(),
+                              durable=False)
             write_breadcrumb(self.workdir, "running", start_epoch=self.start_epoch, epochs=cfg.epochs)
         if self.perf is not None:
             self.perf.start()
@@ -629,6 +658,9 @@ class Trainer:
                             record.update(self.evaluate())
                             if self.perf is not None:
                                 self.perf.debit("eval", time.perf_counter() - t_eval)
+                        if self._chaos is not None:
+                            # nan@N: poison what the stream records.
+                            record = self._chaos.corrupt_record(record)
                         self._log(record)
                         if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
                             t_ckpt = time.perf_counter()
@@ -658,7 +690,5 @@ class Trainer:
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
             self._preempt_done.set()
-            if self._grace_timer is not None:
-                self._grace_timer.cancel()
-                self._grace_timer = None
+            self._stop_grace_timer()
         return record

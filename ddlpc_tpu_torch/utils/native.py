@@ -13,7 +13,7 @@ Each library is compiled by ``g++ -O3 -std=c++17 -fPIC -shared`` into
 of its source and flags, as ``kernels/build.py`` does for ``nvcc``: an
 edited source rebuilds, an unchanged one loads at once.  There is no
 fallback: a build or load that fails raises :class:`NativeBuildError`,
-which names ``--set data.native_gather=false``, the setting that keeps a
+which names ``--set data.native_gather=False``, the setting that keeps a
 run on numpy's gather and Python's zlib.
 """
 
@@ -76,7 +76,7 @@ def build(name: str) -> str:
 def _failed(name: str, detail: str) -> str:
     return (
         f"the port's host library {name} did not build ({detail}); a run "
-        f"with --set data.native_gather=false takes numpy's gather and "
+        f"with --set data.native_gather=False takes numpy's gather and "
         f"Python's zlib instead"
     )
 

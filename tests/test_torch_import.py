@@ -12,6 +12,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = (
@@ -57,6 +59,22 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.utils.fsio",
     "ddlpc_tpu_torch.utils.native",
     "ddlpc_tpu_torch.utils.wire",
+    # The serving slice.
+    "ddlpc_tpu_torch.analysis.lockcheck",
+    "ddlpc_tpu_torch.obs.health",
+    "ddlpc_tpu_torch.obs.http",
+    "ddlpc_tpu_torch.obs.profiling",
+    "ddlpc_tpu_torch.obs.schema",
+    "ddlpc_tpu_torch.obs.tracing",
+    "ddlpc_tpu_torch.predict",
+    "ddlpc_tpu_torch.resilience.chaos",
+    "ddlpc_tpu_torch.serve",
+    "ddlpc_tpu_torch.serve.batching",
+    "ddlpc_tpu_torch.serve.cbatch",
+    "ddlpc_tpu_torch.serve.engine",
+    "ddlpc_tpu_torch.serve.metrics",
+    "ddlpc_tpu_torch.serve.quantized",
+    "ddlpc_tpu_torch.serve.server",
 )
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu", "PIL", "ml_dtypes", "imageio")
 
@@ -113,3 +131,28 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "ddlpc_tpu_torch.serve.server",
+    "ddlpc_tpu_torch.predict",
+    "ddlpc_tpu_torch.resilience.chaos",
+    "ddlpc_tpu_torch.analysis.lockcheck",
+])
+def test_serving_entry_point_alone_loads_no_jax(module):
+    """Each serving entry point imported on its own, in a fresh
+    interpreter (what ``python -m`` does on the card's machine)."""
+    script = textwrap.dedent(
+        f"""
+        import importlib, sys
+        FORBIDDEN = {FORBIDDEN!r}
+        importlib.import_module({module!r})
+        print("LOADED", sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN))
+        """
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout

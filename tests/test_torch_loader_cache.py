@@ -147,6 +147,6 @@ def test_failed_native_build_raises_from_the_loader(tiles, tmp_path, monkeypatch
 
     monkeypatch.setattr(native, "load_batch", broken)
     ds = TileDataset(tiles.images, tiles.labels)
-    with pytest.raises(native.NativeBuildError, match="--set data.native_gather=false"):
+    with pytest.raises(native.NativeBuildError, match="--set data.native_gather=False"):
         ShardedLoader(ds, micro_batch=2, sync_period=2, device=torch.device("cpu"))
     ShardedLoader(ds, micro_batch=2, sync_period=2, device=torch.device("cpu"), native_gather=False)

@@ -205,7 +205,20 @@ def test_failed_build_raises_naming_the_setting(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
     native.load_batch.cache_clear()
     try:
-        with pytest.raises(native.NativeBuildError, match="--set data.native_gather=false"):
+        with pytest.raises(native.NativeBuildError, match="--set data.native_gather=False"):
             native.load_batch()
     finally:
         native.load_batch.cache_clear()
+
+
+def test_the_failed_build_message_names_an_override_that_switches_the_gather_off():
+    """The override that ``NativeBuildError`` names, read by the CLI's own
+    ``--set`` parser (``ast.literal_eval``: a bare ``false`` would be the
+    truthy string "false"), turns the native gather off."""
+    import re
+
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+
+    override = re.search(r"--set (\S+)", native._failed("libx", "boom")).group(1)
+    cfg, *_ = parse_args(["--device", "cpu", "--set", override])
+    assert cfg.data.native_gather is False

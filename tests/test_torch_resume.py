@@ -175,6 +175,22 @@ def test_corrupt_newest_checkpoint_falls_back(tiny_config, tmp_path):
     assert os.path.exists(newest + ".bad")
 
 
+def test_preemption_joins_the_grace_timer_before_fit_returns(tiny_config, tmp_path):
+    """The grace timer's callback holds the trainer: its thread must have
+    ended when ``fit`` returns, or it may free the train state while the
+    interpreter finalizes and the process aborts (ROADMAP C13)."""
+    import threading
+
+    trainer = make_trainer(tiny_config, tmp_path / "run", resume=False)
+    trainer.request_preempt()
+    timer = trainer._grace_timer
+    assert timer is not None and timer.is_alive()
+    trainer.fit()
+    assert trainer.preempted and trainer._grace_timer is None
+    assert not timer.is_alive()
+    assert timer not in threading.enumerate()
+
+
 def test_cli_sigterm_exits_43_and_the_same_command_carries_on(tiny_config, tmp_path):
     workdir = tmp_path / "run"
     argv = [sys.executable, "-m", "ddlpc_tpu_torch.train", "--config", tiny_config,
