@@ -105,6 +105,43 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    scene is answered, the process exits 0 within ``drain_timeout_s`` and
    its stderr holds no "terminate called";
 
+4e. the fleet phase, on the serve phase's run (its newest checkpoint):
+   ``python -m ddlpc_tpu_torch.serve.fleet`` on ``configs/fleet_vaihingen.json``
+   as written but for ``quantize: int8`` (a copy in the run directory) and
+   a free ``--port``: three replicas on ``cuda:0``, each ready once its
+   port file lands (the seconds of each are printed); the scene and four
+   tiles through the router must give the serve phase's in-process int8
+   engine's class maps, bit for bit; a smoke load (4 closed-loop clients,
+   8 s: tiles/s and p50/p99 from the fleet's ``/metrics``, labelled smoke
+   readings: the replicas time-share one card); one replica SIGKILLed
+   under load, relaunched and readmitted (its seconds printed); a rolling
+   reload to a newer checkpoint under load (every replica ends on its
+   step); a reload to a newest blob with one flipped byte, which must
+   come back aborted and leave every replica on the previous step; no
+   client may see a non-200 through any of it; the fleet's ``/metrics``
+   must carry ``ddlpc_router_*`` and ``ddlpc_fleet_*`` families and its
+   ``/healthz`` the SLO status; then SIGTERM: the fleet exits 0 within
+   ``drain_timeout_s``, every replica's last exit is 0 and no log holds
+   "terminate called".  The codec's launches in the replicas are not
+   counted but derived, and stand only in the fleet row's
+   ``derived_launches``, never in a kernel row: restores
+   and reloads × leaves for ``absmax`` and ``encode_to_wire``, forwards ×
+   leaves for ``decode_from_wire``, the forwards read from the fleet's
+   rollup of the replicas' ``ddlpc_serve_jit_cache_*`` counters plus the
+   4 warmup forwards of each launch;
+
+4f. the supervised phase: the fp16 main path's command (the flagship
+   as written, three epochs) under ``resilience.supervisor.Supervisor``
+   with the watchdog at 10 s; attempt 0 runs with ``DDLPC_CHAOS=kill@2``,
+   attempt 1 with ``stall@2:120`` (the watchdog's exit 42), attempt 2
+   clean.  The causes must be ``oom_kill``, ``stall``, ``clean``, each
+   attempt a checkpoint further (no backoff), the supervisor's result ok,
+   the epoch losses the committed bits and the final checkpoint's digest
+   the uninterrupted run's.  Each attempt's wall and each restart's
+   overhead (the child's death to the next child's ``fit`` and its first
+   step) are printed; the codec's launches are derived from the steps run
+   and stand only in the supervised row's ``derived_launches``;
+
 4b'. ``flagship_options``: the flagship with every optimizer option of
    the JAX trainer and remat (``FLAGSHIP_OPTIONS``: AdamW with weight
    decay, a cosine schedule after one warmup step, clipping at global norm
@@ -2561,7 +2598,98 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-class _ServerProc:
+class _Proc:
+    """``python -m <module> <args>`` of the port on the card as a user
+    starts it, its output in ``WORKDIR/<name>.out`` and ``.err``.  It runs
+    in a session of its own, so ``kill_tree`` ends it and every process it
+    started (a fleet's replicas) at once; that runs at exit too, so a
+    failed phase leaves nothing running."""
+
+    def __init__(self, module: str, args: list, name: str):
+        import atexit
+
+        self.out = open(os.path.join(WORKDIR, f"{name}.out"), "w+")
+        self.err = open(os.path.join(WORKDIR, f"{name}.err"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module, *args], cwd=REPO, stdout=self.out, stderr=self.err,
+            env=dict(os.environ, PYTHONPATH=REPO), start_new_session=True,
+        )
+        atexit.register(self.kill_tree)
+
+    def stderr(self) -> str:
+        self.err.flush()
+        self.err.seek(0)
+        return self.err.read()
+
+    def kill_tree(self) -> None:
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def _wait_for(what: str, pred, timeout: float, every: float = 0.1):
+    """``pred()``'s first true value, polled every ``every`` s; the run
+    fails if none comes within ``timeout`` s."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(every)
+
+
+def _load(port: int, clients: list, seconds: float = 0.0, during=None, timeout: float = 300.0):
+    """Closed-loop clients posting to the server or fleet at ``port``.
+    Each of ``clients`` is ``(path, body, count)``: it posts ``body(j)``
+    for j = 0, 1, ..., ``count`` times, or with ``count`` None until
+    ``during()`` has returned and ``seconds`` have passed.  Returns
+    (statuses, wall s, what ``during`` returned).  A request that raised,
+    whatever the exception, counts as a status that is not 200; a client
+    still running ``timeout`` s after the load stopped fails the run."""
+    import threading
+
+    statuses, lock, stop = [], threading.Lock(), threading.Event()
+
+    def client(path, body, count):
+        j = 0
+        while not stop.is_set() if count is None else j < count:
+            try:
+                st = _http(port, "POST", path, body(j), timeout=timeout)[0]
+            except Exception as e:  # noqa: BLE001 - every failure is one the gates must see
+                st = f"{type(e).__name__}: {e}"
+            with lock:
+                statuses.append(st)
+            j += 1
+
+    threads = [threading.Thread(target=client, args=c, daemon=True) for c in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        result = during() if during is not None else None
+        time.sleep(max(0.0, seconds - (time.perf_counter() - t0)))
+    finally:
+        stop.set()
+        deadline = time.perf_counter() + timeout
+        for t in threads:
+            t.join(max(0.0, deadline - time.perf_counter()))
+    hung = sum(t.is_alive() for t in threads)
+    if hung:
+        fail(f"{hung} of {len(threads)} load clients still running {timeout} s after the load "
+             f"stopped")
+    return statuses, time.perf_counter() - t0, result
+
+
+class _ServerProc(_Proc):
     """``python -m ddlpc_tpu_torch.serve.server`` on the card as a user
     starts it: the config as written, the run as ``--workdir``, a free
     ``--port``; ready once its port file exists (written after warmup)."""
@@ -2572,31 +2700,19 @@ class _ServerProc:
         self.port_file = os.path.join(WORKDIR, f"serve_{tag}.port")
         if os.path.exists(self.port_file):
             os.remove(self.port_file)
-        self.out = open(os.path.join(WORKDIR, f"serve_{tag}.out"), "w+")
-        self.err = open(os.path.join(WORKDIR, f"serve_{tag}.err"), "w+")
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "ddlpc_tpu_torch.serve.server", "--config", SERVE_CONFIG,
-             "--workdir", run, "--port", str(self.port), "--port-file", self.port_file],
-            cwd=REPO, stdout=self.out, stderr=self.err,
-            env=dict(os.environ, PYTHONPATH=REPO),
-        )
+        super().__init__("ddlpc_tpu_torch.serve.server",
+                         ["--config", SERVE_CONFIG, "--workdir", run, "--port", str(self.port),
+                          "--port-file", self.port_file], f"serve_{tag}")
 
     def wait_ready(self, timeout: float = 300.0) -> float:
-        while not os.path.exists(self.port_file):
+        def ready():
             if self.proc.poll() is not None:
                 fail(f"[serve {self.tag}] server exited {self.proc.returncode} before ready: "
                      f"{self.stderr()[-2000:]}")
-            if time.perf_counter() - self.t0 > timeout:
-                self.proc.kill()
-                fail(f"[serve {self.tag}] not ready in {timeout} s")
-            time.sleep(0.1)
-        return time.perf_counter() - self.t0
+            return os.path.exists(self.port_file)
 
-    def stderr(self) -> str:
-        self.err.flush()
-        self.err.seek(0)
-        return self.err.read()
+        _wait_for(f"[serve {self.tag}]'s port file", ready, timeout)
+        return time.perf_counter() - self.t0
 
     def drain(self, drain_timeout_s: float, inflight_body: bytes) -> dict:
         """SIGTERM with one request in flight: that request must be answered,
@@ -2790,7 +2906,7 @@ def _new_checkpoint(run: str, seed: int) -> int:
 
 
 def serve_phase(argv: list) -> dict:
-    """Serving the flagship's own checkpoint (module docstring, phase 4e)."""
+    """Serving the flagship's own checkpoint (module docstring, phase 4b'')."""
     import shutil
     import threading
 
@@ -2867,26 +2983,10 @@ def serve_phase(argv: list) -> dict:
 
     # A short load: tiles from 4 clients, and 2 scenes in the bulk class.
     def load(n_tiles: int, scenes: int, during=None) -> list:
-        statuses, lock = [], threading.Lock()
-
-        def client(seed, count, path, make):
-            for j in range(count):
-                s, _, _ = _http(a.port, "POST", path, _npy(make(seed * 100 + j)))
-                with lock:
-                    statuses.append(s)
-
-        tile = lambda sd: _serve_image(sd, *off.tile)  # noqa: E731
-        threads = [threading.Thread(target=client, args=(c, n_tiles, "/predict", tile))
-                   for c in range(SERVE_CLIENTS)]
-        threads += [threading.Thread(target=client, args=(50 + c, 1, "/predict?priority=batch",
-                                                          lambda sd: scene)) for c in range(scenes)]
-        for t in threads:
-            t.start()
-        if during is not None:
-            during()
-        for t in threads:
-            t.join(600)
-        return statuses
+        tiles = lambda c: lambda j: _npy(_serve_image(c * 100 + j, *off.tile))  # noqa: E731
+        clients = [("/predict", tiles(c), n_tiles) for c in range(SERVE_CLIENTS)]
+        clients += [("/predict?priority=batch", lambda j: _npy(scene), 1)] * scenes
+        return _load(a.port, clients, during=during)[0]
 
     tiles0 = json.loads(_http(a.port, "GET", "/metrics")[2])["tiles"]
     t0 = time.perf_counter()
@@ -2933,15 +3033,449 @@ def serve_phase(argv: list) -> dict:
         if _http(s.port, "POST", "/predict", tile_body)[0] != 200:
             fail(f"[serve {s.tag}] predict failed")
     drains = [s.drain(scfg.drain_timeout_s, _npy(scene)) for s in servers]
+    int8_engine = eng_phase["engines"]["int8"][0]  # the fleet phase's reference
     del eng_phase["engines"], off, live
     gc.collect()
     torch.cuda.empty_cache()
     return {"card": smi_line(), "config": os.path.relpath(SERVE_CONFIG, REPO), "step": step,
+            "run": run, "int8_engine": int8_engine, "scene": scene,
             "modes": eng_phase["rows"], "ready_s": ready, "scene_http_s": scene_http_s,
             "load": load_row, "metric_families": len(families),
             "reload": {"step": new_step, "restore_seconds": reload_ans["restore_seconds"],
                        "restore_format": reload_ans.get("restore_format")},
             "predict_cli_s": predict_s, "drains": drains}
+
+
+FLEET_CONFIG = os.path.join(REPO, "configs", "fleet_vaihingen.json")
+FLEET_CLIENTS = 4  # closed-loop clients of each load
+FLEET_LOAD_S = 8.0  # the smoke load's length: a smoke reading, not a capacity
+FLEET_TILES = 4  # distinct 512² tiles the clients send
+FLEET_DEADLINE_S = 300.0  # each wait on the fleet (readiness, readmission, a reload)
+# The supervised flagship: attempt 0 is SIGKILLed after its second step,
+# attempt 1 stalls in its second step until the watchdog ends it (42),
+# attempt 2 runs clean.  The watchdog's timeout is set for every attempt
+# (the command is one); 10 s rather than the stall phase's 2 s, because a
+# fresh process's first step on the card also sets up cuDNN and cuBLAS,
+# which the stall phase does before its watchdog starts.  The stall ends
+# on its own after 120 s, so a watchdog that failed to act fails the phase
+# instead of holding the run.
+SUPERVISED_CHAOS = ("kill@2", "stall@2:120")
+SUPERVISED_STALL_TIMEOUT_S = 10.0
+
+
+def _fleet_get(port: int, path: str) -> dict:
+    return json.loads(_http(port, "GET", path, timeout=60)[2])
+
+
+def fleet_phase(serve: dict) -> dict:
+    """The serve run from a fleet of three replicas (module docstring,
+    phase 4e): ``configs/fleet_vaihingen.json`` with int8 weights, its
+    answers held to the serve phase's in-process int8 engine, a smoke
+    load, a replica SIGKILLed under load, a rolling reload, a quarantined
+    reload rolled back, the fleet's metrics, then SIGTERM."""
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from ddlpc_tpu_torch.config import FleetConfig
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+
+    run, ref, scene = serve["run"], serve.pop("int8_engine"), serve.pop("scene")
+    with open(FLEET_CONFIG) as f:
+        raw = json.load(f)
+    raw["quantize"] = "int8"
+    cfg = FleetConfig.from_dict(raw).replace(workdir=run)
+    cfg_path = os.path.join(run, "fleet_int8.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=2)
+    fleet_dir = cfg.resolved_fleet_dir()
+    shutil.rmtree(fleet_dir, ignore_errors=True)
+    step = ckpt.latest_step(os.path.join(run, "checkpoints"))
+    # The reference: the serve phase's int8 engine on the same checkpoint.
+    ref.reload()
+    if ref.checkpoint_step != step:
+        fail(f"[fleet] the reference engine serves step {ref.checkpoint_step}, not {step}")
+    bodies = [_npy(_serve_image(40 + i, *ref.tile)) for i in range(FLEET_TILES)]
+    want_tiles = [ref.predict_classes(_serve_image(40 + i, *ref.tile), overlap=cfg.overlap,
+                                       batch=cfg.max_batch) for i in range(FLEET_TILES)]
+    want_scene = ref.predict_classes(scene, overlap=cfg.overlap, batch=cfg.max_batch)
+    leaves = len(ref.qstate.params)
+    port = _free_port()
+    log(f"[fleet] python -m ddlpc_tpu_torch.serve.fleet --config {cfg_path} --workdir {run} "
+        f"--port {port} ({cfg.replicas} replicas, int8, step {step})")
+    fleet = _Proc("ddlpc_tpu_torch.serve.fleet",
+                  ["--config", cfg_path, "--workdir", run, "--port", str(port)], "fleet")
+    clients = [("/predict", lambda j, c=c: bodies[(c + j) % len(bodies)], None)
+               for c in range(FLEET_CLIENTS)]
+
+    def load(seconds: float = 0.0, during=None):
+        return _load(port, clients, seconds=seconds, during=during, timeout=120.0)
+
+    def wait_for(what: str, pred):
+        return _wait_for(f"[fleet] {what}", pred, FLEET_DEADLINE_S)
+
+    row = {"card": smi_line(), "config": os.path.relpath(FLEET_CONFIG, REPO),
+           "changes": {"quantize": "int8", "port": port}, "replicas": cfg.replicas, "step": step}
+    try:
+        # 1. Readiness: each replica's port file lands after its warmup.
+        ready_s = {}
+
+        def all_ready():
+            if fleet.proc.poll() is not None:
+                fail(f"[fleet] exited {fleet.proc.returncode}: {fleet.stderr()[-3000:]}")
+            for i in range(cfg.replicas):
+                name = f"r{i}"
+                if name not in ready_s and os.path.exists(os.path.join(fleet_dir, name, "port")):
+                    ready_s[name] = time.perf_counter() - fleet.t0
+            return len(ready_s) == cfg.replicas
+
+        wait_for("the replicas' port files", all_ready)
+
+        def front_end():
+            try:
+                h = _fleet_get(port, "/healthz")
+            except (OSError, ValueError):
+                return None
+            scraped = all(r["checkpoint_step"] is not None for r in h.get("replica_status", []))
+            return h if h.get("ready") == cfg.replicas and scraped else None
+
+        health = wait_for("the fleet's front end", front_end)
+        row["ready_s"] = ready_s
+        row["fleet_ready_s"] = time.perf_counter() - fleet.t0
+        modes = {r["quant_mode"] for r in health["replica_status"]}
+        if health["checkpoint_steps"] != [step] or modes != {"int8"} or not health.get("slo"):
+            fail(f"[fleet] healthz {health}")
+        log(f"[fleet] {cfg.replicas}/{cfg.replicas} ready: " + json.dumps(row["ready_s"])
+            + f", front end {row['fleet_ready_s']:.1f} s")
+
+        # 2. Answers through the router, against the in-process int8 engine.
+        t0 = time.perf_counter()
+        status, headers, body = _http(port, "POST", "/predict", _npy(scene))
+        row["scene_s"] = time.perf_counter() - t0
+        got = np.load(__import__("io").BytesIO(body)) if status == 200 else None
+        if status != 200 or headers.get("X-DDLPC-Model-Step") != str(step):
+            fail(f"[fleet] scene: {status} {headers} {body[:300]}")
+        if got.shape != want_scene.shape or (got != want_scene).any():
+            fail(f"[fleet] the scene's class map differs from the in-process int8 engine's in "
+                 f"{int((got != want_scene).sum()) if got.shape == want_scene.shape else got.shape}")
+        for body_i, want in zip(bodies, want_tiles):
+            status, _, body = _http(port, "POST", "/predict", body_i)
+            got = np.load(__import__("io").BytesIO(body)) if status == 200 else None
+            if status != 200 or got.shape != want.shape or (got != want).any():
+                fail(f"[fleet] a tile's class map differs from the in-process int8 engine's")
+        log(f"[fleet] the {SERVE_SCENE} scene and {FLEET_TILES} tiles through the router: class "
+            f"maps == the in-process int8 engine's, bit for bit ({row['scene_s']:.2f} s the scene)")
+
+        # 3. A smoke load.
+        m0 = _fleet_get(port, "/metrics")
+        statuses, wall, _ = load(seconds=FLEET_LOAD_S)
+        m1 = _fleet_get(port, "/metrics")
+        row["smoke_load"] = {
+            "label": "smoke reading: 4 closed-loop clients for 8 s on replicas time-sharing one "
+                     "card; no capacity and no scaling number",
+            "clients": FLEET_CLIENTS, "requests": len(statuses), "wall_s": wall,
+            "errors": sum(s != 200 for s in statuses),
+            "tiles_per_s": (m1["requests"] - m0["requests"]) / wall,
+            **{k: m1.get(k) for k in ("p50_ms", "p95_ms", "p99_ms", "requests_per_sec")}}
+        log("[fleet] smoke load: " + json.dumps(row["smoke_load"]))
+        if row["smoke_load"]["errors"]:
+            fail(f"[fleet] smoke load: {statuses}")
+
+        # 4. One replica SIGKILLed under load: relaunched and readmitted.
+        def kill():
+            time.sleep(1.0)
+            victim = _fleet_get(port, "/fleet")["supervisor"]["replicas"][1]
+            t_kill = time.perf_counter()
+            os.kill(victim["pid"], signal.SIGKILL)
+
+            def readmitted():
+                f = _fleet_get(port, "/fleet")
+                rp = next(r for r in f["supervisor"]["replicas"] if r["name"] == victim["name"])
+                st = next((r for r in f["replica_status"] if r["name"] == victim["name"]), None)
+                return (rp["launches"] == victim["launches"] + 1 and rp["ready"] and st is not None
+                        and st["ready"] and st["healthy"] and not st["draining"])
+
+            wait_for(f"{victim['name']}'s readmission", readmitted)
+            return {"replica": victim["name"], "pid": victim["pid"],
+                    "readmit_s": time.perf_counter() - t_kill}
+
+        statuses, wall, killed = load(during=kill)
+        row["kill"] = {**killed, "requests": len(statuses), "wall_s": wall,
+                       "errors": sum(s != 200 for s in statuses)}
+        log("[fleet] SIGKILL under load: " + json.dumps(row["kill"]))
+        if row["kill"]["errors"]:
+            fail(f"[fleet] client-visible errors through the kill: {statuses}")
+
+        # 5. A rolling reload to a newer checkpoint, under load.
+        def reload():
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            st, _, b = _http(port, "POST", "/reload", b"{}", timeout=FLEET_DEADLINE_S)
+            return st, json.loads(b), time.perf_counter() - t0
+
+        new_step = _new_checkpoint(run, seed=6)
+        statuses, wall, (st, ans, reload_s) = load(during=reload)
+        wait_for("every replica on the new step",
+                  lambda: _fleet_get(port, "/healthz")["checkpoint_steps"] == [new_step])
+        row["reload"] = {"status": st, "step": ans.get("step"), "old_step": ans.get("old_step"),
+                         "seconds": reload_s, "requests": len(statuses),
+                         "errors": sum(s != 200 for s in statuses),
+                         "replicas": [r["replica"] for r in ans.get("replicas", [])]}
+        log("[fleet] rolling reload under load: " + json.dumps(row["reload"]))
+        if (st != 200 or not ans.get("ok") or ans.get("step") != new_step
+                or ans.get("old_step") != step or row["reload"]["errors"]):
+            fail(f"[fleet] rolling reload: {ans}; statuses {statuses}")
+
+        # 6. A reload to a corrupt newest blob: aborted, rolled back.
+        bad_step = _new_checkpoint(run, seed=7)
+        with open(os.path.join(run, "checkpoints", f"ckpt_{bad_step}.dwc"), "r+b") as f:
+            f.seek(12)
+            b = f.read(1)
+            f.seek(12)
+            f.write(bytes([b[0] ^ 0xFF]))
+        statuses, wall, (qst, qans, q_s) = load(during=reload)
+        health = wait_for("the fleet back on the previous step", lambda: (
+            lambda h: h if h["checkpoint_steps"] == [new_step] and h["ready"] == cfg.replicas
+            else None)(_fleet_get(port, "/healthz")))
+        row["rollback"] = {"status": qst, "reason": qans.get("reason"),
+                           "aborted_on": qans.get("aborted_on"),
+                           "rolled_back_to": qans.get("rolled_back_to"),
+                           "rollback_clean": qans.get("rollback_clean"), "seconds": q_s,
+                           "requests": len(statuses), "errors": sum(s != 200 for s in statuses),
+                           "checkpoint_steps": health["checkpoint_steps"]}
+        log("[fleet] quarantined reload: " + json.dumps(row["rollback"]))
+        if (qst != 409 or qans.get("ok") is not False or "quarantined" not in str(qans.get("reason"))
+                or qans.get("rolled_back_to") != new_step or not qans.get("rollback_clean")
+                or row["rollback"]["errors"]):
+            fail(f"[fleet] quarantine rollback: {qans}; statuses {statuses}")
+
+        # 7. The fleet's metrics and SLO status.
+        _, _, text = _http(port, "GET", "/metrics", headers={"Accept": "text/plain"})
+        text = text.decode()
+        families = sorted({ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE")})
+        router = [f for f in families if f.startswith("ddlpc_router_")]
+        rollups = [f for f in families if f.startswith("ddlpc_fleet_")]
+        metrics = _fleet_get(port, "/metrics")
+        health = _fleet_get(port, "/healthz")
+        slo = health.get("slo") or {}
+        if not router or not rollups or "availability_objective" not in slo or metrics["errors_5xx"]:
+            fail(f"[fleet] metrics: router {router}, rollups {rollups[:5]}, slo {slo}, "
+                 f"errors_5xx {metrics.get('errors_5xx')}")
+        served = 0
+        for ln in text.splitlines():
+            if (ln.startswith(("ddlpc_fleet_serve_jit_cache_hits_total{",
+                               "ddlpc_fleet_serve_jit_cache_misses_total{"))
+                    and 'replica="fleet"' in ln):
+                served += int(float(ln.rsplit(" ", 1)[1]))
+        launches = sum(r["launches"] for r in _fleet_get(port, "/fleet")["supervisor"]["replicas"])
+        # Reloads that restored and quantized: each replica once in the
+        # rolling reload; in the aborted one, the quarantining reload and
+        # the explicit pin back on every replica it had reached.
+        reloads = len(ans["replicas"]) + 2 * len(qans["replicas"])
+        forwards = 4 * launches + served  # warmup's buckets 1, 2, 4, 8 at each launch
+        row["metrics"] = {"router_families": len(router), "fleet_families": len(rollups),
+                          "errors_5xx": metrics["errors_5xx"], "requests": metrics["requests"],
+                          "retries": metrics["retries"], "hedges": metrics["hedges"],
+                          "slo": {k: slo[k] for k in sorted(slo) if k != "kind"}}
+        row["derived_launches"] = {
+            "how": "derived: (launches + reloads) x leaves for absmax and encode_to_wire; "
+                   "(4 warmup forwards a launch + the fleet rollup of ddlpc_serve_jit_cache_"
+                   "{hits,misses}_total) x leaves for decode_from_wire, a lower bound (the "
+                   "killed process's forwards after its last scrape are not counted)",
+            "leaves": leaves, "replica_launches": launches, "reloads": reloads,
+            "served_forwards": served, "forwards": forwards,
+            "absmax": (launches + reloads) * leaves, "encode_to_wire": (launches + reloads) * leaves,
+            "decode_from_wire": forwards * leaves}
+        log("[fleet] metrics: " + json.dumps(row["metrics"]))
+        log("[fleet] launches in the replicas: " + json.dumps(row["derived_launches"]))
+
+        # 8. SIGTERM: the fleet and every replica drain and exit 0.
+        t0 = time.perf_counter()
+        fleet.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = fleet.proc.wait(timeout=cfg.drain_timeout_s + 60)
+        except subprocess.TimeoutExpired:
+            fail(f"[fleet] still running {cfg.drain_timeout_s + 60} s after SIGTERM")
+        exit_s = time.perf_counter() - t0
+        err = fleet.stderr()
+        last_exit = {}
+        for ln in err.splitlines():
+            m = re.match(r"\[fleet\] (r\d+): exit (-?\d+) \((\w+)\)", ln)
+            if m:
+                last_exit[m.group(1)] = (int(m.group(2)), m.group(3))
+        logs = [err] + [open(os.path.join(fleet_dir, f"r{i}", "replica.log"), errors="replace").read()
+                        for i in range(cfg.replicas)]
+        row["drain"] = {"rc": rc, "exit_s": exit_s, "replica_exits": last_exit,
+                        "terminate_called": any("terminate called" in t for t in logs)}
+        log("[fleet] SIGTERM: " + json.dumps(row["drain"]))
+        if (rc != 0 or exit_s > cfg.drain_timeout_s or row["drain"]["terminate_called"]
+                or last_exit != {f"r{i}": (0, "clean") for i in range(cfg.replicas)}):
+            fail(f"[fleet] drain: {row['drain']}; stderr tail {err[-3000:]}")
+    finally:
+        fleet.kill_tree()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+class _Attempt:
+    """One supervised child as ``Supervisor`` sees a ``Popen``, timed: its
+    launch, the moment its trainer's ``fit`` began (the breadcrumb it
+    writes then, watched from a thread) and its exit."""
+
+    def __init__(self, cmd, env, workdir: str, n: int):
+        import threading
+
+        self.n = n
+        self.log = open(os.path.join(workdir, f"attempt{n}.log"), "w")
+        self.t_launch = time.time()
+        self.proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        self.pid = self.proc.pid
+        self.t_fit = None
+        self.t_exit = None
+        self._workdir = workdir
+        self._watch = threading.Thread(target=self._watch_fit, daemon=True)
+        self._watch.start()
+
+    def _watch_fit(self):
+        from ddlpc_tpu_torch.resilience.protocol import read_breadcrumb
+
+        while self.proc.poll() is None and self.t_fit is None:
+            crumb = read_breadcrumb(self._workdir) or {}
+            if crumb.get("pid") == self.pid and "start_epoch" in crumb:
+                self.t_fit = crumb["time"]
+            time.sleep(0.02)
+
+    def wait(self):
+        rc = self.proc.wait()
+        self.t_exit = time.time()
+        self._watch.join(5)
+        self.log.close()
+        return rc
+
+    def poll(self):
+        return self.proc.poll()
+
+    def send_signal(self, sig):
+        self.proc.send_signal(sig)
+
+
+def _checkpoint_digest(ckpt_dir: str, step: int) -> str:
+    """sha256 over a checkpoint's leaves (sorted paths, their bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+
+    tree, _ = ckpt.restore_checkpoint(ckpt_dir, step=step)
+    h = hashlib.sha256()
+    for path, leaf in ckpt.flatten_tree(tree).items():
+        h.update("/".join(path).encode())
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 else leaf
+            leaf = leaf.numpy()
+        if not isinstance(leaf, dict):
+            h.update(np.ascontiguousarray(leaf).tobytes())
+    return h.hexdigest()
+
+
+def supervised_phase(argv: list) -> dict:
+    """The flagship under the port's ``Supervisor`` (module docstring, phase
+    4f): killed, stalled, then clean, to the committed loss bits and the
+    uninterrupted run's final checkpoint."""
+    import shutil
+
+    from ddlpc_tpu_torch.resilience.supervisor import Supervisor
+
+    ref_dir = argv[argv.index("--workdir") + 1]
+    workdir = os.path.join(WORKDIR, "supervised")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    args = [a for a in argv if a != "--no-resume"]
+    args[args.index("--workdir") + 1] = workdir
+    cmd = [sys.executable, "-m", "ddlpc_tpu_torch.train", *args,
+           "--set", f"train.stall_timeout_s={SUPERVISED_STALL_TIMEOUT_S}"]
+
+    def env_fn(attempt: int) -> dict:
+        env = dict(os.environ, PYTHONPATH=REPO)
+        env.pop("DDLPC_CHAOS", None)
+        if attempt < len(SUPERVISED_CHAOS):
+            env["DDLPC_CHAOS"] = SUPERVISED_CHAOS[attempt]
+        return env
+
+    attempts, sleeps = [], []
+    metrics_path = os.path.join(workdir, "metrics.jsonl")
+
+    def records():
+        try:
+            with open(metrics_path) as f:
+                return [r for r in map(json.loads, f) if "kind" not in r]
+        except OSError:
+            return []
+
+    def popen(cmd, env=None):
+        a = _Attempt(cmd, env, workdir, len(attempts))
+        attempts.append(a)
+        return a
+
+    def sleep(s):
+        sleeps.append(s)
+        time.sleep(s)
+
+    log(f"[supervised] python -m ddlpc_tpu_torch.resilience.supervisor --workdir {workdir} -- "
+        f"python {' '.join(cmd[1:])}; chaos by attempt {list(SUPERVISED_CHAOS)}, then none")
+    t0 = time.perf_counter()
+    sup = Supervisor(cmd, workdir=workdir, env_fn=env_fn, popen=popen, sleep=sleep)
+    result = sup.run()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(workdir, "resilience.jsonl")) as f:
+        res = [json.loads(ln) for ln in f]
+    recs = records()
+    losses = [r["loss"] for r in recs]
+    by_epoch = {r["epoch"]: r for r in recs}
+    row = {"card": smi_line(), "ok": result.ok, "attempts": result.attempts,
+           "restarts_by_cause": result.restarts_by_cause, "wall_s": wall, "backoffs": sleeps,
+           "causes": [r["cause"] for r in res], "progressed": [r["progressed"] for r in res],
+           "ckpt_steps": [(r["ckpt_step_before"], r["ckpt_step_after"]) for r in res],
+           "losses": losses}
+    row["attempt_wall_s"] = [a.t_exit - a.t_launch for a in attempts]
+    overhead = []
+    for k in range(1, len(attempts)):
+        first = by_epoch.get(k)  # attempt k resumes at epoch k, one step an epoch
+        a, prev = attempts[k], attempts[k - 1]
+        if a.t_fit is None or first is None:
+            fail(f"[supervised] attempt {k}: no fit start or no epoch {k} record")
+        overhead.append({"to_fit_s": a.t_fit - prev.t_exit, "first_step_s": first["step_time_s"],
+                         "total_s": a.t_fit - prev.t_exit + first["step_time_s"]})
+    row["restart_overhead"] = overhead
+    # The codec launches in the children, derived: each step launches the
+    # encode, the decode and the fake-quantize once and the max-abs pass
+    # twice; a killed or stalled attempt ran one step past its last record.
+    steps = len(recs) + sum(1 for r in res if r["cause"] != "clean")
+    row["derived_launches"] = {"how": "derived from the steps run (records + one step past the "
+                                      "last record of each killed or stalled attempt)",
+                               "steps": steps, "encode_to_wire": steps, "decode_from_wire": steps,
+                               "fake_quantize_fused": steps, "absmax": 2 * steps}
+    want = _checkpoint_digest(os.path.join(ref_dir, "checkpoints"), EPOCHS)
+    got = _checkpoint_digest(os.path.join(workdir, "checkpoints"), EPOCHS)
+    row["checkpoint_digest_equal"] = got == want
+    try:
+        with open(os.path.join(workdir, "stall.log")) as f:
+            row["stall_log"] = f.read().splitlines()[0]
+    except (OSError, IndexError):
+        row["stall_log"] = None
+    log("[supervised] " + json.dumps(row))
+    if (not result.ok or row["causes"] != ["oom_kill", "stall", "clean"]
+            or not all(row["progressed"]) or sleeps or losses != FLAGSHIP_LOSSES
+            or sorted(by_epoch) != list(range(EPOCHS)) or got != want):
+        fail(f"[supervised] {row}; the uninterrupted run's checkpoint {want}, this run's {got}")
+    log(f"[supervised] losses == the committed bits {FLAGSHIP_LOSSES}; the final checkpoint == the "
+        f"uninterrupted run's ({want[:16]})")
+    return row
 
 
 def main() -> int:
@@ -3004,6 +3538,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve = serve_phase(main["argv"])
+    fleet = fleet_phase(serve)
+    supervised = supervised_phase(main["argv"])
     sr = main_path_phase(
         "stochastic_int8", STOCHASTIC, warns=True,
         expect={"encode_sr": EPOCHS, "decode_from_wire": EPOCHS,
@@ -3069,7 +3605,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "cityscapes_kernels": cs_rows, "floor": floor,
                       "chunk_rows": chunk_rows, "data_parallel": dp, "data_paths": data["rows"],
                       "checkpoint": ckpt_row, "sqrt": sqrt_row, "host": host_rows,
-                      "stall": stall_row, "paths": paths, "serve": serve}))
+                      "stall": stall_row, "paths": paths, "serve": serve, "fleet": fleet,
+                      "supervised": supervised}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,16 +13,29 @@ against; nothing here imports it (or JAX).  The layout mirrors it:
 - ``train``      — Adam, the Trainer and the CLI (``python -m ddlpc_tpu_torch.train``)
 - ``convert``    — flax ⇄ torch state conversion
 - ``serve``      — the inference engine, its batchers and the HTTP server
-  (``python -m ddlpc_tpu_torch.serve.server``); ``predict`` — the batch CLI
+  (``python -m ddlpc_tpu_torch.serve.server``), the fleet's router,
+  replica supervisor, autoscaler and response cache
+  (``python -m ddlpc_tpu_torch.serve.fleet``); ``predict`` — the batch CLI
+- ``resilience`` — the exit protocol, fault injection and the training
+  supervisor (``python -m ddlpc_tpu_torch.resilience.supervisor``)
+
+Importing the package does not import ``torch``: the fleet tier (router,
+fleet, autoscaler, cache), the training supervisor and the trace merger
+and telemetry aggregator must outlive what they babysit, so they never
+load what crashed it.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; they
 raise when CUDA is absent and the CPU was not asked for.
 """
 
+from __future__ import annotations
+
 import argparse
 import re
+from typing import TYPE_CHECKING
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
 def device_arg(value: str) -> str:
@@ -37,6 +50,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless ``cpu`` is asked
     for.  Raises when CUDA is requested (or defaulted to) but absent — the
     port never falls back to the CPU on its own."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

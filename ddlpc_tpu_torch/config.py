@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Tuple
 
@@ -215,3 +216,130 @@ class ServeConfig:
 
     def replace(self, **kwargs) -> "ServeConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """The serving fleet (``serve/fleet.py``, ``serve/router.py``): one
+    router process supervising ``replicas`` server subprocesses — read from
+    ``configs/fleet_*.json``; ``ddlpc_tpu/config.py`` documents each field.
+    The replicas' device is the fleet CLI's ``--device``, never a key here."""
+
+    workdir: str = "runs/default"  # training run every replica serves
+    fleet_dir: str = ""  # replica homes, router.jsonl; "" = <workdir>/fleet
+    host: str = "127.0.0.1"
+    port: int = 8570  # router HTTP port (0 = ephemeral)
+    replicas: int = 3
+    # Per-replica serve knobs, forwarded into each replica's ServeConfig.
+    max_batch: int = 8
+    max_wait_ms: float = 5.0
+    queue_limit: int = 64
+    deadline_ms: float = 2000.0
+    overlap: float = 0.25
+    batcher: str = "continuous"  # continuous | coalesce
+    slots: int = 2
+    batch_queue_limit: int = 256
+    starvation_every: int = 4
+    quantize: str = "bf16"  # off | int8 | bf16 (serve/quantized.py)
+    quantize_activations: bool = False
+    batch_shed_queue_depth: int = 0  # router-side bulk shedding; 0 = off
+    no_replica_wait_ms: float = 1000.0  # wait for an eligible replica; 0 = fail fast
+    # Dispatch: per-attempt timeout, retries elsewhere with full-jitter
+    # backoff, a hedge after hedge_ms (0 = off).
+    request_timeout_ms: float = 4000.0
+    retries: int = 2
+    retry_backoff_ms: float = 25.0
+    hedge_ms: float = 1000.0
+    hedge_max: int = 1
+    # Per-replica circuit breaker.
+    breaker_window: int = 16
+    breaker_min_samples: int = 8
+    breaker_error_rate: float = 0.5
+    breaker_cooldown_s: float = 2.0
+    breaker_half_open_probes: int = 1
+    breaker_close_after: int = 2
+    # Health scraping.
+    scrape_every_s: float = 1.0
+    scrape_timeout_s: float = 2.0
+    unhealthy_after: int = 3
+    # Drain / rolling reload.
+    drain_timeout_s: float = 30.0
+    warmup_timeout_s: float = 180.0  # replica readiness deadline per (re)launch
+    # Replica supervision (resilience/supervisor.py RestartPolicy).
+    max_restarts: int = 100
+    crash_loop_limit: int = 3
+    backoff_base_s: float = 0.5
+    backoff_cap_s: float = 30.0
+    metrics_every_s: float = 10.0  # router.jsonl snapshot cadence; 0 = off
+    trace: bool = False  # router spans + traceparent to the replicas
+    # Fleet telemetry aggregation (obs/aggregate.py); 0 = off.
+    aggregate_every_s: float = 2.0
+    aggregate_stale_after_s: float = 15.0
+    # SLO layer (obs/health.py:SLOTracker).
+    slo_enabled: bool = True
+    slo_interactive_p99_ms: float = 1000.0
+    slo_batch_p99_ms: float = 10000.0
+    slo_availability: float = 0.999
+    slo_budget_window_s: float = 3600.0
+    slo_fast_window_s: float = 300.0
+    slo_fast_burn: float = 14.0
+    slo_slow_window_s: float = 3600.0
+    slo_slow_burn: float = 2.0
+    # Elastic fleet (serve/autoscale.py).
+    autoscale_enabled: bool = False
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 8
+    autoscale_interval_s: float = 2.0
+    autoscale_cooldown_s: float = 30.0
+    autoscale_burn_threshold: float = 2.0
+    autoscale_queue_depth_high: float = 8.0
+    autoscale_queue_depth_low: float = 1.0
+    autoscale_slot_busy_high: float = 0.85
+    autoscale_slot_busy_low: float = 0.30
+    cache_max_bytes: int = 0  # response cache (serve/cache.py); 0 = off
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "FleetConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - fields
+        if unknown:
+            raise ValueError(f"unknown config key FleetConfig.{sorted(unknown)[0]}")
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FleetConfig":
+        return cls.from_dict(json.loads(s))
+
+    def replace(self, **kwargs) -> "FleetConfig":
+        return dataclasses.replace(self, **kwargs)
+
+    def resolved_fleet_dir(self) -> str:
+        return self.fleet_dir or os.path.join(self.workdir, "fleet")
+
+    def replica_serve_config(self, metrics_dir: str = "") -> ServeConfig:
+        """The ServeConfig one replica subprocess runs with."""
+        return ServeConfig(
+            workdir=self.workdir,
+            host=self.host,
+            port=0,  # ephemeral; the supervisor reads the port file
+            max_batch=self.max_batch,
+            max_wait_ms=self.max_wait_ms,
+            queue_limit=self.queue_limit,
+            deadline_ms=self.deadline_ms,
+            overlap=self.overlap,
+            batcher=self.batcher,
+            slots=self.slots,
+            batch_queue_limit=self.batch_queue_limit,
+            starvation_every=self.starvation_every,
+            quantize=self.quantize,
+            quantize_activations=self.quantize_activations,
+            drain_timeout_s=self.drain_timeout_s,
+            metrics_dir=metrics_dir,
+            trace=self.trace,  # replicas stamp the router's trace context
+        )

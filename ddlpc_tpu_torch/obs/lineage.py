@@ -1,5 +1,6 @@
 """The lineage record a checkpoint carries — the part of
-``ddlpc_tpu/obs/lineage.py`` that checkpoint metadata and the server need.
+``ddlpc_tpu/obs/lineage.py`` that checkpoint metadata, the server and the
+fleet router need.
 
 A record is a small dict stamped into each checkpoint's manifest and JSON
 sidecar at save:
@@ -18,7 +19,9 @@ explicit ``lineage_unknown`` marker in every field.  Stdlib only.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
+import re
 import time
 import uuid
 from typing import Optional
@@ -38,6 +41,8 @@ LINEAGE_FIELDS = (
     "fingerprint",
     "saved_at",
 )
+
+_CKPT_SIDECAR_RE = re.compile(r"^ckpt_(\d+)\.json$")
 
 _fingerprint_cache: Optional[str] = None
 
@@ -129,3 +134,33 @@ def flatten(lineage: Optional[dict], prefix: str = "lineage_") -> dict:
         key = field if field == "lineage_id" else prefix + field
         out[key] = src.get(field)
     return out
+
+
+def newest_checkpoint_lineage(workdir: str) -> Optional[dict]:
+    """Lineage of the newest checkpoint under ``workdir/checkpoints``,
+    read from its JSON sidecar (stdlib only: the torch-free router computes
+    model age against the newest durable checkpoint without the checkpoint
+    reader).  None without checkpoints; :func:`unknown_lineage` with the
+    step when the newest sidecar has no lineage or cannot be read."""
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    try:
+        names = os.listdir(ckpt_dir)
+    except OSError:
+        return None
+    steps = sorted(
+        int(m.group(1))
+        for m in (_CKPT_SIDECAR_RE.match(n) for n in names)
+        if m
+    )
+    if not steps:
+        return None
+    step = steps[-1]
+    try:
+        with open(os.path.join(ckpt_dir, f"ckpt_{step}.json")) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return unknown_lineage(step)
+    lin = meta.get("lineage")
+    if not isinstance(lin, dict):
+        return unknown_lineage(step)
+    return dict(lin, step=lin.get("step", step))

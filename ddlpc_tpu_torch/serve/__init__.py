@@ -18,19 +18,41 @@ port of ``ddlpc_tpu.serve``.  Layers, bottom-up:
                      ``/predict``, ``/metrics``, ``/reload``,
                      ``/debug/trace``) over a ``ServingFrontend``.
 
-The JAX package's fleet tier (router, fleet, autoscale, response cache)
-is not ported yet.
+- :mod:`router`    — the fleet's routing tier: occupancy-aware dispatch,
+                     retry on another replica, hedging, per-replica
+                     circuit breakers, SLO tracking, the response cache.
+- :mod:`fleet`     — the replica supervisor (launch, readiness, restart,
+                     rolling reload with fleet-wide rollback) and the
+                     fleet's HTTP front end
+                     (``python -m ddlpc_tpu_torch.serve.fleet``).
+- :mod:`autoscale` — the SLO-driven replica-count policy loop.
+- :mod:`cache`     — the router's content-addressed response cache.
+
+The names below load their module on first use (PEP 562): importing this
+package, or the fleet tier under it, loads neither ``torch`` nor the
+engine, so a router process never pays for what its replicas run.
 """
 
-from ddlpc_tpu_torch.serve.batching import (  # noqa: F401
-    DeadlineExceeded,
-    EngineClosed,
-    MicroBatcher,
-    Overloaded,
-)
-from ddlpc_tpu_torch.serve.cbatch import ContinuousBatcher  # noqa: F401
-from ddlpc_tpu_torch.serve.engine import (  # noqa: F401
-    InferenceEngine,
-    sliding_window_logits,
-)
-from ddlpc_tpu_torch.serve.metrics import ServeMetrics  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "DeadlineExceeded": "batching",
+    "EngineClosed": "batching",
+    "MicroBatcher": "batching",
+    "Overloaded": "batching",
+    "ContinuousBatcher": "cbatch",
+    "InferenceEngine": "engine",
+    "sliding_window_logits": "engine",
+    "ServeMetrics": "metrics",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

@@ -32,7 +32,7 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -56,12 +56,10 @@ from ddlpc_tpu_torch.serve.batching import (
     Overloaded,
 )
 from ddlpc_tpu_torch.serve.cbatch import ContinuousBatcher, check_priority
-from ddlpc_tpu_torch.serve.engine import (
-    InferenceEngine,
-    Stitcher,
-    window_plan,
-)
 from ddlpc_tpu_torch.serve.metrics import ServeMetrics
+
+if TYPE_CHECKING:
+    from ddlpc_tpu_torch.serve.engine import InferenceEngine
 
 
 class ServingFrontend:
@@ -238,6 +236,11 @@ class ServingFrontend:
 
     def _predict_logits_inner(self, image, overlap, th, tw, req_span,
                               priority="interactive"):
+        # The engine module (and torch with it) loads where a frontend
+        # plans windows, never at import: the fleet's front end reuses
+        # this module's HTTP server class without an engine.
+        from ddlpc_tpu_torch.serve.engine import Stitcher, window_plan
+
         with self.tracer.span("window_plan"):
             padded, origins, (h, w) = window_plan(
                 image, self.engine.tile, overlap
@@ -523,6 +526,16 @@ class ServeHTTPServer(ThreadingHTTPServer):
         with self._inflight_cond:
             return self._inflight
 
+    def handle_error(self, request, client_address) -> None:
+        """A peer that hung up — the fleet router closes a hedge loser's
+        connection under it, a client gives up — is routine, not a fault:
+        the connection ends without a traceback (its request's work is
+        done and its in-flight count released by the handler).  Anything
+        else is reported as before."""
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            return
+        super().handle_error(request, client_address)
+
     def wait_idle(self, timeout: Optional[float] = None) -> bool:
         """Block until no request is being handled (True) or ``timeout``
         expires with work still in flight (False)."""
@@ -807,6 +820,7 @@ def main(argv=None) -> int:
     if overrides:
         cfg = cfg.replace(**overrides)
 
+    from ddlpc_tpu_torch.serve.engine import InferenceEngine
     from ddlpc_tpu_torch.train.observability import MetricsLogger
 
     engine = InferenceEngine.from_workdir(

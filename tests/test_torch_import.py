@@ -75,6 +75,14 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.serve.metrics",
     "ddlpc_tpu_torch.serve.quantized",
     "ddlpc_tpu_torch.serve.server",
+    # The fleet tier.
+    "ddlpc_tpu_torch.obs.aggregate",
+    "ddlpc_tpu_torch.obs.merge",
+    "ddlpc_tpu_torch.resilience.supervisor",
+    "ddlpc_tpu_torch.serve.autoscale",
+    "ddlpc_tpu_torch.serve.cache",
+    "ddlpc_tpu_torch.serve.fleet",
+    "ddlpc_tpu_torch.serve.router",
 )
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ddlpc_tpu", "PIL", "ml_dtypes", "imageio")
 
@@ -156,3 +164,54 @@ def test_serving_entry_point_alone_loads_no_jax(module):
     )
     assert r.returncode == 0, r.stderr
     assert "LOADED []" in r.stdout, r.stdout
+
+
+# The fleet tier babysits what runs torch and the card, so it loads none
+# of it: each module alone, in a fresh interpreter, loads no torch (and no
+# JAX, nothing of ddlpc_tpu); the supervisor, the trace merger and the
+# telemetry aggregator load no numpy either (the JAX package's stdlib tier,
+# ddlpc_tpu/analysis/tiers.py).
+FLEET_TIER = {
+    "ddlpc_tpu_torch.serve.router": ("torch",),
+    "ddlpc_tpu_torch.serve.fleet": ("torch",),
+    "ddlpc_tpu_torch.serve.autoscale": ("torch",),
+    "ddlpc_tpu_torch.serve.cache": ("torch",),
+    "ddlpc_tpu_torch.resilience.supervisor": ("torch", "numpy"),
+    "ddlpc_tpu_torch.obs.aggregate": ("torch", "numpy"),
+    "ddlpc_tpu_torch.obs.merge": ("torch", "numpy"),
+    "ddlpc_tpu_torch": ("torch", "numpy"),
+    "ddlpc_tpu_torch.config": ("torch", "numpy"),
+    "ddlpc_tpu_torch.serve": ("torch", "numpy"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(FLEET_TIER))
+def test_fleet_tier_module_alone_loads_no_torch(module):
+    forbidden = FORBIDDEN + FLEET_TIER[module]
+    script = textwrap.dedent(
+        f"""
+        import importlib, sys
+        FORBIDDEN = {forbidden!r}
+        importlib.import_module({module!r})
+        print("LOADED", sorted({{m.split(".")[0] for m in sys.modules
+                                if m.split(".")[0] in FORBIDDEN}}))
+        """
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_fleet_tier_tripwire_sees_torch():
+    """The tripwire's control: the engine module alone does load torch."""
+    script = (
+        "import importlib, sys; importlib.import_module('ddlpc_tpu_torch.serve.engine'); "
+        "print('torch' in sys.modules)"
+    )
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                       timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "True"
