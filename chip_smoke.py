@@ -62,6 +62,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and the checkpoint wire's deflate and inflate against Python's zlib,
    with both zlib versions printed;
 
+4a. ``traced``: the fp16 main path again (three steps, the same checks)
+   with ``TRACED``: the span tracer with a sampled ``step_sync`` every
+   step, the telemetry endpoint on an ephemeral port and epoch 2 under
+   ``torch.profiler`` (``train.profile_epoch=2``), while a thread arms a
+   one-step capture through ``GET /debug/trace?steps=1`` and scrapes
+   ``/metrics`` (JSON and Prometheus text) and ``/healthz`` during the
+   run.  The losses must be the committed bits and the codec's launches
+   the untraced path's; ``spans.jsonl`` must hold 3 ``epoch``, 3
+   ``step_sync``, 3 ``evaluate`` and 3 ``checkpoint_snapshot`` spans and
+   the ``data`` and ``step`` stages, ``trace.json`` must load; every
+   ``metrics.jsonl`` record must pass the port's ``obs/schema.check_record``;
+   the scrape must show ``ddlpc_mfu``, ``ddlpc_goodput`` and
+   ``ddlpc_train_loss``; ``top_ops_001.json`` must report the device plane
+   with ``device_total_ms > 0``; and the epoch capture's ``ops.json`` must
+   name a codec kernel.  The traced and untraced step times and the sizes
+   of the trace and the captures are printed beside the card;
+
 4b. the checkpoint phase, on the fp16 main path's run: every blob verifies;
    a fresh Trainer on a copy of the workdir whose newest checkpoint is
    epoch 1 resumes and runs epoch 2, whose loss must equal the
@@ -233,6 +250,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    params must equal zero3's bit for bit and which must hold at least the
    full param buffer less a chunk more memory, and one process at
    ``shard_update='off'`` restores the zero3 checkpoint bit for bit.
+   ``dp2_off_int8_sr_traced`` is ``dp2_off_int8_sr`` under
+   ``train.trace`` with a sampled sync every step: every rank then runs
+   the fenced comm probe once an epoch (``PROBE_SYNCS`` more syncs, whose
+   codec launches the expected counts include); rank 0's losses, every
+   rank's last loss and the replicas' digest must equal the untraced
+   phase's bit for bit, and rank 0's ``comm`` records must carry a
+   ``comm_s_per_step`` within ``PROBE_SYNC_MARGIN`` of the phase's own
+   sync a step and below the record's ``step_time_s``, and a
+   ``comm_fraction`` in [0, 1].
 
 Before the main paths it also times the zero2 path's chunk-size kernels
 (decode, the max-abs pass, the fake-quantize against a given max-abs) at
@@ -303,6 +329,19 @@ STOCHASTIC = (
     "compression.rounding=stochastic",
     "compression.codec_backend=pallas",
 )
+# The traced paths: the trainer's span tracer with a sampled sync every
+# step, the telemetry endpoint on an ephemeral port and the last epoch
+# under the profiler.  Traced, each replica of a world also runs the fenced
+# comm probe once an epoch, its first call warming up with one more sync:
+# EPOCHS + 1 syncs of the step's own, the codec's launches with them.
+TRACED = ("train.trace=True", "train.trace_sync_every_steps=1", "train.telemetry_port=0",
+          "train.profile_epoch=2")
+PROBE_SYNCS = EPOCHS + 1
+# The probe times one sync of the step's own; the phase also times that
+# sync (the median of 5, ``sync_ms``).  One probe sample must lie within
+# this factor of it either way: a probe that timed a step (≈ 30 syncs)
+# or no sync at all fails (readings on one H100: 0.96–1.5 times the sync).
+PROBE_SYNC_MARGIN = 3.0
 # The data-parallel paths: (replicas, extra overrides, resolved level,
 # expected launches a step and a gradient bucket of each kernel, whether
 # the large-batch warning fires).  v5e8 at 4 replicas (8 do not fit one
@@ -319,6 +358,11 @@ DP_PHASES = {
     "dp2_off_int8_sr": (2, STOCHASTIC, "off",
                         {"encode_sr": 1, "decode_from_wire": 1, "fake_quantize_sr": 1, "absmax": 2},
                         True),
+    # Its twin under the tracer, which adds the comm probe's syncs.
+    "dp2_off_int8_sr_traced": (2, STOCHASTIC + TRACED[:2], "off",
+                               {"encode_sr": 1, "decode_from_wire": 1, "fake_quantize_sr": 1,
+                                "absmax": 2},
+                               True),
     "dp4_zero1_int8_ring": (4, ("parallel.shard_update=zero1", "compression.mode=int8",
                                 "compression.transport=ring"), "zero1",
                             {"encode_to_wire": 1, "decode_from_wire": 1, "absmax": 1}, False),
@@ -327,6 +371,10 @@ DP_PHASES = {
                                "absmax": 2},
                               False),
 }
+# Substrings of the codec kernels' names (the C entries' and the CUDA
+# kernels', as the profiler names them).
+CODEC_KERNEL_NAMES = ("ddlpc_encode", "ddlpc_decode", "fake_quantize", "absmax", "encode_kernel",
+                      "encode_sr_kernel", "decode_kernel")
 # The flagship with every optimizer option the JAX trainer has, and remat.
 FLAGSHIP_OPTIONS = ("train.optimizer=adamw", "train.weight_decay=1e-4", "train.lr_schedule=cosine",
                     "train.warmup_steps=1", "train.grad_clip_norm=1.0", "train.remat=true")
@@ -1165,6 +1213,142 @@ def main_path_phase(label: str, extra: tuple, expect: dict, warns: bool, config:
     return {"launches": launches, "n_params": n_params, "trainer": trainer, "argv": argv,
             "losses": [r["loss"] for r in records], "peak_bytes": peak,
             "epochs": path_row(label, records, perf)}
+
+
+def _scrape(port: int, out: dict) -> None:
+    """The traced phase's scraper thread: arms a one-step capture through
+    ``/debug/trace?steps=1`` while the first step runs, then reads
+    ``/metrics`` (JSON and Prometheus text) and ``/healthz`` once the first
+    epoch's loss and perf gauges are published."""
+    try:
+        out["arm"] = json.loads(_http(port, "GET", "/debug/trace?steps=1")[2])
+        deadline = time.monotonic() + 300.0
+        snap = {}
+        while time.monotonic() < deadline:
+            snap = json.loads(_http(port, "GET", "/metrics")[2])
+            if "ddlpc_train_loss" in snap and "ddlpc_mfu" in snap:
+                break
+            time.sleep(0.05)
+        out["json"] = snap
+        out["text"] = _http(port, "GET", "/metrics", headers={"Accept": "text/plain"})[2].decode()
+        out["healthz"] = json.loads(_http(port, "GET", "/healthz")[2])
+    except Exception as e:  # noqa: BLE001 — the phase fails on the missing keys
+        out["error"] = f"{type(e).__name__}: {e}"
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def traced_phase(untraced: dict) -> dict:
+    """``traced`` (module docstring, phase 4a): the nearest fp16 main path
+    again with ``TRACED`` and a scraper thread; the losses must be the
+    committed bits and the launches the untraced path's, and the spans,
+    the stream, the scrape and both captures must hold what the trainer's
+    observability promises."""
+    import threading
+
+    from ddlpc_tpu_torch.obs.schema import check_record
+
+    scraped: dict = {}
+    threads = []
+
+    def prepare(trainer):
+        t = threading.Thread(target=_scrape, args=(trainer.telemetry.port, scraped), daemon=True)
+        t.start()
+        threads.append(t)
+
+    run = main_path_phase("traced", TRACED, untraced["launches"], warns=False, prepare=prepare)
+    for t in threads:
+        t.join(timeout=60.0)
+    trainer = run["trainer"]
+    workdir = trainer.workdir
+    trainer.close()
+    if run["losses"] != FLAGSHIP_LOSSES:
+        fail(f"[traced] losses {run['losses']} != the committed bits {FLAGSHIP_LOSSES}")
+    with open(os.path.join(workdir, "spans.jsonl")) as f:
+        spans = [json.loads(line) for line in f]
+    counts: dict = {}
+    for sp in spans:
+        counts[sp["name"]] = counts.get(sp["name"], 0) + 1
+    want = {"epoch": EPOCHS, "step_sync": EPOCHS, "evaluate": EPOCHS, "checkpoint_snapshot": EPOCHS}
+    if {k: counts.get(k) for k in want} != want or not {"data", "step"} <= set(counts):
+        fail(f"[traced] spans {counts}: expected {want} and the data and step stages")
+    with open(os.path.join(workdir, "trace.json")) as f:
+        trace_doc = json.load(f)
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    bad = [(r.get("kind", "train"), err) for r in lines for err in check_record(r)]
+    if bad:
+        fail(f"[traced] metrics.jsonl records fail the schema: {bad[:5]}")
+    if "error" in scraped:
+        fail(f"[traced] the scrape failed: {scraped['error']}")
+    snap, text = scraped.get("json", {}), scraped.get("text", "")
+    for gauge in ("ddlpc_mfu", "ddlpc_goodput", "ddlpc_train_loss"):
+        if gauge not in snap or not re.search(rf"^{gauge} \S+$", text, re.M):
+            fail(f"[traced] the scrape lacks {gauge}: JSON keys {sorted(snap)[:40]}")
+    if scraped["healthz"].get("status") != "ok" or not scraped["arm"].get("armed"):
+        fail(f"[traced] /healthz {scraped['healthz']}, /debug/trace {scraped['arm']}")
+    with open(os.path.join(workdir, "top_ops_001.json")) as f:
+        top = json.load(f)
+    if top.get("planes") != ["device"] or not top.get("device_total_ms", 0) > 0 or "error" in top:
+        fail(f"[traced] top_ops_001.json: planes {top.get('planes')}, device_total_ms "
+             f"{top.get('device_total_ms')}, error {top.get('error')}")
+    with open(os.path.join(workdir, "profile", "ops.json")) as f:
+        ops = json.load(f)
+    codec = sorted({o["op"][:80] for o in ops if any(k in o["op"] for k in CODEC_KERNEL_NAMES)})
+    if not codec:
+        fail("[traced] the profile_epoch capture names no codec kernel")
+    step_untraced = [e["step_time_s"] for e in untraced["epochs"]]
+    step_traced = [e["step_time_s"] for e in run["epochs"]]
+    sizes = {"trace_json": os.path.getsize(os.path.join(workdir, "trace.json")),
+             "spans_jsonl": os.path.getsize(os.path.join(workdir, "spans.jsonl")),
+             "profile_epoch": _dir_bytes(os.path.join(workdir, "profile")),
+             "profile_001": _dir_bytes(os.path.join(workdir, "profile_001"))}
+    log(f"[traced] losses == the committed bits; launches == nearest_fp16's; spans {json.dumps(counts)}; "
+        f"{len(trace_doc['traceEvents'])} trace events; {len(lines)} records pass the schema; the scrape "
+        f"shows ddlpc_mfu {snap['ddlpc_mfu']}, ddlpc_goodput {snap['ddlpc_goodput']}, ddlpc_train_loss "
+        f"{snap['ddlpc_train_loss']}")
+    log(f"[traced] top_ops_001 (1 step, armed over HTTP): device_total_ms {top['device_total_ms']}, "
+        f"wall_ms_per_step {top.get('wall_ms_per_step')}; the epoch-2 capture's codec kernels: {codec}")
+    log(f"[traced] step_time_s traced {step_traced} against untraced {step_untraced}; bytes "
+        f"{json.dumps(sizes)} ({smi_line()})")
+    del trainer, run["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "step_time_s": step_traced, "untraced_step_time_s": step_untraced,
+            "sizes": sizes, "span_counts": counts, "top_ops_001": {
+                k: top.get(k) for k in ("planes", "device_total_ms", "per_step_ms", "wall_ms_per_step")},
+            "codec_in_capture": codec}
+
+
+def traced_dp_checks(dp: dict) -> dict:
+    """``dp2_off_int8_sr_traced`` against its untraced twin: each rank's
+    last loss, rank 0's every loss and the replicas' digest bit for bit
+    (the probe's rounding touches no training draw), and rank 0's comm
+    records carrying the probe's sample."""
+    twin, base = dp["dp2_off_int8_sr_traced"], dp["dp2_off_int8_sr"]
+    same = {k: (twin[k], base[k]) for k in ("losses", "rank_last_losses", "params_hash")}
+    if any(a != b for a, b in same.values()):
+        fail(f"[dp2_off_int8_sr_traced] differs from dp2_off_int8_sr: {same}")
+    probes = twin["comm_probe"]
+    # comm_fraction is clamped to 1; the unclamped readings are gated.
+    lo = min(twin["sync_ms"]) / 1e3 / PROBE_SYNC_MARGIN
+    hi = max(twin["sync_ms"]) / 1e3 * PROBE_SYNC_MARGIN
+    if len(probes) != EPOCHS or not all(
+            p["comm_s_per_step"] is not None and lo <= p["comm_s_per_step"] <= hi
+            and p["step_time_s"] is not None and p["comm_s_per_step"] < p["step_time_s"]
+            and p["comm_fraction"] is not None and 0 <= p["comm_fraction"] <= 1 for p in probes):
+        fail(f"[dp2_off_int8_sr_traced] comm records {probes}: expected every epoch "
+             f"{lo:.6f} <= comm_s_per_step <= {hi:.6f} s (the phase's sync a step "
+             f"{twin['sync_ms']} ms, within {PROBE_SYNC_MARGIN}x), comm_s_per_step < step_time_s "
+             f"and 0 <= comm_fraction <= 1")
+    log(f"[dp2_off_int8_sr_traced] losses, every rank's last loss and the replicas' digest == "
+        f"dp2_off_int8_sr's bit for bit; comm probe {json.dumps(probes)}; probe debit "
+        f"{twin['debit_probe_s']} s; step_time_s traced {twin['step_time_s']} against untraced "
+        f"{base['step_time_s']} ({smi_line()})")
+    return {"comm_probe": probes, "debit_probe_s": twin["debit_probe_s"],
+            "step_time_s": twin["step_time_s"], "untraced_step_time_s": base["step_time_s"]}
 
 
 def options_phase(flagship: dict) -> dict:
@@ -2409,7 +2593,8 @@ def dp_phase(label: str) -> dict:
         lines = [json.loads(line) for line in f]
     records = [r for r in lines if "kind" not in r]
     n_buckets = ranks[0]["n_buckets"]
-    want = {name: EPOCHS * n_buckets * per_bucket.get(name, 0) for name in ranks[0]["launches"]}
+    syncs = EPOCHS + (PROBE_SYNCS if "train.trace=True" in DP_PHASES[label][1] else 0)
+    want = {name: syncs * n_buckets * per_bucket.get(name, 0) for name in ranks[0]["launches"]}
     fmt = lambda v: "n/a" if v is None else f"{v:.3f}"  # noqa: E731
     for rr in ranks:
         log(f"[{label}] rank {rr['rank']} on {rr['device']}: level {rr['level']}, {rr['n_buckets']} "
@@ -2421,7 +2606,7 @@ def dp_phase(label: str) -> dict:
         if rr["level"] != level:
             fail(f"[{label}] rank {rr['rank']} resolved shard_update to {rr['level']}, expected {level}")
         if rr["launches"] != want:
-            fail(f"[{label}] rank {rr['rank']} kernel launches in {EPOCHS} steps: "
+            fail(f"[{label}] rank {rr['rank']} kernel launches in {EPOCHS} steps ({syncs} syncs): "
                  f"{rr['launches']}, expected {want} ({n_buckets} bucket(s))")
         if rr["warned"] != warns:
             fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {rr['warned']}")
@@ -2463,6 +2648,12 @@ def dp_phase(label: str) -> dict:
         "hop_ms": [rr.get("hop_ms") for rr in ranks], "hop_bytes": ranks[0].get("hop_bytes"),
         "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
         "zero2_restore": restored[0], "zero3": zero3, "epochs": path_row(label, records, perf),
+        "rank_last_losses": [rr["last"]["loss"] for rr in ranks],
+        "params_hash": ranks[0]["params_hashes"][0],
+        "comm_probe": [{k: r.get(k) for k in ("comm_s_per_step", "comm_fraction", "overlap_headroom_s",
+                                              "step_time_s")}
+                       for r in lines if r.get("kind") == "comm"],
+        "debit_probe_s": [r.get("debit_probe_s") for r in perf],
     }
 
 
@@ -2516,7 +2707,8 @@ def comm_rows(label: str, n: int, padded: int, level: str, world: int, buckets: 
         hops = 2 * (world - 1) * -(-n // world)
         rows = {"ring_all_reduce": {"bytes_pre": 4 * hops, "bytes_post": hops, "bytes_wire": hops}}
     else:
-        item = {"dp4_zero2_fp16": 2, "dp2_off_int8_sr": 1, "dp4_zero3_fp16_bucket": 2}[label]
+        item = {"dp4_zero2_fp16": 2, "dp2_off_int8_sr": 1, "dp2_off_int8_sr_traced": 1,
+                "dp4_zero3_fp16_bucket": 2}[label]
         scatter = level in ("zero2", "zero3")
         grad = "reduce_scatter" if scatter else "all_reduce"
         rows = {grad: {"bytes_pre": 4 * n, "bytes_post": item * n + 4 * buckets,
@@ -3537,6 +3729,7 @@ def main() -> int:
     # torch._dynamo, and torch.fx's import keeps the importing frames.
     gc.collect()
     torch.cuda.empty_cache()
+    traced = traced_phase(main)
     serve = serve_phase(main["argv"])
     fleet = fleet_phase(serve)
     supervised = supervised_phase(main["argv"])
@@ -3568,8 +3761,9 @@ def main() -> int:
         row["launches_by_path"] = {"cityscapes_synthetic": row["launches"],
                                    "cityscapes_dir": cs_dir_run["launches"][row["name"]]}
     dp = {label: dp_phase(label) for label in DP_PHASES}
+    traced_dp = traced_dp_checks(dp)
     stall_row = stall_phase()
-    for run in (main, sr, opts, *dp.values(), *data_runs.values()):
+    for run in (main, traced, sr, opts, *dp.values(), *data_runs.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
     # Each row's launches are read from the single-process path that runs
@@ -3579,6 +3773,7 @@ def main() -> int:
     for path_rows, path in ((rows, "nearest_fp16"), (sr_rows, "stochastic_int8")):
         for row in path_rows:
             by_path = {"nearest_fp16": main["launches"][row["name"]],
+                       "traced": traced["launches"][row["name"]],
                        "stochastic_int8": sr["launches"][row["name"]],
                        "flagship_options": opts["launches"][row["name"]],
                        **{label: run["launches"][row["name"]] for label, run in dp.items()},
@@ -3588,7 +3783,7 @@ def main() -> int:
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
-    paths = {"nearest_fp16": main["epochs"], "stochastic_int8": sr["epochs"],
+    paths = {"nearest_fp16": main["epochs"], "traced": traced["epochs"], "stochastic_int8": sr["epochs"],
              "flagship_options": opts["epochs"],
              **{label: run["epochs"] for label, run in dp.items()},
              **{label: run["epochs"] for label, run in zoo.items()},
@@ -3596,6 +3791,7 @@ def main() -> int:
              "cityscapes_synthetic": cs_run["epochs"], "cityscapes_dir": cs_dir_run["epochs"]}
     log("paths: " + json.dumps({"card": smi, "epochs": paths,
                                 "peak_bytes": {"nearest_fp16": main["peak_bytes"],
+                                               "traced": traced["peak_bytes"],
                                                "stochastic_int8": sr["peak_bytes"],
                                                "flagship_options": opts["peak_bytes"],
                                                **{k: r["peak_bytes"] for k, r in zoo.items()},
@@ -3606,7 +3802,11 @@ def main() -> int:
                       "chunk_rows": chunk_rows, "data_parallel": dp, "data_paths": data["rows"],
                       "checkpoint": ckpt_row, "sqrt": sqrt_row, "host": host_rows,
                       "stall": stall_row, "paths": paths, "serve": serve, "fleet": fleet,
-                      "supervised": supervised}))
+                      "supervised": supervised,
+                      "traced": {k: traced[k] for k in ("step_time_s", "untraced_step_time_s", "sizes",
+                                                        "span_counts", "top_ops_001",
+                                                        "codec_in_capture")},
+                      "traced_dp": traced_dp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

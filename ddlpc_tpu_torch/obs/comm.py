@@ -32,15 +32,20 @@ is not counted, as in JAX).  Under ``zero1`` the ring is followed by the
 params' all-gather, which the JAX package's plan leaves out (its ``ring``
 variant wins over ``zero1``); the port counts it in a second row.
 
-One replica communicates nothing: an empty plan.  JAX's fenced comm-time
-probe runs only under ``train.trace``, which the port does not have yet
-(ROADMAP A9).
+One replica communicates nothing: an empty plan.
+
+The fenced comm-time probe (:func:`make_comm_probe`, sampled by the
+trainer under ``train.trace``) times the step's own sync in isolation;
+:meth:`CommAccountant.record_probe` keeps the sample and ``publish`` turns
+it into ``comm_s_per_step``, ``comm_fraction`` and ``overlap_headroom_s``
+(the ``ddlpc_comm_*`` gauges), as in JAX.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -131,14 +136,16 @@ def comm_plan(
 
 class CommAccountant:
     """``on_step`` (once an optimizer step) adds the plan's rows to
-    ``ddlpc_comm_bytes_total{collective,codec,stage}``; ``publish``
-    returns the flat ``kind="comm"`` record."""
+    ``ddlpc_comm_bytes_total{collective,codec,stage}``; ``record_probe``
+    keeps a fenced comm-time sample; ``publish`` refreshes the derived
+    gauges and returns the flat ``kind="comm"`` record."""
 
     def __init__(self, registry, plan: List[Dict[str, object]], variant: str):
         self.plan = list(plan)
         self.variant = variant
         self._lock = threading.Lock()
         self._steps = 0
+        self._probe_s: Optional[float] = None
         self._bytes = registry.counter(
             "ddlpc_comm_bytes_total",
             "Collective payload bytes per replica (pre_codec = fp32 entering "
@@ -150,6 +157,19 @@ class CommAccountant:
             "ddlpc_comm_compression_ratio",
             "Pre/post codec byte ratio per collective.",
             labelnames=("collective",),
+        )
+        self._g_comm_s = registry.gauge(
+            "ddlpc_comm_seconds_per_step",
+            "Sampled fenced gradient-sync seconds (the sync alone).",
+        )
+        self._g_frac = registry.gauge(
+            "ddlpc_comm_fraction",
+            "Sampled comm seconds over mean optimizer-step seconds.",
+        )
+        self._g_headroom = registry.gauge(
+            "ddlpc_comm_overlap_headroom_s",
+            "Per-step seconds a perfect comm/compute overlap could save: "
+            "min(t_comm, t_step - t_comm).",
         )
         for row in self.plan:
             ratio.set(row["bytes_pre"] / max(row["bytes_post"], 1), collective=row["collective"])
@@ -163,9 +183,15 @@ class CommAccountant:
         with self._lock:
             self._steps += n
 
-    def publish(self) -> Dict[str, object]:
+    def record_probe(self, comm_seconds: float) -> None:
+        with self._lock:
+            self._probe_s = float(comm_seconds)
+        self._g_comm_s.set(float(comm_seconds))
+
+    def publish(self, step_time_s: Optional[float] = None) -> Dict[str, object]:
         with self._lock:
             steps = self._steps
+            probe_s = self._probe_s
         rec: Dict[str, object] = {"kind": "comm", "variant": self.variant, "steps": steps}
         for row in self.plan:
             name = str(row["collective"])
@@ -177,4 +203,106 @@ class CommAccountant:
             rec[f"{name}_compression_ratio"] = round(row["bytes_pre"] / max(row["bytes_post"], 1), 4)
             if "widened_from" in row:
                 rec[f"{name}_wire_widened_from"] = row["widened_from"]
+        if probe_s is not None:
+            rec["comm_s_per_step"] = round(probe_s, 6)
+            if step_time_s and step_time_s > 0:
+                frac = min(probe_s / step_time_s, 1.0)
+                headroom = max(min(probe_s, step_time_s - probe_s), 0.0)
+                self._g_frac.set(frac)
+                self._g_headroom.set(headroom)
+                rec["comm_fraction"] = round(frac, 4)
+                rec["overlap_headroom_s"] = round(headroom, 6)
+                rec["step_time_s"] = round(float(step_time_s), 6)
         return rec
+
+
+class CommProbeDeclined(RuntimeError):
+    """A replica could not prepare the comm probe's gradient.  Every
+    replica raises it together, agreed before any of the probe's own
+    collectives, so that the world drops the probe as one."""
+
+
+def _dummy_gradient(buffer_elements: int, segments, device) -> torch.Tensor:
+    """The probe's gradient: the run's buffer with its segments filled from
+    a fixed seed and the padding zero, the same on every replica."""
+    g = torch.Generator(device=device).manual_seed(0)
+    buf = torch.zeros(buffer_elements, dtype=torch.float32, device=device)
+    for start, size in segments:
+        buf[start : start + size] = torch.randn(size, generator=g, device=device) * 1e-3
+    return buf
+
+
+def make_comm_probe(compression, flat, axis_size: int, level: str = "off",
+                    seed: int = 0) -> Callable[[], float]:
+    """A callable that times the gradient sync alone, fenced.
+
+    It runs the step's exact sync — ``parallel/grad_sync.sync_for_level``
+    at the run's ZeRO level, with the buckets of ``flat`` (the run's
+    ``FlatParams``) and the run's transport — over a dummy of ``flat``'s
+    gradient buffer (:func:`_dummy_gradient`), after a device synchronize
+    and a barrier of the world, and returns the wall seconds until the
+    device is done.  Its first call warms up (one untimed sync).
+    Stochastic rounding draws from the experiment's own key
+    (``philox.seed_key``), never from a step's: the probe leaves the
+    training's rounding untouched, as JAX's probe builds
+    ``jax.random.key(seed)`` inside its program.  The dummy is made anew
+    for each call and dropped after it, so that nothing gradient-sized
+    stays allocated between samples.
+
+    Every replica must call it at the same step: it is a collective.  So
+    the replicas first agree, by one all-reduce of a failure flag, that
+    each made its dummy; where any could not (an out-of-memory, say),
+    every replica raises :class:`CommProbeDeclined` before the barrier.
+    An error inside the sync itself propagates: the world is then out of
+    step, and no replica may go on alone."""
+    import torch.distributed as dist
+
+    from ddlpc_tpu_torch.ops.philox import seed_key
+    from ddlpc_tpu_torch.parallel.grad_sync import sync_for_level
+
+    n_elements, buffer_elements = flat.numel, flat.data.numel()
+    segments, buckets, device = flat.segments(), flat.buckets(), flat.data.device
+    key = seed_key(seed) if compression.rounding == "stochastic" else None
+    state = {"warmed": False}
+
+    def fence() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def in_world() -> bool:
+        return dist.is_available() and dist.is_initialized()
+
+    def prepared() -> torch.Tensor:
+        failure = None
+        try:
+            buf = _dummy_gradient(buffer_elements, segments, device)
+        except Exception as e:  # noqa: BLE001 — agreed on below, then raised
+            buf, failure = None, f"{type(e).__name__}: {e}"
+        failed = torch.tensor([0 if failure is None else 1], dtype=torch.int32, device=device)
+        if in_world():
+            dist.all_reduce(failed)
+        n_failed = int(failed.item())
+        if n_failed:
+            raise CommProbeDeclined(
+                f"{n_failed} replica(s) could not make the probe's gradient"
+                + (f"; here {failure}" if failure else ""))
+        return buf
+
+    def sync(buf: torch.Tensor) -> None:
+        sync_for_level(buf, compression, axis_size, level, key=key, buckets=buckets,
+                       n_elements=n_elements)
+
+    def probe() -> float:
+        buf = prepared()
+        if not state["warmed"]:
+            sync(buf)
+            state["warmed"] = True
+        fence()
+        if in_world():
+            dist.barrier()
+        t0 = time.perf_counter()
+        sync(buf)
+        fence()
+        return time.perf_counter() - t0
+
+    return probe

@@ -51,10 +51,16 @@ def fold_in(key: int, data: int) -> int:
     return _splitmix64(key ^ _splitmix64(data & _MASK64))
 
 
+def seed_key(seed: int) -> int:
+    """The experiment's key, before any step is folded in (``jax.random.key(seed)``
+    in the JAX package): what the comm probe's rounding draws from."""
+    return fold_in(_ROOT, seed)
+
+
 def step_key(seed: int, step: int) -> int:
     """The optimizer step's key: a pure function of (``train.seed``, step),
     so a replayed run draws the same noise and another seed other noise."""
-    return fold_in(fold_in(_ROOT, seed), step)
+    return fold_in(seed_key(seed), step)
 
 
 def stage_key(key: int, stage: str, replica: int = 0) -> PhiloxKey:

@@ -12,7 +12,8 @@ step bit for bit.
 
 Data parallel over ``axis_size`` processes (``parallel/mesh.py``), each
 one replica with its own columns of the batch, at one of four ZeRO levels
-(``shard_update.resolve_shard_update``):
+(``shard_update.resolve_shard_update``), synced by
+``grad_sync.sync_for_level``:
 
 - ``off``: ``grad_sync.sync_gradients`` all-reduces the mean, and every
   replica runs the same update on the whole model;
@@ -59,8 +60,7 @@ from ddlpc_tpu_torch.ops.philox import step_key
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import (
     check_supported,
-    sync_gradients,
-    sync_gradients_scatter,
+    sync_for_level,
     validate_scatter_compression,
 )
 from ddlpc_tpu_torch.parallel.shard_update import (
@@ -382,9 +382,9 @@ def make_train_step(
         key = _rounding_rng(compression, seed, state.step)
         buckets = flat.buckets()
         sq = None
-        if level in ("zero2", "zero3"):
-            grads = sync_gradients_scatter(flat.grad, compression, axis_size, key=key,
-                                           buckets=buckets)
+        grads = sync_for_level(flat.grad, compression, axis_size, level, key=key,
+                               buckets=buckets, n_elements=flat.numel)
+        if grads is not None:
             tx.update(grads, state.opt_state, state.owned_params())
             if level == "zero2":
                 flat.all_gather_(flat.data)
@@ -392,8 +392,6 @@ def make_train_step(
                 state.release_params()
             sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
         else:
-            sync_gradients(flat.grad, compression, axis_size=axis_size, key=key,
-                           buckets=buckets, n_elements=flat.numel)
             if level == "zero1":
                 index = mesh.replica_index()
                 tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())

@@ -37,6 +37,16 @@ Rank 0 writes ``<workdir>/metrics.jsonl`` (one record an epoch, and with
 ``train.perf_accounting`` one ``kind="perf"`` and one ``kind="comm"``
 record each epoch after it), the PNGs of ``train.dump_images_per_epoch``
 under ``<workdir>/images/epoch_XXXX/``, and ``<workdir>/checkpoints/``.
+
+Observability: ``--set train.trace=True`` writes ``spans.jsonl`` and
+``trace.json``; ``--set train.telemetry_port=0`` serves ``/metrics``,
+``/healthz`` and ``/debug/trace?steps=N`` on an ephemeral port, which
+rank 0 prints as a ``[telemetry] http://127.0.0.1:<port>`` line;
+``kill -USR2 <pid>`` captures the next
+``train.profile_steps`` steps into ``profile_<n>/`` and
+``top_ops_<n>.json``; ``--set train.profile_epoch=N`` captures epoch N
+into ``profile/``.  ``python scripts/check_metrics_schema.py <workdir>``
+lints the streams.
 """
 
 from __future__ import annotations
@@ -103,10 +113,13 @@ def main(argv=None) -> int:
     from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED
     from ddlpc_tpu_torch.train.trainer import Trainer
 
+    trainer = None
     try:
         trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
         record = trainer.fit()
     finally:
+        if trainer is not None:
+            trainer.close()
         destroy_distributed()
     if trainer.rank == 0:
         print({k: round(v, 4) if isinstance(v, float) else v for k, v in record.items()})

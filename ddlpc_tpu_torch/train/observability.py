@@ -1,6 +1,15 @@
-"""Metric streams, stage timing and the qualitative image dumps — the
-port's copy of ``MetricsLogger``, ``StageTimer``, ``class_palette`` and
-``dump_prediction_triples`` from ``ddlpc_tpu/train/observability.py``.
+"""Metric streams, stage timing, the per-epoch profile and the qualitative
+image dumps — the port's copy of ``MetricsLogger``, ``StageTimer``,
+``maybe_profile``, ``class_palette`` and ``dump_prediction_triples`` from
+``ddlpc_tpu/train/observability.py``.
+
+``MetricsLogger`` stamps every record with ``time`` and the stream
+``schema`` (``scripts/check_metrics_schema.py`` lints it), mirrors it as a
+txt line, and publishes its numeric scalars as gauges.  ``maybe_profile``
+captures a whole epoch with ``torch.profiler`` where the JAX package
+captures with ``jax.profiler``: the Chrome trace and the per-op
+self-times (``ops.json``) land in the trace directory
+(``obs/profiling.py``).
 
 The PNGs are written by the port's stdlib encoder (``data/png.py``:
 8-bit RGB, filter 0 on every row, one zlib stream), so the port needs no
@@ -12,13 +21,14 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
-from contextlib import contextmanager
-from typing import Dict
+import warnings
+from contextlib import ExitStack, contextmanager
+from typing import Dict, Optional
 
 import numpy as np
 
+from ddlpc_tpu_torch.analysis import lockcheck
 from ddlpc_tpu_torch.data.png import write_png
 from ddlpc_tpu_torch.obs.registry import sanitize_name
 from ddlpc_tpu_torch.obs.schema import SCHEMA_VERSION
@@ -46,22 +56,35 @@ def class_palette(num_classes: int) -> np.ndarray:
     return np.concatenate([_PALETTE, extra])
 
 
+def _rank0() -> bool:
+    """Whether this process is replica 0 (or alone)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 class MetricsLogger:
     """Append-only txt + JSONL metric streams under ``workdir``.
 
     txt mirrors the reference's epoch lines; JSONL is the machine-readable
     record.  ``basename`` lets other subsystems share the format without
     clobbering the training log (the serve CLI writes
-    ``serve_metrics.jsonl``).  Only replica 0 of a ``torch.distributed``
-    world writes."""
+    ``serve_metrics.jsonl``).  ``registry`` receives every numeric scalar
+    logged as a gauge.  Only replica 0 of a ``torch.distributed`` world
+    writes; ``config.json`` has one writer, the trainer."""
 
-    def __init__(self, workdir: str, basename: str = "metrics"):
-        import torch.distributed as dist
-
-        self.enabled = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    def __init__(
+        self,
+        workdir: str,
+        basename: str = "metrics",
+        registry=None,
+    ):
+        self.enabled = _rank0()
         self.workdir = workdir
         self.registry = None
         self._records_total = None
+        if registry is not None:
+            self.attach_registry(registry)
         if not self.enabled:
             return
         os.makedirs(workdir, exist_ok=True)
@@ -116,16 +139,23 @@ class MetricsLogger:
             ).set(float(v))
 
 
+@lockcheck.guarded
 class StageTimer:
     """Named wall-clock stage timing: totals and counts a stage, reset each
     epoch.  Thread-safe: the loader's producer thread times its
     ``loader_gather``/``loader_upload`` stages while the training thread
-    times ``data`` and ``step``."""
+    times ``data`` and ``step``.
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-        self._lock = threading.Lock()
+    ``tracer`` (``obs/tracing.py``, optional) also records every stage as a
+    span — how the loader's stages reach the trace without the loader
+    knowing of it.  Stages run on producer threads, so each is recorded
+    with the tracer's cross-thread ``add_span`` (no implicit parent)."""
+
+    def __init__(self, tracer=None):
+        self.totals: Dict[str, float] = {}  # guarded-by: _lock
+        self.counts: Dict[str, int] = {}  # guarded-by: _lock
+        self.tracer = tracer
+        self._lock = lockcheck.lock("StageTimer._lock")
 
     @contextmanager
     def stage(self, name: str):
@@ -133,10 +163,13 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
             with self._lock:
-                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.totals[name] = self.totals.get(name, 0.0) + (t1 - t0)
                 self.counts[name] = self.counts.get(name, 0) + 1
+            tracer = self.tracer
+            if tracer is not None and tracer.enabled:
+                tracer.add_span(name, t0, t1)
 
     def summary(self) -> Dict[str, float]:
         with self._lock:
@@ -150,6 +183,30 @@ class StageTimer:
         with self._lock:
             self.totals.clear()
             self.counts.clear()
+
+
+@contextmanager
+def maybe_profile(trace_dir: Optional[str], enabled: bool = True):
+    """A ``torch.profiler`` capture around a block, written to
+    ``trace_dir`` (the Chrome ``trace.json`` and the per-op ``ops.json``,
+    ``obs/profiling.py``).  No-op when disabled, without a directory or
+    off replica 0.  A profiler that cannot start or stop, or a capture
+    already running in the process (``CaptureBusy``), warns and never
+    raises into the loop; an exception of the profiled body propagates."""
+    if not enabled or not trace_dir or not _rank0():
+        yield
+        return
+    from ddlpc_tpu_torch.obs import profiling
+
+    with ExitStack() as stack:
+        outcome: dict = {}
+        try:
+            outcome = stack.enter_context(profiling.session(trace_dir))
+        except (profiling.CaptureBusy, profiling.ProfilerFailed) as e:
+            warnings.warn(f"profiler trace not taken: {e}", stacklevel=3)
+        yield
+    if "error" in outcome:
+        warnings.warn(f"profiler trace: {outcome['error']}", stacklevel=3)
 
 
 def dump_prediction_triples(

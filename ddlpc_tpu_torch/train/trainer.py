@@ -4,8 +4,11 @@
 optimizer steps over the seeded, wrap-filled loader, a held-out evaluation
 every ``eval_every_epochs``, and one logged record per epoch (loss, pixel
 accuracy, grad norm, step time, and the eval's loss, pixel accuracy and
-mIoU).  Rank 0 prints the records as JSON lines and appends them to
-``<workdir>/metrics.jsonl``.
+mIoU).  Rank 0 logs every record through ``MetricsLogger``
+(``train/observability.py``): ``<workdir>/metrics.jsonl`` (each record
+stamped with ``time`` and the stream ``schema``), a ``metrics.txt`` line
+(echoed to stdout for the epoch records) and a gauge of each numeric
+scalar in the run's registry.
 
 Checkpoints and resume, as in the JAX trainer: every
 ``checkpoint_every_epochs`` the state is saved to ``<workdir>/checkpoints``
@@ -49,13 +52,45 @@ writes the prediction, label and image PNGs of the first test tiles under
 its debits, ``obs/flops.py``) and a ``kind="comm"`` record (each
 collective's bytes, ``obs/comm.py``) to ``metrics.jsonl`` every epoch.
 
-Settings this slice does not implement raise ``NotImplementedError`` when
-enabled, all of them in one message that names the ``--set`` overrides
-which switch them off; none is silently ignored.
+Observability, as in the JAX trainer:
+
+- ``train.trace``: rank 0's span tracer (``obs/tracing.py``) writes
+  ``<workdir>/spans.jsonl`` and, when ``fit`` exits, ``trace.json``:
+  the ``epoch``, ``evaluate``, ``checkpoint_snapshot`` and
+  ``checkpoint_barrier`` spans, every stage of the loop and the loader,
+  and every ``train.trace_sync_every_steps`` steps a ``step_sync`` span
+  that holds the step's device sync.
+- the fenced comm probe (``obs/comm.make_comm_probe``) times the step's
+  sync alone once an epoch, which feeds ``comm_s_per_step`` and
+  ``comm_fraction`` in the ``kind="comm"`` record.  One deviation from
+  JAX, which samples it where its tracer is enabled (process 0): the
+  port's ranks are processes and the probe is a collective, so every
+  rank samples it under ``train.trace`` (with perf accounting and more
+  than one replica) at the same step, and rank 0 records its span.
+- a ``kind="lineage"`` ``checkpoint_saved`` record after each save, the
+  anchor ``obs/merge.py``'s lineage timeline joins the serving streams on.
+- the health monitor (``obs/health.py``) sees every epoch record (a
+  chaos ``nan@N`` poisons it first) and hands its alerts to the stream,
+  the registry and the watchdog's diagnosis.
+- the on-demand profiler (``obs/profiling.py``), armed by SIGUSR2 or
+  ``GET /debug/trace?steps=N``, captures the next
+  ``train.profile_steps`` steps into ``profile_<n>/`` and
+  ``top_ops_<n>.json``; ``train.profile_epoch`` captures that whole
+  epoch into ``<workdir>/profile/``.
+- ``train.telemetry_port >= 0``: rank 0 serves ``/metrics``, ``/healthz``
+  and ``/debug/trace`` on it (0: an ephemeral port, ``telemetry.port``).
+  ``fit`` leaves the endpoint and the tracer open; :meth:`Trainer.close`
+  closes both.
+
+Settings this slice does not implement (the space axis and pipeline
+stages) raise ``NotImplementedError`` when enabled, all of them in one
+message that names the ``--set`` overrides which switch them off; none is
+silently ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -84,7 +119,11 @@ from ddlpc_tpu_torch.obs import comm as obs_comm
 from ddlpc_tpu_torch.obs import flops as obs_flops
 from ddlpc_tpu_torch.obs import hbm as obs_hbm
 from ddlpc_tpu_torch.obs import lineage
+from ddlpc_tpu_torch.obs.health import HealthMonitor
+from ddlpc_tpu_torch.obs.http import TelemetryServer
+from ddlpc_tpu_torch.obs.profiling import OnDemandProfiler
 from ddlpc_tpu_torch.obs.registry import MetricsRegistry
+from ddlpc_tpu_torch.obs.tracing import Tracer
 from ddlpc_tpu_torch.ops.metrics import accuracy_from_confusion, iou_per_class, mean_iou
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
@@ -98,7 +137,12 @@ from ddlpc_tpu_torch.resilience import chaos as _chaos_mod
 from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED, write_breadcrumb
 from ddlpc_tpu_torch.train import checkpoint as ckpt
 from ddlpc_tpu_torch.train.async_checkpoint import AsyncCheckpointer
-from ddlpc_tpu_torch.train.observability import StageTimer, dump_prediction_triples
+from ddlpc_tpu_torch.train.observability import (
+    MetricsLogger,
+    StageTimer,
+    dump_prediction_triples,
+    maybe_profile,
+)
 from ddlpc_tpu_torch.utils.fsio import atomic_write_text
 from ddlpc_tpu_torch.train.optim import build_optimizer
 from ddlpc_tpu_torch.train.watchdog import StallWatchdog
@@ -110,9 +154,6 @@ def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
     slice does not implement (empty when the config is supported)."""
     t, p = cfg.train, cfg.parallel
     checks = [  # (key, enabled, value that switches it off)
-        ("train.profile_epoch", t.profile_epoch >= 0, -1),
-        ("train.trace", t.trace, False),
-        ("train.telemetry_port", t.telemetry_port >= 0, -1),
         ("parallel.space_axis_size", p.space_axis_size != 1, 1),
         ("parallel.pipeline_stages", p.pipeline_stages != 1, 1),
     ]
@@ -256,8 +297,16 @@ class Trainer:
         # Raises now if the native wire cannot be built.
         wire.set_native(cfg.data.native_gather)
         self.registry = MetricsRegistry()
-        # The loader's producer thread and the loop time their stages here.
-        self.timer = StageTimer()
+        # Built unconditionally: disabled, every span is a shared no-op.
+        self.tracer = Tracer(
+            enabled=cfg.train.trace and self.rank == 0,
+            service="train",
+            jsonl_path=os.path.join(self.workdir, "spans.jsonl"),
+            chrome_path=os.path.join(self.workdir, "trace.json"),
+        )
+        # The loader's producer threads and the loop time their stages
+        # here; traced, each stage is a span too.
+        self.timer = StageTimer(tracer=self.tracer)
 
         self.train_ds, self.test_ds = build_dataset(cfg.data)
         channels = self.train_ds.image_shape[-1]
@@ -294,6 +343,8 @@ class Trainer:
         self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
         self.perf: Optional[obs_flops.PerfAccountant] = None
         self.comm: Optional[obs_comm.CommAccountant] = None
+        self._comm_probe = None
+        self._comm_probed_epoch = False
         if cfg.train.perf_accounting:
             self._init_accounting(channels)
         self.checkpointer = AsyncCheckpointer(
@@ -322,6 +373,8 @@ class Trainer:
         self._skip_epoch = -1
         if resume:
             self._restore_synchronized()
+        # Every record of the run goes through the logger (rank 0 writes).
+        self.logger = MetricsLogger(self.workdir, registry=self.registry)
         # Armed by fit(); the loop beats at each data fetch, step and eval
         # batch.
         self.watchdog = StallWatchdog(
@@ -332,6 +385,43 @@ class Trainer:
             # Trainer's device memory until the garbage collector ran.
             on_stall=functools.partial(_breadcrumb_stalled, self.workdir) if self.rank == 0 else None,
         )
+        # Loss and step-time alerts, fed each epoch record, fanned out to
+        # the stream, the registry and the watchdog's diagnosis.
+        self.health = HealthMonitor(logger=self.logger, registry=self.registry,
+                                    watchdog=self.watchdog, service="train")
+        # Armed by SIGUSR2 (fit installs the handler) or /debug/trace.
+        self.profiler = OnDemandProfiler(out_dir=self.workdir, steps=cfg.train.profile_steps,
+                                         logger=self.logger, enabled=self.rank == 0)
+        self.telemetry: Optional[TelemetryServer] = None
+        if cfg.train.telemetry_port >= 0 and self.rank == 0:
+            self.telemetry = TelemetryServer(
+                self.registry, port=cfg.train.telemetry_port,
+                health_fn=self._health_snapshot, arm_profile_fn=self._arm_profile,
+            ).start()
+            print(f"[telemetry] http://127.0.0.1:{self.telemetry.port}", flush=True)
+
+    def _health_snapshot(self) -> dict:
+        return {"status": "ok", "pid": os.getpid(), "alerts": list(self.health.alerts)}
+
+    def _arm_profile(self, steps: int) -> dict:
+        self.profiler.arm(steps if steps > 0 else None)
+        return {
+            "armed": True,
+            "steps": self.profiler.steps,
+            "note": "capture spans the next N training steps; the top-ops report lands "
+                    "in the run workdir",
+        }
+
+    def close(self) -> None:
+        """Close the telemetry endpoint and the tracer's files.  ``fit``
+        leaves both open (the endpoint stays scrapeable after a fit, and
+        the tracer serves a later fit), so a process that builds several
+        Trainers, or binds a fixed port twice, closes the old one.
+        Idempotent."""
+        if self.telemetry is not None:
+            self.telemetry.close()
+            self.telemetry = None
+        self.tracer.close()
 
     def _init_accounting(self, channels: int) -> None:
         """The FLOP model, the peak, the perf and comm accountants and the
@@ -365,7 +455,9 @@ class Trainer:
                                variant, n_buckets=len(flat.regions), level=self.shard_update),
             variant,
         )
-
+        if cfg.train.trace and self.world > 1:
+            self._comm_probe = obs_comm.make_comm_probe(
+                cfg.compression, flat, self.world, level=self.shard_update, seed=cfg.train.seed)
 
     # ------------------------------------------------------------------
     # resume
@@ -402,19 +494,33 @@ class Trainer:
     # ------------------------------------------------------------------
     # checkpoints and preemption
 
-    def _metadata(self, epoch: int, step: int) -> dict:
+    def _metadata(self, epoch: int, lin: dict) -> dict:
         return {
             "epoch": epoch,
             "config": self.cfg.to_dict(),
             "input_channels": int(self.train_ds.image_shape[-1]),
-            "lineage": lineage.make_lineage(step, run_id=self.run_id, config_hash_hex=self.config_hash),
+            "lineage": lin,
         }
+
+    def _lineage(self, step: int) -> dict:
+        return lineage.make_lineage(step, run_id=self.run_id, config_hash_hex=self.config_hash)
+
+    def _log_lineage(self, event: str, lin: dict, **fields) -> None:
+        """A flat ``kind="lineage"`` record: the training side's anchor,
+        which ``obs/merge.py`` joins the serving streams onto."""
+        self.logger.log({"kind": "lineage", "event": event, **lineage.flatten(lin), **fields},
+                        echo=False)
 
     def save(self, epoch: int) -> None:
         """Checkpoint the state after ``epoch``: every replica joins the
         gather of the canonical state, replica 0 writes in the background."""
         step = self.state.step
-        self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=self._metadata(epoch, step))
+        lin = self._lineage(step)
+        with self.tracer.span("checkpoint_snapshot", epoch=epoch, lineage_id=lin["lineage_id"],
+                              step=step):
+            self.checkpointer.save(self.ckpt_dir, self.state, step,
+                                   metadata=self._metadata(epoch, lin))
+        self._log_lineage("checkpoint_saved", lin, epoch=epoch)
         if self.rank == 0:
             write_breadcrumb(self.workdir, "running", epoch=epoch, last_ckpt_step=step)
 
@@ -454,14 +560,17 @@ class Trainer:
         steps_per_epoch = len(self.loader)
         completed = epoch if steps_done >= steps_per_epoch else epoch - 1
         step = self.state.step
-        meta = dict(self._metadata(completed, step), preempted=True)
+        lin = self._lineage(step)
+        meta = dict(self._metadata(completed, lin), preempted=True)
         if 0 < steps_done < steps_per_epoch:
             meta["mid_epoch_steps_done"] = steps_done
         with self.watchdog.paused("preempt_checkpoint"):
             self.checkpointer.save(self.ckpt_dir, self.state, step, metadata=meta)
             # The one save that overlaps nothing: durable before fit returns.
             self.checkpointer.wait()
-        self._log({"kind": "preempt", "epoch": epoch, "steps_done": steps_done, "ckpt_step": step})
+        self.logger.log({"kind": "preempt", "epoch": epoch, "steps_done": steps_done,
+                         "ckpt_step": step})
+        self._log_lineage("checkpoint_saved", lin, epoch=epoch, preempted=True)
         if self.rank == 0:
             write_breadcrumb(self.workdir, "preempted", epoch=epoch, steps_done=steps_done, ckpt_step=step)
         self.preempted = True
@@ -486,6 +595,7 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.loader.set_epoch(epoch)
+        self._comm_probed_epoch = False
         metrics = []
         t_epoch = time.perf_counter()
         it = iter(self.loader)
@@ -499,9 +609,12 @@ class Trainer:
                     break
                 skipped += 1
             self._skip_steps = 0
+        sync_every = self.cfg.train.trace_sync_every_steps
         while True:
             # "data": the wait for the next batch on the device; "step": the
-            # step and the device's sync that ends it.
+            # step and the device's sync that ends it, that sync sampled
+            # into a "step_sync" span (a child of "epoch": stage spans
+            # are recorded without a parent).
             if self._chaos is not None:
                 self._chaos.on_data_fetch()
             self.watchdog.beat("data")
@@ -510,9 +623,13 @@ class Trainer:
             if batch is None:
                 break
             self.watchdog.beat("step")
+            step_idx = len(metrics) + 1
+            sampled = self.cfg.train.trace and sync_every > 0 and step_idx % sync_every == 0
             with self.timer.stage("step"):
                 metrics.append(self.train_step(self.state, *batch))
-                self._sync()
+                with (self.tracer.span("step_sync", epoch=epoch, step=step_idx) if sampled
+                      else contextlib.nullcontext()):
+                    self._sync()
             if self.comm is not None:
                 self.comm.on_step()
             if self._chaos is not None:
@@ -523,6 +640,10 @@ class Trainer:
                     self.request_preempt()
             if self._preempt.is_set():
                 raise PreemptedRun(epoch, skipped + len(metrics))
+            if sampled and self._comm_probe is not None and not self._comm_probed_epoch:
+                self._sample_comm(epoch)
+            # The on-demand profiler (a no-op unless armed).
+            self.profiler.step_done(sync=self._sync)
         if not metrics:
             raise RuntimeError(
                 f"epoch {epoch} produced 0 training steps: dataset has "
@@ -557,6 +678,24 @@ class Trainer:
             self.perf.debit("data", totals.get("data", 0.0))
         self.timer.reset()
         return record
+
+    def _sample_comm(self, epoch: int) -> None:
+        """The fenced comm probe, at most once an epoch on the sampled
+        step.  It is a collective, so the world drops it as one: where a
+        replica cannot make its gradient, every replica is told so before
+        the probe's own collectives (``CommProbeDeclined``), warns, and
+        runs on without it.  An error inside the probe's sync propagates
+        on this replica, as one inside the step's sync does."""
+        self._comm_probed_epoch = True
+        t_probe = time.perf_counter()
+        try:
+            with self.tracer.span("comm_probe", epoch=epoch):
+                self.comm.record_probe(self._comm_probe())
+        except obs_comm.CommProbeDeclined as e:
+            warnings.warn(f"comm probe declined ({e}); disabling for this run", stacklevel=3)
+            self._comm_probe = None
+        if self.perf is not None:
+            self.perf.debit("probe", time.perf_counter() - t_probe)
 
     def evaluate(self) -> Dict[str, float]:
         """Held-out loss, pixel accuracy and mIoU over the test split, in
@@ -616,25 +755,18 @@ class Trainer:
             self.cfg.model.num_classes, epoch, max_samples=n,
         )
 
-    def _log(self, record: Dict, echo: bool = True) -> None:
-        if self.rank != 0:
-            return
-        line = json.dumps(record)
-        if echo:
-            print(line, flush=True)
-        os.makedirs(self.workdir, exist_ok=True)
-        with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
-            f.write(line + "\n")
-
     def fit(self) -> Dict[str, float]:
         """Run the training from ``start_epoch``; returns the last epoch's
         record (``preempted`` tells whether a preemption cut it short)."""
         cfg = self.cfg.train
         record: Dict[str, float] = {}
-        # SIGTERM → graceful preemption; only the main thread may install
-        # a handler, so an embedded fit preempts by request_preempt().
-        prev_term = None
+        # SIGUSR2 → arm the on-demand profiler; SIGTERM → graceful
+        # preemption.  Only the main thread may install a handler, so an
+        # embedded fit arms by /debug/trace or profiler.arm() and preempts
+        # by request_preempt().
+        prev_usr2 = prev_term = None
         try:
+            prev_usr2 = signal.signal(signal.SIGUSR2, lambda signum, frame: self.profiler.arm())
             prev_term = signal.signal(signal.SIGTERM, lambda signum, frame: self.request_preempt())
         except ValueError:
             pass
@@ -652,16 +784,22 @@ class Trainer:
                     for epoch in range(self.start_epoch, cfg.epochs):
                         if self._preempt.is_set():
                             raise PreemptedRun(epoch, 0)
-                        record = self.train_epoch(epoch)
+                        with self.tracer.span("epoch", epoch=epoch):
+                            with maybe_profile(os.path.join(self.workdir, "profile"),
+                                               enabled=epoch == cfg.profile_epoch):
+                                record = self.train_epoch(epoch)
                         if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
                             t_eval = time.perf_counter()
-                            record.update(self.evaluate())
+                            with self.tracer.span("evaluate", epoch=epoch):
+                                record.update(self.evaluate())
                             if self.perf is not None:
                                 self.perf.debit("eval", time.perf_counter() - t_eval)
                         if self._chaos is not None:
-                            # nan@N: poison what the stream records.
+                            # nan@N: poison what the stream and the
+                            # health detectors see.
                             record = self._chaos.corrupt_record(record)
-                        self._log(record)
+                        self.logger.log(record)
+                        self.health.observe_train(record)
                         if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
                             t_ckpt = time.perf_counter()
                             with self.watchdog.paused("checkpoint"):
@@ -671,8 +809,9 @@ class Trainer:
                                 # background write.
                                 self.perf.debit("checkpoint", time.perf_counter() - t_ckpt)
                         if self.perf is not None:
-                            self._log(self.perf.publish(step_time_s=record.get("step_time_s")), echo=False)
-                            self._log(self.comm.publish(), echo=False)
+                            step_time = record.get("step_time_s")
+                            self.logger.log(self.perf.publish(step_time_s=step_time), echo=False)
+                            self.logger.log(self.comm.publish(step_time_s=step_time), echo=False)
                         if cfg.dump_images_per_epoch:
                             with self.watchdog.paused("image_dump"):
                                 self.dump_images(epoch)
@@ -685,10 +824,17 @@ class Trainer:
                     # No return with a write in flight; a writer failure is
                     # raised here, on the training thread.
                     with self.watchdog.paused("checkpoint_flush"):
-                        self.checkpointer.close()
+                        with self.tracer.span("checkpoint_barrier"):
+                            self.checkpointer.close()
         finally:
+            if prev_usr2 is not None:
+                signal.signal(signal.SIGUSR2, prev_usr2)
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
             self._preempt_done.set()
             self._stop_grace_timer()
+            # A capture the run ended in the middle of still reports the
+            # steps that ran; the trace is written at every exit of fit.
+            self.profiler.finalize(sync=self._sync)
+            self.tracer.flush()
         return record

@@ -18,18 +18,22 @@ failure — the port's copy of ``ddlpc_tpu/train/watchdog.py``.
 Phases that are legitimately long and unbeaten (a checkpoint, the image
 dump, the eval's fetch) run inside :meth:`StallWatchdog.paused`.
 
-The JAX watchdog also keeps the health monitor's recent alerts for its
-diagnosis; the port has no health monitor yet, so there are none to keep.
+The health monitor (``obs/health.py``) hands its alerts to
+:meth:`StallWatchdog.record_alert`; the diagnosis prints the recent ones
+(a bounded ring of 32) beside the stacks, so a stall shows what health
+saw just before it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import faulthandler
+import json
 import os
 import sys
 import threading
 import time
+from collections import deque
 from typing import Callable, Iterator, Optional
 
 from ddlpc_tpu_torch.resilience.protocol import EXIT_STALL
@@ -65,12 +69,28 @@ class StallWatchdog:
         self._pause_depth = 0
         self._pause_lock = threading.Lock()
         self.stall_count = 0
+        # The health monitor's recent alerts, from any thread.
+        self._alerts: deque = deque(maxlen=32)
+        self._alerts_lock = threading.Lock()
 
     def beat(self, tag: str = "") -> None:
         """Mark liveness; ``tag`` names the phase for the diagnosis."""
         self._last = time.monotonic()
         if tag:
             self._tag = tag
+
+    def record_alert(self, record: dict) -> None:
+        """Keep a health alert (its flat record) for the next diagnosis.
+        Never raises: diagnostics must not break the loop they watch."""
+        try:
+            with self._alerts_lock:
+                self._alerts.append(dict(record))
+        except Exception:  # noqa: BLE001
+            pass
+
+    def recent_alerts(self) -> list:
+        with self._alerts_lock:
+            return list(self._alerts)
 
     @contextlib.contextmanager
     def paused(self, tag: str = "paused") -> Iterator[None]:
@@ -134,6 +154,7 @@ class StallWatchdog:
             f"(timeout {self.timeout_s:.1f}s); last phase: {self._tag!r}. "
             f"Process {os.getpid()} thread stacks follow."
         )
+        alerts = self.recent_alerts()
         streams = [sys.stderr]
         fh = None
         try:
@@ -142,6 +163,14 @@ class StallWatchdog:
                 streams.append(fh)
             for s in streams:
                 print(msg, file=s, flush=True)
+                if alerts:
+                    print(f"[watchdog] {len(alerts)} recent health alert(s) before the stall:",
+                          file=s, flush=True)
+                    for rec in alerts:
+                        try:
+                            print("  " + json.dumps(rec), file=s, flush=True)
+                        except (TypeError, ValueError):
+                            pass
                 try:
                     # Every thread's stack: a device fetch, a collective, or
                     # host code.

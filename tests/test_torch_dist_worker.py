@@ -24,7 +24,8 @@ Tasks:
   ``remat``, recording the flat gradient before each sync, the metrics,
   and at the end the params, the BatchNorm statistics and the gathered
   optimizer moments;
-- ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
+- ``cli``: the CLI's ``main`` with the arguments in ``task.json``; the
+  ranks of ``probe_fails_on`` cannot make the comm probe's gradient;
 - ``ckpt``: a Trainer from the CLI's arguments trains and checkpoints,
   then a fresh Trainer on the same workdir resumes; stores the canonical
   state each held (``saved/...``, ``restored/...``) and where the second
@@ -110,15 +111,13 @@ def _step_run(task: dict, inputs, rank: int, world: int) -> dict:
     state = ts.create_train_state(model, tx, world, task["level"], bucket_mb=compression.bucket_mb)
     load_canonical(state, {k[3:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("sd/")})
     pre_sync = []
-    real_scatter, real_sync = ts.sync_gradients_scatter, ts.sync_gradients
+    real_sync = ts.sync_for_level
 
-    def record(real):
-        def wrapped(flat, *a, **kw):
-            pre_sync.append(torch.cat([v.reshape(-1) for v in state.params.views(flat)]).numpy())
-            return real(flat, *a, **kw)
-        return wrapped
+    def recorded(flat, *a, **kw):
+        pre_sync.append(torch.cat([v.reshape(-1) for v in state.params.views(flat)]).numpy())
+        return real_sync(flat, *a, **kw)
 
-    ts.sync_gradients_scatter, ts.sync_gradients = record(real_scatter), record(real_sync)
+    ts.sync_for_level = recorded
     try:
         step = ts.make_train_step(tx, compression, world, level=task["level"],
                                   remat=task.get("remat", False))
@@ -132,7 +131,7 @@ def _step_run(task: dict, inputs, rank: int, world: int) -> dict:
                 out[f"{key}{s}"] = np.float32(v)
             out[f"grad{s}"] = pre_sync[-1]
     finally:
-        ts.sync_gradients_scatter, ts.sync_gradients = real_scatter, real_sync
+        ts.sync_for_level = real_sync
     out["resident"] = np.array(state.params.resident)
     sd, opt = gather_canonical(state)
     for name, v in sd.items():
@@ -148,6 +147,14 @@ def _step_run(task: dict, inputs, rank: int, world: int) -> dict:
 def _cli(task: dict, inputs, rank: int, world: int) -> dict:
     from ddlpc_tpu_torch.train.__main__ import main
 
+    if rank in task.get("probe_fails_on", ()):
+        # This replica alone cannot make the comm probe's gradient.
+        from ddlpc_tpu_torch.obs import comm
+
+        def refuse(*a, **kw):
+            raise RuntimeError("out of memory (made to fail on this replica)")
+
+        comm._dummy_gradient = refuse
     assert main(task["argv"]) == 0
     return {}
 

@@ -182,6 +182,10 @@ FLEET_TIER = {
     "ddlpc_tpu_torch": ("torch", "numpy"),
     "ddlpc_tpu_torch.config": ("torch", "numpy"),
     "ddlpc_tpu_torch.serve": ("torch", "numpy"),
+    # The training run's telemetry endpoint, and the profiler module that
+    # imports torch only where a capture starts.
+    "ddlpc_tpu_torch.obs.http": ("torch", "numpy"),
+    "ddlpc_tpu_torch.obs.profiling": ("torch", "numpy"),
 }
 
 

@@ -269,7 +269,8 @@ def test_fit_with_the_configs_settings_on_matches_off_and_accounts(tmp_path):
         debits = sum(v for k, v in r.items() if k.startswith("debit_"))
         assert r["productive_s"] + debits <= r["wall_s"] + 1e-3
         assert {"debit_data_s", "debit_eval_s"} <= set(r)
-    assert comm_recs[-1] == {"kind": "comm", "variant": "allreduce", "steps": 4}
+    assert {k: v for k, v in comm_recs[-1].items() if k not in ("time", "schema")} == {
+        "kind": "comm", "variant": "allreduce", "steps": 4}
     assert ton.registry.snapshot()['ddlpc_hbm_bytes{kind="params"}'] == ton.state.params.numel * 4
 
     # The PNGs: 4 test tiles, three files each, every epoch; the last

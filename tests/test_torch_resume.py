@@ -147,7 +147,10 @@ def test_mid_epoch_preemption_resumes_to_the_same_bits(tiny_config, tmp_path):
     crumb = read_breadcrumb(str(tmp_path / "run"))
     assert (crumb["phase"], crumb["epoch"], crumb["steps_done"], crumb["ckpt_step"]) == ("preempted", 1, 1, 3)
     with open(tmp_path / "run" / "metrics.jsonl") as f:
-        assert {"kind": "preempt", "epoch": 1, "steps_done": 1, "ckpt_step": 3} in map(json.loads, f)
+        # The stream stamps every record with its time and schema.
+        unstamped = [{k: v for k, v in r.items() if k not in ("time", "schema")}
+                     for r in map(json.loads, f)]
+    assert {"kind": "preempt", "epoch": 1, "steps_done": 1, "ckpt_step": 3} in unstamped
     again = make_trainer(tiny_config, tmp_path / "run")
     assert (again.start_epoch, again._skip_steps, again.state.step) == (1, 1, 3)
     again.fit()

@@ -378,8 +378,9 @@ def _cli_records(tmp_path, seed: int, run: str) -> list:
     assert cli_main(["--config", _sto_cli_config(tmp_path, seed), "--device", "cpu",
                      "--workdir", str(workdir), *_OFF]) == 0
     records = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
-    # Wall-clock keys, the stage means t_<stage>_s among them, vary run to run.
-    timing = ("epoch_time_s", "step_time_s", "tiles_per_s")
+    # Wall-clock keys, the stage means t_<stage>_s and the stream's time
+    # stamp among them, vary run to run.
+    timing = ("epoch_time_s", "step_time_s", "tiles_per_s", "time")
     return [{k: v for k, v in r.items() if k not in timing and not re.fullmatch(r"t_\w+_s", k)}
             for r in records]
 

@@ -98,10 +98,13 @@ def test_trainer_from_a_data_dir_and_its_eval_equal_jax(tmp_path, mode):
     with open(tmp_path / "run" / "metrics.jsonl") as f:
         lines = list(map(json.loads, f))
     records = [r for r in lines if "kind" not in r]
-    assert [r["epoch"] for r in records] == [0, 1] and last == records[-1]
+    # The stream stamps each record with its time and schema.
+    unstamped = {k: v for k, v in records[-1].items() if k not in ("time", "schema")}
+    assert [r["epoch"] for r in records] == [0, 1] and last == unstamped
     # The perf accounting, the PNG dumps of the eval split and the
-    # checkpoints ran on the data read from disk.
-    assert [r["kind"] for r in lines if "kind" in r] == ["perf", "comm"] * 2
+    # checkpoints (each with its lineage record) ran on the data read from
+    # disk.
+    assert [r["kind"] for r in lines if "kind" in r] == ["lineage", "perf", "comm"] * 2
     assert len(os.listdir(tmp_path / "run" / "images" / "epoch_0001")) == 6
     assert len(os.listdir(tmp_path / "run" / "checkpoints")) > 0
     for r in records:

@@ -274,28 +274,43 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_settings_that_are_not_ported(tmp_path):
-    """The committed flagship, v5e8 and Cityscapes configs enable nothing
-    the port lacks (image dumps, the stall watchdog, the device cache, the
-    native gather, the perf accounting and every data mode are ported, as
-    are checkpoints).  A setting still unported is refused, the trainer
-    naming each ``--set`` that switches one off, and only those."""
+    """The committed training configs enable nothing the port lacks (image
+    dumps, the stall watchdog, the device cache, the native gather, the
+    perf accounting, every data mode and checkpoints are ported), not even
+    with tracing, the telemetry endpoint or the per-epoch profile switched
+    on: those run (a tiny fit writes the spans, the trace and the
+    profile).  A setting still unported, the space axis, is refused, the
+    trainer naming each ``--set`` that switches one off, and only those."""
+    import dataclasses
+
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.train.trainer import unsupported_settings
 
+    observed = {"trace": True, "telemetry_port": 0, "profile_epoch": 0}
     for name in ("vaihingen_unet_tpu_flagship.json", "vaihingen_unet_v5e8.json",
-                 "cityscapes_unet_v5e64.json"):
+                 "cityscapes_unet_v5e64.json", "vaihingen_unet_cpu.json", "vaihingen_unetpp.json",
+                 "vaihingen_unetpp_s2d.json", "potsdam_deeplabv3p.json"):
         with open(os.path.join(os.path.dirname(FLAGSHIP), name)) as f:
-            assert unsupported_settings(ExperimentConfig.from_json(f.read())) == [], name
+            cfg = ExperimentConfig.from_json(f.read())
+        assert unsupported_settings(cfg) == [], name
+        assert unsupported_settings(cfg.replace(train=dataclasses.replace(cfg.train, **observed))) == [], name
+    workdir = tmp_path / "traced"
+    assert cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu", "--no-resume",
+                     "--workdir", str(workdir), "--set", "train.epochs=1",
+                     "--set", "train.trace=True", "--set", "train.profile_epoch=0",
+                     "--set", "train.telemetry_port=0", *_OFF]) == 0
+    for path in ("spans.jsonl", "trace.json", "profile/ops.json", "profile/trace.json"):
+        assert (workdir / path).is_file(), path
     with pytest.raises(NotImplementedError) as e:
         cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
                   "--workdir", str(tmp_path / "run"), "--set", "train.trace=True",
                   "--set", "train.profile_epoch=0", "--set", "parallel.space_axis_size=2"])
     msg = str(e.value)
-    for key in ("train.trace=False", "train.profile_epoch=-1", "parallel.space_axis_size=1"):
-        assert f"--set {key}" in msg
+    assert "--set parallel.space_axis_size=1" in msg
     for ported in ("checkpoint", "dump_images", "stall", "device_cache", "native_gather",
                    "perf_accounting", "remat", "compact_upload", "augment", "lazy_tiles",
-                   "mmap_scenes", "crops_per_epoch", "loader_workers"):
+                   "mmap_scenes", "crops_per_epoch", "loader_workers", "trace", "profile_epoch",
+                   "telemetry_port"):
         assert ported not in msg
     with pytest.raises(KeyError, match="unknown config key"):
         cli_main(["--device", "cpu", "--set", "train.no_such_knob=1"])
