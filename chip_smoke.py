@@ -170,8 +170,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 4c. the other models' main paths: ``configs/vaihingen_unetpp.json``,
    ``vaihingen_unetpp_s2d.json`` and ``potsdam_deeplabv3p.json`` as
    written (no ``--set`` but the epochs) at full width on 512² tiles,
-   through the CLI's entry for two epochs each (14, 4 and 8 optimizer
-   steps): finite losses, no codec kernel launched (``compression.mode``
+   through the CLI's entry for ``ZOO_EPOCHS`` = 1 epoch each (7, 2 and 4
+   optimizer steps; cut from two epochs to keep the script inside its
+   time limit): finite losses, no codec kernel launched (``compression.mode``
    is ``none``), every epoch's ``perf`` record carrying the JAX package's
    conv FLOPs a step (12,480,638,091,264; 3,246,995,275,776;
    7,940,345,954,304), the PNG triples decoding to the eval forward's
@@ -209,6 +210,50 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    converted by ``python -m ddlpc_tpu_torch.data.prepare_cityscapes``.
    The codec's kernels are then timed and held against their plain
    versions again at the Cityscapes gradient size (``cityscapes_kernels``);
+
+4g. ``spatial_cityscapes``: ``configs/cityscapes_unet_v5e64.json`` as
+   written with ``parallel.data_axis_size=-1, space_axis_size=2``: two
+   gloo processes of this script (``--spatial-rank``) on ``cuda:0``, each
+   holding 256 of every tile's 512 rows (the halo-exchanged convs, the
+   BatchNorm statistics and the loss over both), through the CLI's entry:
+   three steps on the synthetic data (three epochs of one step: 16
+   training tiles and 8 held out, ``data.synthetic_len`` and
+   ``test_split`` cut to fit), then one epoch from the 24-frame Cityscapes
+   layout with void labels that ``cityscapes_full_width`` converted.
+   Every rank's launches must be one ``absmax`` and one
+   ``fake_quantize_fused`` a step, every rank's canonical state the same
+   bits, every perf record half the unsharded step's FLOPs, the host
+   loader's rows ``DeviceLoader``'s; the synthetic run's losses must lie
+   within ``SPATIAL_LOSS_RTOL`` (the tiny models' card-vs-CPU 1e-4) of
+   the same config unsharded in one process, and its checkpoint must
+   restore into that unsharded trainer bit for bit.  It prints the step
+   times, each rank's peak memory against the unsharded run's, a halo
+   hop's ms (one bf16 row each way of the first down block) and the
+   gradient all-reduce's ms (``spatial row``);
+
+4h. ``pipe2_flagship``: ``parallel/pipeline.PipelineTrainStep`` on the
+   flagship at full width, pipe 2 × data 1, two gloo processes of this
+   script (``--pipe-rank``) on ``cuda:0``, ``PIPE_M`` = 4 micro-batches
+   of 128 a step (the flagship trainer's own super-batches of epochs
+   0–2), three steps with the flagship's fp16 codec in each stage's
+   update (3 launches of each of its kernels, ``absmax`` 6, a stage).
+   The canonical state and the losses must lie within
+   ``reference_phase``'s allowance of the unstaged step with the same
+   codec on the same micro-batches (run here, in one process), its
+   codec's scale taken over each stage's parameters as the stages' own
+   updates take it (``stagewise_codec``); the unstaged step as written,
+   its scale over the whole gradient, is printed beside it (the fp16
+   lattice of ±100 levels keeps different gradients under the two
+   scales, which Adam turns into full-size updates).  Both ranks'
+   ``canonical()`` must be the same bits; ``last_schedule`` executed
+   12, idle 2, bubble 0.1429; the last stage's carry stash
+   ``pipeline_carry_stash_bytes``.  It prints the step times against
+   the unstaged step's, each stage's resident bytes against
+   ``pipeline_stage_hbm_bytes`` and the stash (``pipeline row``).
+   zero2 within the stages is not run here: with one replica a stage it
+   resolves to ``off``, so it is held to ``off`` on the CPU at data 2
+   (``tests/test_torch_pipeline.py``).  The two ranks time-share one
+   card: their step times are no scaling number;
 
 5. the data-parallel paths, each a world of W processes of this script
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
@@ -288,6 +333,7 @@ of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -381,7 +427,7 @@ FLAGSHIP_OPTIONS = ("train.optimizer=adamw", "train.weight_decay=1e-4", "train.l
 # The other models' main paths, each config as written but for the epochs:
 # config, the conv FLOPs a step (the JAX package's integer) and the
 # optimizer steps an epoch (97 tiles over the super-batch, rounded up).
-ZOO_EPOCHS = 2
+ZOO_EPOCHS = 1  # one epoch each, to keep the script well inside its time limit
 ZOO_PATHS = {
     "unetpp": ("vaihingen_unetpp.json", 12_480_638_091_264, 7),
     "unetpp_s2d": ("vaihingen_unetpp_s2d.json", 3_246_995_275_776, 2),
@@ -1736,7 +1782,8 @@ def loader_equal(label: str, trainer, loader, epochs: int) -> int:
     plain = DeviceLoader(trainer.train_ds, micro_batch=loader.micro_batch,
                          sync_period=loader.sync_period, device=trainer.device,
                          shuffle=trainer.cfg.data.shuffle, seed=trainer.cfg.data.seed,
-                         replica=loader.replica, world=loader.world, compact=loader.compact)
+                         replica=loader.replica, world=loader.world, compact=loader.compact,
+                         space=loader.space)
     n = 0
     for e in range(epochs):
         loader.set_epoch(e)
@@ -3670,6 +3717,465 @@ def supervised_phase(argv: list) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the space axis and the pipeline stages (phases 5a and 5b)
+
+SPATIAL_WORLD = 2  # data 1 × space 2, both ranks on RANK_DEVICE over gloo
+RANK_DEVICE = "cuda:0"  # every rank of the two phases time-shares the one card
+SPATIAL_SETS = ("parallel.data_axis_size=-1", "parallel.space_axis_size=2")
+# The synthetic run: 16 training tiles (one step of micro 16 an epoch) and
+# 8 held out, three epochs: three optimizer steps; then one epoch from the
+# converted Cityscapes layout (16 of its 24 frames train: one step).
+SPATIAL_RUNS = {"synthetic": ("data.synthetic_len=24", "data.test_split=8", "train.epochs=3"),
+                "dir": ("data.test_split=8", "train.epochs=1")}
+SPATIAL_STEPS = {"synthetic": 3, "dir": 1}
+SPATIAL_LOSS_RTOL = 1e-4  # the tiny models' card-vs-CPU tolerance (reference_phase)
+SPATIAL_DEADLINE_S = 420
+PIPE_STAGES, PIPE_M, PIPE_MICRO, PIPE_STEPS = 2, 4, 128, 3
+PIPE_SCHEDULE = {"executed_slots": 12, "idle_slots": 2, "measured_bubble": 0.1429}
+PIPE_PARAM_SHARE = 2e-2  # reference_phase's allowance: params apart, each within 2·lr a step
+PIPE_LOSS_RTOL = 1e-4  # reference_phase's loss tolerance
+
+
+@contextlib.contextmanager
+def stagewise_codec(flat, stage_names: list):
+    """Within the block, the train step's gradient sync runs the codec with
+    its scale over each stage's parameters (``stage_names``, one list a
+    stage), as ``PipelineTrainStep``'s stage updates take it, instead of
+    over the whole gradient: the stages' gradients are gathered into one
+    buffer, one bucket a stage, synced, and scattered back."""
+    from ddlpc_tpu_torch.parallel import train_step
+
+    where = dict(zip(flat.names, flat.segments()))
+    index = [torch.cat([torch.arange(where[n][0], where[n][0] + where[n][1]) for n in names])
+             .to(flat.grad.device) for names in stage_names]
+    sizes = [int(i.numel()) for i in index]
+    stage_buckets = [(sum(sizes[:s]), n) for s, n in enumerate(sizes)]
+    real = train_step.sync_for_level
+
+    def per_stage(grad, compression, axis_size, level, key=None, buckets=None, n_elements=None):
+        if level != "off" or axis_size != 1:
+            raise ValueError("the stage-wise codec reference is one replica at 'off'")
+        buf = torch.cat([grad[i] for i in index])
+        real(buf, compression, axis_size, level, key=key, buckets=stage_buckets,
+             n_elements=buf.numel())
+        for i, part in zip(index, buf.split(sizes)):
+            grad[i] = part
+        return None
+
+    train_step.sync_for_level = per_stage
+    try:
+        yield
+    finally:
+        train_step.sync_for_level = real
+
+
+def spatial_argv(workdir: str, run: str, space: int, device: str, data_dir: str) -> list:
+    argv = ["--config", CITYSCAPES, "--device", device, "--workdir", os.path.join(workdir, run)]
+    if device != "cuda":
+        argv += ["--dist-backend", "gloo"]
+    sets = SPATIAL_RUNS[run] + (f"data.data_dir={data_dir}",) * (run == "dir")
+    for o in ("parallel.data_axis_size=-1", f"parallel.space_axis_size={space}", *sets):
+        argv += ["--set", o]
+    return argv
+
+
+def spatial_rank(workdir: str, data_dir: str) -> None:
+    """One rank of ``spatial_cityscapes``: each run of ``SPATIAL_RUNS``
+    through the CLI's entry at space 2 with the launch counts set to 0 just
+    before and read just after, the canonical state's digest all-gathered,
+    then a halo hop and the world's gradient all-reduce timed; writes
+    ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.parallel import mesh
+    from ddlpc_tpu_torch.parallel.halo import halo_exchange
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    mesh.initialize_distributed("gloo", f"file://{os.path.join(workdir, 'rendezvous')}")
+    rank = mesh.world_rank()
+    result = {"rank": rank, "runs": {}}
+    for run in SPATIAL_RUNS:
+        cfg, _, dev, backend = parse_args(["--no-resume"]
+                                          + spatial_argv(workdir, run, 2, RANK_DEVICE, data_dir))
+        trainer = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
+        if run == "synthetic":
+            loader_equal(f"spatial_cityscapes rank {rank}", trainer, trainer.loader, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cq.reset_launch_counts()
+        t0 = time.perf_counter()
+        last = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(cq.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        digest = _canonical_digest(trainer.state)
+        hashes = [None] * SPATIAL_WORLD
+        dist.all_gather_object(hashes, digest)
+        row = {"launches": launches, "peak_bytes": peak, "fit_s": fit_s, "hashes": hashes,
+               "last": last, "spatial": trainer.spatial, "space": list(trainer.space),
+               "level": trainer.shard_update, "n_params": trainer.state.params.numel}
+        if run == "synthetic":
+            # A halo hop of the first down block's second conv (micro 16,
+            # 64 channels, this rank's 64 of the stem grid's 128 rows, 256
+            # columns, bf16), and the step's fp32 gradient all-reduce.
+            x = torch.randn(16, 64, 64, 256, device=trainer.device).to(torch.bfloat16)
+            row["halo_ms"] = _timed_ms(lambda: halo_exchange(x, 1), reps=9)
+            row["halo_bytes"] = 2 * 16 * 64 * 256 * 2
+            grad = trainer.state.params.grad
+            row["allreduce_ms"] = _timed_ms(lambda: mesh.all_reduce_(grad, "sum", "stage"))
+            row["allreduce_bytes"] = grad.numel() * 4
+            del x, grad
+        result["runs"][run] = row
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.destroy_distributed()
+
+
+def _run_records(path: str) -> tuple:
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return lines, [r for r in lines if "kind" not in r]
+
+
+def spatial_phase(data_dir: str) -> dict:
+    """``spatial_cityscapes``: ``configs/cityscapes_unet_v5e64.json`` as
+    written (512×1024, 19 classes, full width, s2d ×4, bf16, the fp16 codec
+    on the mean) with ``parallel.data_axis_size=-1`` and
+    ``space_axis_size=2``: two gloo ranks of this script on ``cuda:0``
+    (``--spatial-rank``), each holding 256 of every tile's 512 rows.  Gates:
+    finite losses; every rank's canonical state the same bits; the codec's
+    launches exactly one ``absmax`` and one ``fake_quantize_fused`` a step
+    a rank; each epoch's FLOPs half the unsharded step's; the synthetic
+    run's losses within ``SPATIAL_LOSS_RTOL`` of the same config unsharded
+    in one process; and its checkpoint restored into that unsharded
+    trainer bit for bit."""
+    import shutil
+
+    from ddlpc_tpu_torch.parallel import mesh
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    label = "spatial_cityscapes"
+    workdir = os.path.join(WORKDIR, label)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--spatial-rank", workdir, data_dir],
+                     SPATIAL_WORLD, SPATIAL_DEADLINE_S, cwd=REPO)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SPATIAL_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {"world": SPATIAL_WORLD, "wall_s": wall_s, "runs": {}}
+    for run, steps in SPATIAL_STEPS.items():
+        lines, records = _run_records(os.path.join(workdir, run))
+        perf = perf_checks(f"{label}:{run}", lines, CITYSCAPES_FLOPS // 2, len(records))
+        want = {name: 0 for name in ranks[0]["runs"][run]["launches"]}
+        want.update(fake_quantize_fused=steps, absmax=steps)
+        for rr in ranks:
+            row = rr["runs"][run]
+            log(f"[{label}:{run}] rank {rr['rank']} space {row['space']}: kernels "
+                f"{json.dumps(row['launches'])}, peak {row['peak_bytes'] / 2**30:.2f} GiB, fit "
+                f"{row['fit_s']:.1f} s")
+            if not row["spatial"] or row["launches"] != want:
+                fail(f"[{label}:{run}] rank {rr['rank']}: spatial {row['spatial']}, launches "
+                     f"{row['launches']}, expected {want} ({steps} steps)")
+            if len(set(row["hashes"])) != 1:
+                fail(f"[{label}:{run}] the ranks' states differ: {row['hashes']}")
+        for rec in records:
+            log(f"[{label}:{run}] epoch {rec['epoch']}: loss {rec['loss']} step_time_s "
+                f"{rec['step_time_s']} grad_norm {rec['grad_norm']} val_miou {rec.get('val_miou')}")
+            if not math.isfinite(rec["loss"]) or not math.isfinite(rec["grad_norm"]):
+                fail(f"[{label}:{run}] non-finite training metrics {rec}")
+        if len(records) != steps:  # one step an epoch
+            fail(f"[{label}:{run}] {len(records)} epoch records for {steps} steps")
+        out["runs"][run] = {"losses": [r["loss"] for r in records],
+                            "step_time_s": [r["step_time_s"] for r in records],
+                            "peak_bytes": [rr["runs"][run]["peak_bytes"] for rr in ranks],
+                            "launches": ranks[0]["runs"][run]["launches"],
+                            "epochs": path_row(f"{label}:{run}", records, perf)}
+    # The same synthetic run unsharded in one process, then its checkpoint.
+    argv = spatial_argv(workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
+    argv[argv.index("--workdir") + 1] = os.path.join(workdir, "unsharded")
+    cfg, _, dev, backend = parse_args(["--no-resume"] + argv)
+    ref = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
+    torch.cuda.reset_peak_memory_stats()
+    ref.fit()
+    torch.cuda.synchronize()
+    ref_peak = torch.cuda.max_memory_allocated()
+    _, ref_records = _run_records(os.path.join(workdir, "unsharded"))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, want = out["runs"]["synthetic"]["losses"], [r["loss"] for r in ref_records]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"[{label}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e} "
+        f"(tolerance {SPATIAL_LOSS_RTOL})")
+    if len(got) != len(want) or rel > SPATIAL_LOSS_RTOL:
+        fail(f"[{label}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} of unsharded {want}")
+    argv[argv.index("--workdir") + 1] = os.path.join(workdir, "synthetic")
+    cfg, _, dev, backend = parse_args(argv)
+    restored = Trainer(cfg, resume=True, device=dev, dist_backend=backend)
+    equal = _canonical_digest(restored.state) == ranks[0]["runs"]["synthetic"]["hashes"][0]
+    if restored.spatial or restored.start_epoch != 3 or not equal:
+        fail(f"[{label}] the space-2 checkpoint restored into one unsharded process: spatial "
+             f"{restored.spatial}, start_epoch {restored.start_epoch}, bits equal {equal}")
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    syn = ranks[0]["runs"]["synthetic"]
+    row = {"step_time_s": out["runs"]["synthetic"]["step_time_s"],
+           "unsharded_step_time_s": [r["step_time_s"] for r in ref_records],
+           "losses": got, "unsharded_losses": want, "max_rel": rel,
+           "peak_gib": [rr["runs"]["synthetic"]["peak_bytes"] / 2**30 for rr in ranks],
+           "unsharded_peak_gib": ref_peak / 2**30,
+           "halo_ms": [rr["runs"]["synthetic"]["halo_ms"] for rr in ranks],
+           "halo_bytes": syn["halo_bytes"],
+           "allreduce_ms": [rr["runs"]["synthetic"]["allreduce_ms"] for rr in ranks],
+           "allreduce_bytes": syn["allreduce_bytes"], "restored_unsharded": equal,
+           "wall_s": wall_s}
+    log(f"spatial row: {json.dumps(row)} ({smi_line()})")
+    out["row"] = row
+    return out
+
+
+def pipe_batches(cfg, device) -> list:
+    """The flagship trainer's super-batches of epochs 0..``PIPE_STEPS``−1 (its
+    sampler over the synthetic training split), as ``PIPE_M`` micro-batches
+    of ``PIPE_MICRO``, on ``device``."""
+    from ddlpc_tpu_torch.data.datasets import build_dataset
+    from ddlpc_tpu_torch.data.loader import EpochSampler
+
+    train_ds, _ = build_dataset(cfg.data)
+    sampler = EpochSampler(train_ds, PIPE_M * PIPE_MICRO, shuffle=cfg.data.shuffle,
+                           seed=cfg.data.seed)
+    out = []
+    for e in range(PIPE_STEPS):
+        sampler.set_epoch(e)
+        images, labels = train_ds.gather(sampler.epoch_indices()[: PIPE_M * PIPE_MICRO])
+        out.append((torch.from_numpy(images).view(PIPE_M, PIPE_MICRO, *images.shape[1:]).to(device),
+                    torch.from_numpy(labels.astype("int64")).view(PIPE_M, PIPE_MICRO,
+                                                                  *labels.shape[1:]).to(device)))
+    return out
+
+
+def pipe_model(cfg):
+    from ddlpc_tpu_torch.models import build_model
+    from ddlpc_tpu_torch.train.optim import build_optimizer
+
+    return build_model(cfg.model, seed=cfg.train.seed), build_optimizer(cfg.train)
+
+
+def pipe_rank(workdir: str) -> None:
+    """One rank of ``pipe2_flagship``: ``PipelineTrainStep`` on the
+    flagship at full width with its own codec, ``PIPE_STEPS`` steps, the
+    codec's launches counted a stage; writes ``rank<r>.json`` (and rank 0
+    the canonical state's parameters and statistics)."""
+    import torch.distributed as dist
+
+    from ddlpc_tpu_torch.config import ExperimentConfig
+    from ddlpc_tpu_torch.convert import gather_canonical
+    from ddlpc_tpu_torch.obs import hbm
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.parallel import mesh
+    from ddlpc_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from ddlpc_tpu_torch.parallel.train_step import create_train_state
+
+    mesh.initialize_distributed("gloo", f"file://{os.path.join(workdir, 'rendezvous')}")
+    mesh.init_grid(PIPE_STAGES, 1, 1)
+    rank = mesh.world_rank()
+    device = torch.device(RANK_DEVICE)
+    with open(FLAGSHIP) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = pipe_batches(cfg, device)
+    model, tx = pipe_model(cfg)
+    full = create_train_state(model, tx, 1, "off")
+    drv = make_pipeline_train_step(model, tx, cfg.compression, PIPE_M, seed=cfg.train.seed,
+                                   device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    p = drv.init_state(full)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - before
+    priced = hbm.pipeline_stage_hbm_bytes(p.stages, drv._level)[0]
+    torch.cuda.reset_peak_memory_stats()
+    cq.reset_launch_counts()
+    metrics, times = [], []
+    for images, labels in batches:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, m = drv.step(p, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launches = dict(cq.LAUNCHES)
+    stash_want = 0
+    if drv.stage > 0:
+        shapes = drv.carry_shapes((PIPE_MICRO, *cfg.data.image_size, 3))
+        stash_want = hbm.pipeline_carry_stash_bytes(shapes[drv.stage - 1], PIPE_M, 1)
+    can = drv.canonical(p)
+    result = {
+        "rank": rank, "level": drv._level, "metrics": metrics, "step_s": times,
+        "launches": launches, "schedule": drv.last_schedule, "stage": drv.stage,
+        "blocks": list(drv.blocks), "resident_bytes": resident, "priced": priced,
+        "stash_bytes": drv.stash_bytes, "stash_priced": stash_want,
+        "peak_bytes": torch.cuda.max_memory_allocated(), "digest": _canonical_digest(can),
+        "names": list(p.stages[0].params.names),
+    }
+    if rank == 0:
+        sd, _ = gather_canonical(can)
+        torch.save({k: v.clone() for k, v in sd.items()}, os.path.join(workdir, "staged.pt"))
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.destroy_distributed()
+
+
+def pipe_phase() -> dict:
+    """``pipe2_flagship``: ``PipelineTrainStep`` on the flagship U-Net at
+    full width (``configs/vaihingen_unet_tpu_flagship.json``, its fp16
+    codec), pipe 2 × data 1: two gloo ranks of this script on ``cuda:0``
+    (``--pipe-rank``), ``PIPE_M`` = 4 micro-batches of 128 (the flagship's
+    super-batch of 512) a step, three steps.  Gates: the canonical state
+    and losses within ``reference_phase``'s allowance of the unstaged step
+    with the same codec on the same micro-batches, its scale taken a
+    stage (computed here, in one process; the whole-gradient scale is
+    printed beside it);
+    both ranks' canonical states the same bits; ``last_schedule``
+    executed 12, idle 2, bubble 0.1429; the codec launched once a step a
+    stage (``absmax`` twice); the last stage's carry stash equal to
+    ``pipeline_carry_stash_bytes``; finite losses."""
+    import shutil
+
+    from ddlpc_tpu_torch.config import ExperimentConfig
+    from ddlpc_tpu_torch.convert import gather_canonical
+    from ddlpc_tpu_torch.parallel import mesh
+    from ddlpc_tpu_torch.parallel.train_step import create_train_state, make_train_step
+
+    label = "pipe2_flagship"
+    workdir = os.path.join(WORKDIR, label)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--pipe-rank", workdir],
+                     PIPE_STAGES, DP_DEADLINE_S, cwd=REPO)
+    wall_s = time.perf_counter() - t0
+    stages = {}
+    for r in range(PIPE_STAGES):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            a = json.load(f)
+        stages[a["stage"]] = a
+        log(f"[{label}] stage {a['stage']} ({len(a['blocks'])} blocks {a['blocks'][0]} .. "
+            f"{a['blocks'][-1]}): step s {a['step_s']}, losses "
+            f"{[m['loss'] for m in a['metrics']]}, kernels {json.dumps(a['launches'])}, resident "
+            f"{a['resident_bytes']} B against pipeline_stage_hbm_bytes {json.dumps(a['priced'])}, "
+            f"carry stash {a['stash_bytes']} B against pipeline_carry_stash_bytes "
+            f"{a['stash_priced']}, peak {a['peak_bytes'] / 2**30:.2f} GiB")
+        if a["schedule"] != PIPE_SCHEDULE:
+            fail(f"[{label}] last_schedule {a['schedule']} != {PIPE_SCHEDULE}")
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in a["metrics"]):
+            fail(f"[{label}] non-finite metrics {a['metrics']}")
+        if a["stash_bytes"] != a["stash_priced"]:
+            fail(f"[{label}] stage {a['stage']} stashed {a['stash_bytes']} B, priced "
+                 f"{a['stash_priced']}")
+        want = {name: 0 for name in a["launches"]}
+        want.update(codec_expect(PIPE_STEPS))
+        if a["launches"] != want:
+            fail(f"[{label}] stage {a['stage']} launches {a['launches']}, expected {want}")
+    if len({a["digest"] for a in stages.values()}) != 1:
+        fail(f"[{label}] the ranks' canonical states differ")
+    # The unstaged step with the same codec on the same micro-batches: once
+    # with the codec's scale taken over each stage's parameters, as the
+    # stages' updates take it (the gate), once as written, over the whole
+    # gradient (printed: what the stage-wise scale moves).
+    with open(FLAGSHIP) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    device = torch.device(RANK_DEVICE)
+    batches = pipe_batches(cfg, device)
+    lr = cfg.train.learning_rate
+    staged = torch.load(os.path.join(workdir, "staged.pt"))
+    staged_losses = [m["loss"] for m in stages[0]["metrics"]]
+    runs = {}
+    for scale in ("stage", "whole"):
+        model, tx = pipe_model(cfg)
+        state = create_train_state(model.to(device), tx, 1, "off")
+        step = make_train_step(tx, cfg.compression, 1, seed=cfg.train.seed)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        with (stagewise_codec(state.params, [stages[s]["names"] for s in sorted(stages)])
+              if scale == "stage" else contextlib.nullcontext()):
+            for images, labels in batches:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m = step(state, images, labels)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        sd, _ = gather_canonical(state)
+        names = set(state.params.names)
+        total = apart = 0
+        worst = stats_rel = 0.0
+        for k, want in sd.items():
+            diff = (staged[k] - want).abs()
+            if k in names:
+                apart += int((diff > 1e-4 * want.abs() + 1e-6).sum())
+                total += want.numel()
+                worst = max(worst, float(diff.max()))
+            else:
+                stats_rel = max(stats_rel, float((diff / (want.abs() + 1e-6)).max()))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(staged_losses, losses))
+        runs[scale] = {"step_s": times, "losses": losses, "peak": peak, "share": apart / total,
+                       "worst": worst, "stats_rel": stats_rel, "loss_rel": rel}
+        over = "the whole gradient" if scale == "whole" else "each stage"
+        log(f"[{label}] fp16 codec, staged against unstaged (scale over {over}) after "
+            f"{PIPE_STEPS} steps: losses {staged_losses} / {losses} (max rel {rel:.3e}); "
+            f"params apart (rtol 1e-4, atol 1e-6) "
+            f"{apart} of {total} (share {apart / total:.5f}), max |diff| {worst:.3e}; BatchNorm "
+            f"statistics max rel {stats_rel:.3e}")
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    gate = runs["stage"]
+    if (gate["loss_rel"] > PIPE_LOSS_RTOL or gate["share"] > PIPE_PARAM_SHARE
+            or gate["worst"] > 2 * lr * PIPE_STEPS):
+        fail(f"[{label}] the staged state is not within the allowance of the unstaged one with "
+             f"the stages' codec scale (losses rtol {PIPE_LOSS_RTOL}, params apart share "
+             f"{PIPE_PARAM_SHARE}, max |diff| {2 * lr * PIPE_STEPS:.3e})")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    unstaged_s, unstaged_losses = runs["whole"]["step_s"], runs["whole"]["losses"]
+    unstaged_peak, share, worst = runs["whole"]["peak"], gate["share"], gate["worst"]
+    order = sorted(stages)
+    row = {"step_s": stages[0]["step_s"], "unstaged_step_s": unstaged_s,
+           "losses": staged_losses, "unstaged_losses": unstaged_losses,
+           "resident_bytes": [stages[s]["resident_bytes"] for s in order],
+           "priced": [stages[s]["priced"] for s in order],
+           "stash_bytes": [stages[s]["stash_bytes"] for s in order],
+           "stash_priced": [stages[s]["stash_priced"] for s in order],
+           "peak_gib": [stages[s]["peak_bytes"] / 2**30 for s in order],
+           "unstaged_peak_gib": unstaged_peak / 2**30, "schedule": stages[0]["schedule"],
+           "launches": [stages[s]["launches"] for s in order], "param_share": share,
+           "max_abs_diff": worst, "loss_rel": gate["loss_rel"],
+           "whole_scale": {k: runs["whole"][k] for k in ("share", "worst", "stats_rel", "loss_rel")},
+           "wall_s": wall_s}
+    log(f"pipeline row: {json.dumps(row)} ({smi_line()})")
+    return {"row": row, "launches": stages[0]["launches"], "launches_s1": stages[1]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3681,6 +4187,12 @@ def main() -> int:
         fail(f"the port is not beside this script ({e})")
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of a data-parallel phase
         dp_rank(*sys.argv[2:6])
+        return 0
+    if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of spatial_cityscapes
+        spatial_rank(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--pipe-rank"]:  # one stage of pipe2_flagship
+        pipe_rank(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--stall"]:  # the watchdog phase's training process
         stall_run(sys.argv[2])
@@ -3760,6 +4272,11 @@ def main() -> int:
         row["launches"] = cs_run["launches"][row["name"]]
         row["launches_by_path"] = {"cityscapes_synthetic": row["launches"],
                                    "cityscapes_dir": cs_dir_run["launches"][row["name"]]}
+    spatial = spatial_phase(os.path.join(data_root, "cityscapes", "tiles"))
+    for row in cs_rows:
+        row["launches_by_path"]["spatial_cityscapes"] = sum(
+            run["launches"][row["name"]] for run in spatial["runs"].values())
+    pipe = pipe_phase()
     dp = {label: dp_phase(label) for label in DP_PHASES}
     traced_dp = traced_dp_checks(dp)
     stall_row = stall_phase()
@@ -3780,6 +4297,8 @@ def main() -> int:
                        **{label: run["launches"][row["name"]] for label, run in zoo.items()},
                        **{label: run["launches"][row["name"]] for label, run in data_runs.items()}}
             by_path["serve_int8"] = serve["modes"]["int8"]["path_launches"].get(row["name"], 0)
+            by_path["pipe2_flagship_stage0"] = pipe["launches"][row["name"]]
+            by_path["pipe2_flagship_stage1"] = pipe["launches_s1"][row["name"]]
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
@@ -3806,7 +4325,7 @@ def main() -> int:
                       "traced": {k: traced[k] for k in ("step_time_s", "untraced_step_time_s", "sizes",
                                                         "span_counts", "top_ops_001",
                                                         "codec_in_capture")},
-                      "traced_dp": traced_dp}))
+                      "traced_dp": traced_dp, "spatial": spatial["row"], "pipeline": pipe["row"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 The same JSON artifacts (``configs/*.json``) parse unchanged, so every
 field of the five sections is kept, with the reference's defaults.  The
-meaning of each field is documented in ``ddlpc_tpu/config.py``; fields this
-slice of the port does not implement are rejected where they are consumed
-(``train/trainer.py:unsupported_settings``), never silently ignored.
+meaning of each field is documented in ``ddlpc_tpu/config.py``; a setting
+the port refuses (as the JAX package refuses it) is refused where it is
+consumed, never silently ignored.
 Knobs only the port has (the device) live on the CLI, not in the JSON.
 """
 

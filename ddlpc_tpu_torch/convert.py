@@ -31,7 +31,7 @@ world of any size and ZeRO level.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +123,25 @@ def torch_state_from_flax(
             if key in opt_state:
                 opt[key] = {k: _to_tensor(v) for k, v in _params_to_torch(opt_state[key]).items()}
     return sd, opt
+
+
+def torch_stage_states_from_flax(
+    stage_params: Sequence[Mapping],
+    stage_stats: Sequence[Mapping],
+    stage_opts: Optional[Sequence[Mapping]] = None,
+    layout=None,
+) -> List[Tuple[Dict[str, torch.Tensor], Optional[dict]]]:
+    """The JAX package's per-stage trees (``StagePlan.split`` of the
+    params and the BatchNorm statistics, ``split_opt_state`` of the optax
+    state, whose nesting is ``layout``) as each stage's ``(state_dict,
+    opt)`` of the port: :func:`torch_state_from_flax` on each stage, so a
+    JAX ``PipelineState`` and the port's stages start from the same
+    numbers (``load_canonical`` places each into its stage)."""
+    out = []
+    for s, (params, stats) in enumerate(zip(stage_params, stage_stats)):
+        core = None if stage_opts is None else optax_core(layout, stage_opts[s])
+        out.append(torch_state_from_flax(params, stats, core))
+    return out
 
 
 def optax_core(layout, tree: Mapping) -> dict:
@@ -318,7 +337,7 @@ def flax_tree(state_dict: Mapping[str, torch.Tensor], opt: Mapping, step: int) -
 
 
 def load_state_tree(state, tree: Optional[Mapping], src: int = 0) -> None:
-    """Place replica ``src``'s state tree (:func:`flax_tree`'s layout, as a
+    """Place global rank ``src``'s state tree (:func:`flax_tree`'s layout, as a
     checkpoint restores it) into every replica's train state, in place and
     in that replica's layout (:func:`load_canonical`), step included.
     ``src`` lays the canonical state out in full flat buffers on its
@@ -326,14 +345,14 @@ def load_state_tree(state, tree: Optional[Mapping], src: int = 0) -> None:
     ``tree`` is None (every replica must call it); in a world of one the
     broadcasts do nothing.  An optimizer whose optax state has no count
     (SGD at a constant rate) takes the step."""
-    from ddlpc_tpu_torch.parallel.mesh import broadcast_, replica_index
+    from ddlpc_tpu_torch.parallel.mesh import broadcast_, world_rank
 
     flat = state.params
     device = flat.grad.device
     stat_names = [k for k in state.model.state_dict() if k not in set(flat.names)]
     stats_like = [state.model.get_buffer(k) for k in stat_names]
     moments = list(state.opt_state.buffers())
-    if replica_index() == src:
+    if world_rank() == src:
         core = optax_core(state.layout, tree["opt_state"])
         sd, opt = torch_state_from_flax(tree["params"], tree["batch_stats"], core)
         step = int(np.asarray(tree["step"]))

@@ -12,6 +12,11 @@ computes the same permutation and takes its own columns ``[r·B, (r+1)·B)``
 of each ``[A, W·B]`` super-batch (``DeviceLoader.index_chunks``), as the
 JAX ``ShardedLoader`` does per process (``loader.py:305-313``).
 
+On a ``data × space`` grid (``space=(s, S)``, the JAX loaders'
+``space_axis``) rank ``(d, s)`` takes data shard ``d``'s columns as above
+and of each tile only the rows ``[s·H/S, (s+1)·H/S)``, of images and
+labels alike: the bytes of JAX's shard on mesh position ``(d, s)``.
+
 ``compact`` (``data.compact_upload``) ships the images as bfloat16 and the
 labels as int8 (:func:`compact_cast`, the JAX ``_compact_cast``): the
 images arrive on the device as bf16, which every model casts to its
@@ -113,11 +118,23 @@ class EpochSampler:
         return np.resize(idx, len(self) * self.super_batch)
 
 
+def space_rows(height: int, space: Tuple[int, int]) -> slice:
+    """Rank ``space = (s, S)``'s rows of a tile ``height`` rows high."""
+    s, n = space
+    if not 0 <= s < n:
+        raise ValueError(f"space index {s} is not in a space axis of {n}")
+    if height % n:
+        raise ValueError(f"tile height {height} does not split into {n} space shards")
+    rows = height // n
+    return slice(s * rows, (s + 1) * rows)
+
+
 class DeviceLoader(EpochSampler):
     """Iterates ``(images [A,B,H,W,C], labels [A,B,H,W])`` on ``device``,
     one item per optimizer step (A = ``sync_period``, B = ``micro_batch``,
     the per-replica micro-batch), for replica ``replica`` of ``world``;
-    images fp32, or bf16 with ``compact``."""
+    images fp32, or bf16 with ``compact``.  ``space = (s, S)``: only rows
+    :func:`space_rows` of each tile (H becomes H/S)."""
 
     def __init__(
         self,
@@ -130,9 +147,12 @@ class DeviceLoader(EpochSampler):
         replica: int = 0,
         world: int = 1,
         compact: bool = False,
+        space: Tuple[int, int] = (0, 1),
     ):
         if not 0 <= replica < world:
             raise ValueError(f"replica {replica} is not in a world of {world}")
+        self.rows = space_rows(dataset.image_shape[0], space)
+        self.space = space
         super().__init__(dataset, micro_batch * world * sync_period, shuffle=shuffle, seed=seed)
         self.micro_batch = micro_batch
         self.sync_period = sync_period
@@ -154,6 +174,7 @@ class DeviceLoader(EpochSampler):
         a, b = self.sync_period, self.micro_batch
         for local in self.index_chunks():
             images, labels = self.ds.gather(local)
+            images, labels = images[:, self.rows], labels[:, self.rows]
             images = images.reshape(a, b, *images.shape[1:])
             labels = labels.reshape(a, b, *labels.shape[1:])
             if self.compact:
@@ -171,8 +192,8 @@ class DeviceCachedLoader(DeviceLoader):
     on the device.  The batches are :class:`DeviceLoader`'s, byte for
     byte.  It needs a fixed-tile :class:`TileDataset`, as JAX's does.
 
-    In a world of W processes each rank caches the whole split and gathers
-    only its own columns.  That reproduces the batches of the JAX
+    In a world of W processes each rank caches the whole split (only its
+    rows on a ``data × space`` grid) and gathers only its own columns.  That reproduces the batches of the JAX
     package's single-process ``data=W`` mesh, which replicates its cache
     on every device and reshards each gathered super-batch over the data
     axis; JAX refuses the cache under more than one process because its
@@ -186,10 +207,14 @@ class DeviceCachedLoader(DeviceLoader):
                 "datasets materialize tiles on the host per epoch)"
             )
         super().__init__(dataset, *args, **kwargs)
+        images, labels = dataset.images, dataset.labels
+        if self.space[1] > 1:
+            images = np.ascontiguousarray(images[:, self.rows])
+            labels = np.ascontiguousarray(labels[:, self.rows])
         if self.compact:
-            img_t, lab_t = _compact_arrays(dataset.images, dataset.labels)
+            img_t, lab_t = _compact_arrays(images, labels)
         else:
-            img_t, lab_t = torch.from_numpy(dataset.images), torch.from_numpy(dataset.labels)
+            img_t, lab_t = torch.from_numpy(images), torch.from_numpy(labels)
         self._images = img_t.to(self.device)
         self._labels = lab_t.to(self.device)
 
@@ -206,16 +231,22 @@ class DeviceCachedLoader(DeviceLoader):
 class _Slot:
     """A ring entry: the ``[A,B,H,W,C]`` / ``[A,B,H,W]`` host destination
     (fp32/int32, or bf16/int8 under ``compact``; pinned on a card), the
-    fp32/int32 scratch of a compact cast that cannot fuse with the gather
-    (allocated at its first use), and the CUDA event of the last copy that
-    read the destination (None on the CPU, where the copy is done when it
+    ``[A,B,H/S,W,..]`` rows of a space shard copied out of it for the
+    upload (the destination itself without a space axis), the fp32/int32
+    scratch of a compact cast that cannot fuse with the gather (allocated
+    at its first use), and the CUDA event of the last copy that read the
+    upload buffers (None on the CPU, where the copy is done when it
     returns)."""
 
-    __slots__ = ("imgs", "labs", "scratch_imgs", "scratch_labs", "copied")
+    __slots__ = ("imgs", "labs", "up_imgs", "up_labs", "scratch_imgs", "scratch_labs",
+                 "copied")
 
-    def __init__(self, imgs: torch.Tensor, labs: torch.Tensor):
+    def __init__(self, imgs: torch.Tensor, labs: torch.Tensor,
+                 up_imgs: Optional[torch.Tensor] = None, up_labs: Optional[torch.Tensor] = None):
         self.imgs = imgs
         self.labs = labs
+        self.up_imgs = imgs if up_imgs is None else up_imgs
+        self.up_labs = labs if up_labs is None else up_labs
         self.scratch_imgs: Optional[np.ndarray] = None
         self.scratch_labs: Optional[np.ndarray] = None
         self.copied: Optional[torch.cuda.Event] = None
@@ -307,11 +338,17 @@ class ShardedLoader(DeviceLoader):
             h, w, c = self.ds.image_shape
             pin = self.device.type == "cuda"
             img_dt, lab_dt = (torch.bfloat16, torch.int8) if self.compact else (torch.float32, torch.int32)
-            self._ring = _Ring([
-                _Slot(torch.empty((a, b, h, w, c), dtype=img_dt, pin_memory=pin),
-                      torch.empty((a, b, h, w), dtype=lab_dt, pin_memory=pin))
-                for _ in range(max(self.prefetch, self.workers) + 1)
-            ])
+            hs = self.rows.stop - self.rows.start
+
+            def slot() -> _Slot:
+                up = ()
+                if hs != h:
+                    up = (torch.empty((a, b, hs, w, c), dtype=img_dt, pin_memory=pin),
+                          torch.empty((a, b, hs, w), dtype=lab_dt, pin_memory=pin))
+                return _Slot(torch.empty((a, b, h, w, c), dtype=img_dt, pin_memory=pin),
+                             torch.empty((a, b, h, w), dtype=lab_dt, pin_memory=pin), *up)
+
+            self._ring = _Ring([slot() for _ in range(max(self.prefetch, self.workers) + 1)])
         return self._ring
 
     def _native_source(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -370,11 +407,14 @@ class ShardedLoader(DeviceLoader):
         try:
             self._assemble(np.ascontiguousarray(flat, np.int64), slot)
             with self._stage("upload"):
+                if slot.up_imgs is not slot.imgs:
+                    slot.up_imgs.copy_(slot.imgs[:, :, self.rows])
+                    slot.up_labs.copy_(slot.labs[:, :, self.rows])
                 if self.device.type != "cuda":
-                    return slot.imgs.clone(), slot.labs.long()
+                    return slot.up_imgs.clone(), slot.up_labs.long()
                 with torch.cuda.device(self.device):
-                    imgs = slot.imgs.to(self.device, non_blocking=True)
-                    labs = slot.labs.to(self.device, non_blocking=True)
+                    imgs = slot.up_imgs.to(self.device, non_blocking=True)
+                    labs = slot.up_labs.to(self.device, non_blocking=True)
                     slot.copied = torch.cuda.Event()
                     slot.copied.record()
                     return imgs, labs.long()
@@ -421,13 +461,17 @@ def eval_indices(n: int, batch: int, replica: int = 0, world: int = 1):
 
 
 def eval_batches(
-    dataset: TileDataset, batch: int, device: torch.device, replica: int = 0, world: int = 1
+    dataset: TileDataset, batch: int, device: torch.device, replica: int = 0, world: int = 1,
+    space: Tuple[int, int] = (0, 1),
 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Fixed-order eval batches ``[b,H,W,C]`` / ``[b,H,W]`` of this
-    replica (:func:`eval_indices`); padded tiles carry label −1, which the
-    metrics mask out."""
+    replica (:func:`eval_indices`), only rows :func:`space_rows` of each
+    tile on a ``data × space`` grid; padded tiles carry label −1, which
+    the metrics mask out."""
+    rows = space_rows(dataset.image_shape[0], space)
     for idx, valid in eval_indices(len(dataset), batch, replica, world):
         images, labels = dataset.gather(idx)
+        images, labels = images[:, rows], labels[:, rows]
         labels = labels.astype(np.int64)
         labels[~valid] = -1
         yield to_device(images, device), to_device(labels, device)

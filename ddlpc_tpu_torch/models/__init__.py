@@ -1,16 +1,20 @@
 """Model registry: ``build_model`` with the reference's validation and
 messages (``ddlpc_tpu/models/__init__.py``) over ``unet``, ``unetpp`` and
 ``deeplabv3p``.  ``build_model_from_experiment`` switches sync-BN on from
-``parallel.sync_batch_norm`` in a world of more than one replica."""
+``parallel.sync_batch_norm`` in a world of more than one replica, and
+under ``parallel.space_axis_size > 1`` shards the model's H over the space
+axis (:func:`shard_space`)."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from ddlpc_tpu_torch.config import ExperimentConfig, ModelConfig
 from ddlpc_tpu_torch.models.deeplabv3p import DeepLabV3Plus
-from ddlpc_tpu_torch.models.layers import BatchNorm
+from ddlpc_tpu_torch.models.layers import BatchNorm, Conv, GroupNorm
 from ddlpc_tpu_torch.models.unet import UNet
 from ddlpc_tpu_torch.models.unetpp import UNetPP
 
@@ -118,13 +122,102 @@ def build_model(
     return model
 
 
+SPACE_ROADMAP = (
+    "ROADMAP A6 queues U-Net++, DeepLabV3+ and bilinear up-sampling under "
+    "the space axis"
+)
+
+
+def check_space_rows(height: int, space: int, stem_factor: int, depth: int) -> None:
+    """Refuse an image height whose shards are not row-local for the
+    U-Net: each of the ``space`` shards must hold a multiple of
+    ``stem_factor · 2**depth`` rows, so that space-to-depth, every 2×2
+    pool and transposed conv, and depth-to-space stay inside a shard.
+    The JAX package's GSPMD path pads uneven shards instead: refusing them
+    is a deviation of the port (ROADMAP C17)."""
+    unit = stem_factor * 2 ** depth
+    if height % space or (height // space) % unit:
+        raise ValueError(
+            f"image height {height} over space_axis_size={space} gives "
+            f"{height / space:g} rows a shard, not a multiple of stem_factor·2**depth "
+            f"= {stem_factor}·2**{depth} = {unit}; the port shards only evenly "
+            f"(the JAX package's GSPMD pads uneven shards — a documented "
+            f"deviation, ROADMAP C17): pick a tile height divisible by {unit * space}"
+        )
+
+
+def shard_space(model: nn.Module, data_size: int, space_size: int) -> nn.Module:
+    """Shard ``model``'s H over the space axis, in place: every conv of a
+    kernel wider than 1 exchanges ``dilation · (k // 2)`` rows with its
+    neighbours, BatchNorm reduces over the stage's (data, space) group of
+    ``data_size · space_size`` ranks (the JAX GSPMD step's statistics over
+    the logical global batch, which it takes with or without
+    ``sync_batch_norm``), GroupNorm over the space group.  Only the U-Net
+    with transposed-conv up-sampling is row-local otherwise; the rest raise
+    ``NotImplementedError``."""
+    if space_size <= 1:
+        return model
+    if not isinstance(model, UNet):
+        raise NotImplementedError(
+            f"{type(model).__name__} under parallel.space_axis_size={space_size}: "
+            f"its bilinear resizes and dilated ASPP convs need halos up to 18 rows "
+            f"and its image pooling a space all-reduce, none of which is ported; "
+            f"{SPACE_ROADMAP}"
+        )
+    if model.up_sample_mode != "conv_transpose":
+        raise NotImplementedError(
+            f"up_sample_mode={model.up_sample_mode!r} under "
+            f"parallel.space_axis_size={space_size}: the bilinear resize needs a "
+            f"halo, which is not ported; {SPACE_ROADMAP}"
+        )
+    model.space = space_size
+    for m in model.modules():
+        if isinstance(m, Conv) and m.kernel > 1:
+            if m.stride != 1:
+                raise NotImplementedError(
+                    f"a stride-{m.stride} {m.kernel}×{m.kernel} conv under the "
+                    f"space axis; {SPACE_ROADMAP}"
+                )
+            m.halo = m.dilation * (m.kernel // 2)
+        elif isinstance(m, BatchNorm):
+            m.axis_size, m.axis = data_size * space_size, "stage"
+        elif isinstance(m, GroupNorm):
+            m.space = space_size
+    return model
+
+
+@contextlib.contextmanager
+def space_off(model: nn.Module):
+    """Run a sharded model unsharded for the duration: whole tiles on one
+    rank, no halo and no statistics over the space axis (an eval-mode
+    forward then needs no collective).  Restores the sharding after."""
+    saved = [(m, m.halo) for m in model.modules() if isinstance(m, Conv)]
+    saved += [(m, m.space) for m in model.modules() if isinstance(m, (GroupNorm, UNet))]
+    for m, _ in saved:
+        if isinstance(m, Conv):
+            m.halo = 0
+        else:
+            m.space = 1
+    try:
+        yield model
+    finally:
+        for m, v in saved:
+            if isinstance(m, Conv):
+                m.halo = v
+            else:
+                m.space = v
+
+
 def build_model_from_experiment(
     ecfg: ExperimentConfig, in_channels: int, data_size: int
 ) -> nn.Module:
     """``build_model`` with sync-BN over ``data_size`` replicas where
-    ``parallel.sync_batch_norm`` holds."""
+    ``parallel.sync_batch_norm`` holds, sharded over the space axis
+    (:func:`shard_space`) where ``parallel.space_axis_size > 1``."""
+    space = ecfg.parallel.space_axis_size
     sync = ecfg.parallel.sync_batch_norm and data_size > 1
-    return build_model(
+    model = build_model(
         ecfg.model, in_channels=in_channels, seed=ecfg.train.seed,
         norm_axis_size=data_size if sync else 1,
     )
+    return shard_space(model, data_size, space)

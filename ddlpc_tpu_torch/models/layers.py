@@ -13,6 +13,15 @@ the top getting half rounded down and the bottom the rest (the same for
 columns), so a 3×3 stride-2 conv on an even grid pads the bottom and the
 right only.  :func:`same_pads` computes it; :class:`Conv` and
 :func:`max_pool_same` pad with it explicitly.
+
+H sharded over the ``space`` axis (``models.shard_space``): a stride-1
+conv with ``Conv.halo`` rows takes them from its neighbours
+(``parallel/halo.py``) and pads only W; BatchNorm reduces its statistics
+over the stage's whole (data, space) group (``BatchNorm.axis``), GroupNorm
+over the space group (``GroupNorm.space``).  Every other op of the U-Net
+(space-to-depth, the 2×2 pool, the 2×2 transposed conv, the 1×1 head,
+depth-to-space, ``group_labels``) is row-local once the local H divides
+by the stem factor times ``2**depth``.
 """
 
 from __future__ import annotations
@@ -22,9 +31,11 @@ import math
 import threading
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ddlpc_tpu_torch.parallel import mesh
+from ddlpc_tpu_torch.parallel.halo import halo_exchange
 
 BN_MOMENTUM = 0.9  # flax convention: running = m·running + (1−m)·batch
 BN_EPSILON = 1e-5
@@ -45,23 +56,21 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the process group, differentiable: the backward sums the
-    cotangents over the group too, which is what the JAX package's
-    ``pmean`` transposes to inside ``shard_map(check=False)`` — each
-    replica's gradient then holds every replica's loss's dependence on its
-    own activations through the shared statistics."""
+    """Sum over this rank's ``axis`` group (``mesh.all_reduce_``),
+    differentiable: the backward sums the cotangents over the group too,
+    which is what the JAX package's ``pmean`` transposes to inside
+    ``shard_map(check=False)`` — each replica's gradient then holds every
+    replica's loss's dependence on its own activations through the shared
+    statistics."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        y = x.clone()
-        dist.all_reduce(y)
-        return y
+    def forward(ctx, x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+        ctx.axis = axis
+        return mesh.all_reduce_(x.clone(), "sum", axis)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
+    def backward(ctx, g: torch.Tensor):
+        return mesh.all_reduce_(g.clone(), "sum", ctx.axis), None
 
 
 _RECOMPUTE = threading.local()
@@ -90,6 +99,7 @@ def batch_norm(
     running_var: torch.Tensor,
     train: bool,
     axis_size: int = 1,
+    axis: str = "data",
 ) -> torch.Tensor:
     """flax ``nn.BatchNorm`` semantics over NCHW (statistics per channel).
 
@@ -98,8 +108,10 @@ def batch_norm(
     momentum (0.9 on the old value) and the *biased* batch variance — not
     ``nn.BatchNorm2d``'s rule (once a forward: not inside
     :func:`recomputing`).  With ``axis_size > 1`` (sync-BN) the batch
-    mean and mean of squares are averaged over the process group of that
-    size in one reduce, as flax's ``axis_name`` does.  Output in
+    mean and mean of squares are averaged over the ``axis`` group of that
+    size in one reduce, as flax's ``axis_name`` does (``stage``, the
+    (data, space) group, is the logical global batch of the JAX package's
+    GSPMD step: each rank's own rows, equal counts).  Output in
     ``x.dtype``."""
     shape = (1, -1, 1, 1)
     if train:
@@ -107,7 +119,7 @@ def batch_norm(
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
         if axis_size > 1:
-            both = _AllReduceSum.apply(torch.cat([mean, mean2])) / axis_size
+            both = _AllReduceSum.apply(torch.cat([mean, mean2]), axis) / axis_size
             mean, mean2 = both.split(mean.numel())
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         if not getattr(_RECOMPUTE, "on", False):
@@ -126,12 +138,14 @@ def batch_norm(
 
 
 class BatchNorm(nn.Module):
-    """``axis_size > 1``: sync-BN over a process group of that size
-    (``models.build_model(norm_axis_size=)`` sets it)."""
+    """``axis_size > 1``: sync-BN over this rank's ``axis`` group, of that
+    size (``models.build_model(norm_axis_size=)`` and
+    ``models.shard_space`` set them)."""
 
     def __init__(self, features: int, axis_size: int = 1):
         super().__init__()
         self.axis_size = axis_size
+        self.axis = "data"
         self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -140,20 +154,26 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            self.training, self.axis_size,
+            self.training, self.axis_size, self.axis,
         )
 
 
 def group_norm(
-    x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor,
+    space: int = 1,
 ) -> torch.Tensor:
     """flax ``nn.GroupNorm`` over NCHW: float32 statistics per sample and
     group with the fast variance E[x²]−E[x]² clipped at 0, ε = 1e-6, the
-    output in ``x.dtype``."""
+    output in ``x.dtype``.  ``space > 1``: H is sharded over a space group
+    of that size, and the statistics are averaged over it (equal rows a
+    shard)."""
     n, c = x.shape[:2]
     xf = x.to(stat_dtype(x)).reshape(n, groups, -1)
     mean = xf.mean(dim=-1)
     mean2 = (xf * xf).mean(dim=-1)
+    if space > 1:
+        both = _AllReduceSum.apply(torch.stack([mean, mean2]), "space") / space
+        mean, mean2 = both[0], both[1]
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     per = c // groups
     mean = mean.repeat_interleave(per, dim=1)
@@ -166,11 +186,12 @@ class GroupNorm(nn.Module):
     def __init__(self, features: int, groups: int):
         super().__init__()
         self.groups = groups
+        self.space = 1
         self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.groups, self.weight, self.bias)
+        return group_norm(x, self.groups, self.weight, self.bias, self.space)
 
 
 class Norm(nn.Module):
@@ -209,7 +230,10 @@ def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1):
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with 'SAME' padding (:func:`same_pads`), any stride
-    and dilation: weight OIHW float32, computed in ``dtype``."""
+    and dilation: weight OIHW float32, computed in ``dtype``.  ``halo > 0``
+    (stride 1, H sharded over the space axis): the input takes ``halo``
+    rows of each neighbour (``parallel/halo.py``) and is padded along W
+    only."""
 
     def __init__(
         self,
@@ -227,6 +251,7 @@ class Conv(nn.Module):
         self.kernel = kernel
         self.stride = stride
         self.dilation = dilation
+        self.halo = 0
         self.weight = nn.Parameter(torch.empty(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         lecun_normal_(self.weight, in_features * kernel * kernel, generator)
@@ -234,6 +259,12 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s, d = self.kernel, self.stride, self.dilation
         x = x.to(self.dtype)
+        if self.halo:
+            y = F.conv2d(halo_exchange(x, self.halo), self.weight.to(self.dtype),
+                         padding=(0, self.halo), dilation=d)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype).view(1, -1, 1, 1)
+            return y
         if k == 1 and s > 1:
             # The same conv on the subsampled grid ('SAME' pads a 1×1 conv
             # nowhere).  PyTorch's CPU (oneDNN) backward of a strided 1×1
@@ -383,12 +414,21 @@ class UpBlock(nn.Module):
             skip_features + up_features, features, dtype, norm, generator, norm_groups
         )
 
-    def forward(self, x: torch.Tensor, skips: list) -> torch.Tensor:
-        if self.up_sample_mode == "conv_transpose":
-            x = self.ConvTranspose_0(x)
-        else:
-            x = upsample_2x(x)
-        return self.DoubleConv_0(torch.cat([*skips, x], dim=1))
+    def forward(self, x: torch.Tensor, skips: list, phase: str = "all") -> torch.Tensor:
+        """``phase`` is for pipeline stages (``parallel/pipeline.py``):
+        ``'up'`` runs the up-sampling and the concat only, ``'conv'`` the
+        DoubleConv only on what ``'up'`` returned, ``'all'`` both."""
+        if phase not in ("all", "up", "conv"):
+            raise ValueError(f"unknown UpBlock phase {phase!r}")
+        if phase in ("all", "up"):
+            if self.up_sample_mode == "conv_transpose":
+                x = self.ConvTranspose_0(x)
+            else:
+                x = upsample_2x(x)
+            x = torch.cat([*skips, x], dim=1)
+            if phase == "up":
+                return x
+        return self.DoubleConv_0(x)
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -4,14 +4,26 @@ Public layout as in the reference: images ``[N,H,W,C]`` in, logits
 ``[N,H,W,num_classes]`` (``head_dtype``) out — or, in train mode under
 ``train_head_layout='grouped'`` with the s2d stem, the pre-depth-to-space
 logits ``[N,H/r,W/r,r²·C]`` (phase-major, see ``layers.group_labels``).
-Inside, activations are NCHW.  Pipeline staging (the reference's
-``blocks``/``carry``) is not part of this port.
+Inside, activations are NCHW.
+
+Pipeline stages (``parallel/pipeline.py``): the network is an ordered list
+of cut points (:meth:`UNet.pipeline_block_names`), and ``forward(blocks=,
+carry=)`` runs a contiguous slice of it, as the JAX U-Net's staged
+``__call__`` does.  A slice that does not end at the head returns the
+carry ``{'x', 'skips'[, 'image']}`` — NCHW tensors in the compute dtype —
+which the next slice resumes from.
+
+H sharded over the space axis (``models.shard_space`` sets ``space``):
+every tensor holds this rank's rows; the forward checks that they are a
+whole number of the network's row unit (``models.check_space_rows``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from typing import Optional, Sequence
 
 from ddlpc_tpu_torch.models.layers import (
     Conv,
@@ -65,6 +77,10 @@ class UNet(nn.Module):
         self.dtype = dtype
         self.head_dtype = head_dtype
         self.depth = len(features)
+        self.up_sample_mode = up_sample_mode
+        self.detail_head = detail_head
+        self.detail_head_kind = detail_head_kind
+        self.space = 1  # models.shard_space sets the space axis's size
         w = lambda f: max(1, f // width_divisor)  # noqa: E731
         c = in_channels * self.r * self.r
         common = dict(norm=norm, generator=g, norm_groups=norm_groups)
@@ -99,12 +115,109 @@ class UNet(nn.Module):
                 num_classes, in_channels, detail_head_hidden, dtype, head_dtype, g
             )
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    # -- pipeline staging (parallel/pipeline.py) ---------------------------
+
+    def pipeline_block_names(self) -> tuple:
+        """The cut points in execution order: the down blocks, the
+        bottleneck, each up block in two (``:up``, the transposed conv and
+        the concat; ``:conv``, its DoubleConv), the head."""
+        names = [f"DownBlock_{i}" for i in range(self.depth)] + ["DoubleConv_0"]
+        for i in range(self.depth):
+            names += [f"UpBlock_{i}:up", f"UpBlock_{i}:conv"]
+        return tuple(names + ["head"])
+
+    def pipeline_block_modules(self) -> dict:
+        """Block name → the flax module paths (``/``-joined) it owns."""
+        out = {}
+        for b in self.pipeline_block_names():
+            if b == "head":
+                head = ["Conv_0"]
+                if self.refine == "s2d":
+                    head.append("StemGridDetailHead_0")
+                if self.refine == "fullres":
+                    head.append("DetailHead_0")
+                out[b] = tuple(head)
+            elif b.endswith(":up"):
+                out[b] = (b[: -len(":up")] + "/ConvTranspose_0",)
+            elif b.endswith(":conv"):
+                out[b] = (b[: -len(":conv")] + "/DoubleConv_0",)
+            else:
+                out[b] = (b,)
+        return out
+
+    def carry_has_image(self) -> bool:
+        """Whether the carry ships the full-resolution input forward (only
+        the detail heads read it)."""
+        return bool(self.detail_head)
+
+    def forward(
+        self,
+        images: Optional[torch.Tensor],
+        blocks: Optional[Sequence[str]] = None,
+        carry: Optional[dict] = None,
+    ):
         """images [N,H,W,C] float → logits [N,H,W,num_classes] in head dtype
         (train or eval mode per ``self.training``; grouped in train mode,
-        see the module docstring)."""
+        see the module docstring).  ``blocks`` runs a contiguous slice of
+        :meth:`pipeline_block_names` from ``images`` (``carry`` None: the
+        slice starts at the first block) or from ``carry``; a slice that
+        does not end at the head returns the carry.  ``blocks=None`` runs
+        everything."""
+        names = self.pipeline_block_names()
+        if blocks is None:
+            blocks = names
+        else:
+            blocks = tuple(blocks)
+            lo = names.index(blocks[0])
+            if blocks != names[lo : lo + len(blocks)]:
+                raise ValueError(
+                    f"blocks {blocks} is not a contiguous slice of the "
+                    f"pipeline block order {names}"
+                )
+            if (carry is None) != (lo == 0):
+                raise ValueError(
+                    "the first stage (and only it) starts from the raw "
+                    "image: pass carry=None exactly when blocks starts at "
+                    f"{names[0]!r}"
+                )
+        if carry is None:
+            x, image = self._stem(images)
+            skips = []
+        else:
+            x, skips, image = carry["x"], list(carry["skips"]), carry.get("image")
+        i = 0
+        while i < len(blocks):
+            b = blocks[i]
+            if b.startswith("DownBlock_"):
+                x, skip = getattr(self, b)(x)
+                skips.append(skip)
+            elif b == "DoubleConv_0":
+                x = self.DoubleConv_0(x)
+            elif b.startswith("UpBlock_"):
+                base, phase = b.split(":")
+                up = getattr(self, base)
+                if phase == "up" and i + 1 < len(blocks):
+                    x = up(x, [skips.pop()])  # both halves: the unstaged call
+                    i += 2
+                    continue
+                x = up(x, [skips.pop()], "up") if phase == "up" else up(x, [], "conv")
+            else:  # "head"
+                return self._head(x, image)
+            i += 1
+        out = {"x": x, "skips": tuple(skips)}
+        if self.carry_has_image():
+            out["image"] = image
+        return out
+
+    def _stem(self, images: torch.Tensor):
+        """images [N,H,W,C] → (the first block's input, the full-resolution
+        image), NCHW in the compute dtype."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         image = x
+        if self.space > 1:
+            from ddlpc_tpu_torch.models import check_space_rows
+
+            check_space_rows(images.shape[1] * self.space, self.space, self.r, self.depth)
         if self.stem == "s2d":
             x = space_to_depth(x, self.r)
         min_px = 2 ** self.depth
@@ -115,13 +228,10 @@ class UNet(nn.Module):
                 f"(grid {tuple(x.shape[2:])} after the stem; the deepest pool "
                 f"needs ≥ {min_px} px)"
             )
-        skips = []
-        for i in range(self.depth):
-            x, skip = getattr(self, f"DownBlock_{i}")(x)
-            skips.append(skip)
-        x = self.DoubleConv_0(x)
-        for i in range(self.depth):
-            x = getattr(self, f"UpBlock_{i}")(x, [skips.pop()])
+        return x, image
+
+    def _head(self, x: torch.Tensor, image: Optional[torch.Tensor]) -> torch.Tensor:
+        """The 1×1 logit conv and the optional detail refinement."""
         z = self.Conv_0(x.to(self.head_dtype))
         if self.refine == "s2d":
             z = self.StemGridDetailHead_0(z, image)

@@ -53,7 +53,7 @@ import torch
 CODEC_ITEMSIZE = {"none": 4, "int8": 1, "float16": 2}
 SCALE_BYTES = 4  # one fp32 max-abs scale
 _WIRE_NAMES = {torch.int8: ("s8", 1), torch.int16: ("s32", 4), torch.float16: ("f16", 2)}
-VARIANTS = ("allreduce", "zero1", "scatter", "zero3", "ring")
+VARIANTS = ("allreduce", "zero1", "scatter", "zero3", "ring", "gspmd")
 
 
 def codec_payload_bytes(n_elements: int, mode: str, n_scales: int = 1) -> int:
@@ -64,12 +64,15 @@ def codec_payload_bytes(n_elements: int, mode: str, n_scales: int = 1) -> int:
     return n_elements * CODEC_ITEMSIZE[mode] + (SCALE_BYTES * n_scales if mode != "none" else 0)
 
 
-def step_variant(compression, level: str) -> str:
+def step_variant(compression, level: str, spatial: bool = False) -> str:
     """The comm plan's variant of a resolved ZeRO level, as the JAX
-    trainer picks it: the ring over every level, then ``scatter`` for
-    zero2, the level's own name for zero1 and zero3, else ``allreduce``."""
+    trainer picks it: the ring over every level, ``gspmd`` on a data ×
+    space grid, then ``scatter`` for zero2, the level's own name for zero1
+    and zero3, else ``allreduce``."""
     if compression.transport == "ring" and compression.mode != "none":
         return "ring"
+    if spatial:
+        return "gspmd"
     return {"zero2": "scatter", "zero1": "zero1", "zero3": "zero3"}.get(level, "allreduce")
 
 
@@ -112,6 +115,17 @@ def comm_plan(
             "bytes_wire": rep["wire_bytes_per_replica"],
         }]
         return rows + ([_params_row(n_elements, buffer_elements)] if level == "zero1" else [])
+    if variant == "gspmd":
+        # The spatial step's all-reduce of fp32 gradients; the codec acts
+        # on the mean after it, as in the JAX package's partitioned program.
+        return [{
+            "collective": "all_reduce",
+            "codec": "none",
+            "bytes_pre": n_elements * 4,
+            "bytes_post": n_elements * 4,
+            "wire_dtype": "f32",
+            "bytes_wire": n_elements * 4,
+        }]
     wire_mode = mode if (mode != "none" and compression.quantize_local) else "none"
     wire = simulate_wire_dtype(axis_size, compression)
     wire_name, wire_item = _WIRE_NAMES[wire] if wire is not None else ("f32", 4)

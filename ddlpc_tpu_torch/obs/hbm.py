@@ -62,3 +62,27 @@ def publish_hbm_gauges(registry, state, level: str = "off") -> Dict[str, int]:
     for kind, nbytes in breakdown.items():
         gauge.set(float(nbytes), kind=kind)
     return breakdown
+
+
+def pipeline_stage_hbm_bytes(stage_states, level: str = "off") -> list:
+    """Each stage's :func:`state_hbm_bytes` (``level`` the ZeRO level
+    within the stage's data group): under ``pipe = S`` every kind that
+    scales with the parameters drops to the stage's share, as in
+    ``ddlpc_tpu/obs/hbm.py``."""
+    return [state_hbm_bytes(st, level) for st in stage_states]
+
+
+def pipeline_carry_stash_bytes(carry_shapes, n_microbatches: int, n_data: int) -> int:
+    """Bytes of one stage's GPipe input-carry stash: ``M`` micro-batches'
+    carries (``carry_shapes``: ``(shape, dtype)`` of one global
+    micro-batch's carry, ``PipelineTrainStep.carry_shapes``), the batch
+    split over the stage's ``n_data`` replicas."""
+    import torch
+
+    per_mb = 0
+    for shape, dtype in carry_shapes:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        per_mb += n * torch.empty((), dtype=dtype).element_size()
+    return (per_mb // max(1, n_data)) * int(n_microbatches)

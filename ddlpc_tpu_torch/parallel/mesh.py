@@ -1,12 +1,17 @@
-"""The data-parallel world: process group, rank device and collectives — the
-port's counterpart of ``ddlpc_tpu/parallel/mesh.py``.
+"""The world: process group, process grid, rank device and collectives —
+the port's counterpart of ``ddlpc_tpu/parallel/mesh.py``.
 
-One process per replica, as ``torchrun --nproc-per-node W`` starts them:
-every process reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from its
-environment (the variables ``initialize_distributed`` of the JAX package
-reads under other names) and joins one ``torch.distributed`` group.  The
-JAX package's ``data`` mesh axis is this group; there is no space or pipe
-axis in the port.
+One process per device of the JAX package's mesh, as ``torchrun
+--nproc-per-node W`` starts them: every process reads ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK`` from its environment (the variables
+``initialize_distributed`` of the JAX package reads under other names) and
+joins one ``torch.distributed`` group.  :func:`init_grid` lays the ranks
+out as ``make_mesh`` lays out devices, ``pipe × data × space`` with
+``pipe`` outermost and ``space`` innermost, and builds the process groups
+of each axis (:class:`Grid`): the ``data`` groups carry the gradient wire,
+the ``space`` groups the halo rows and the spatial BatchNorm statistics,
+a stage's (data, space) group its loss and gradient sums.  Without a grid
+(or with ``pipe = space = 1``) the world is one flat data axis, as before.
 
 The backend is the caller's explicit choice, never switched on its own:
 NCCL when each rank has a card of its own, gloo otherwise (the CPU, or
@@ -26,7 +31,8 @@ from __future__ import annotations
 import os
 import subprocess
 import time
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,27 +92,185 @@ def initialize_distributed(backend: str, init_method: Optional[str] = None) -> N
 
 
 def destroy_distributed() -> None:
-    """Leave the world, if this process joined one."""
+    """Leave the world, if this process joined one, and forget its grid."""
+    reset_grid()
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
-def data_size() -> int:
-    """Replicas in the world: the group's size, 1 without a group."""
+@dataclass
+class Grid:
+    """The ranks of a ``pipe × data × space`` world laid out as the JAX
+    package's ``make_mesh`` lays out devices: global rank
+    ``(p·data + d)·space + s`` holds mesh position ``(p, d, s)``.  The
+    groups are ``torch.distributed`` process groups, or None where the
+    group is the whole world (``dist``'s default) or a single rank."""
+
+    pipe: int
+    data: int
+    space: int
+    rank: int
+    groups: dict = field(default_factory=dict)
+    stage_groups: List = field(default_factory=list)
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        """``(pipe, data, space)`` indices of this rank."""
+        return coords_of(self.rank, self.data, self.space)
+
+    def global_rank(self, p: int, d: int, s: int) -> int:
+        return (p * self.data + d) * self.space + s
+
+    def ranks(self, axis: str, rank: Optional[int] = None) -> List[int]:
+        """The global ranks of ``rank``'s (default: this one's) group along
+        ``axis`` (``data``, ``space``, ``stage`` or ``world``), in group
+        order."""
+        p, d, s = coords_of(self.rank if rank is None else rank, self.data, self.space)
+        if axis == "data":
+            return [self.global_rank(p, i, s) for i in range(self.data)]
+        if axis == "space":
+            return [self.global_rank(p, d, i) for i in range(self.space)]
+        if axis == "stage":
+            return [self.global_rank(p, i, j) for i in range(self.data) for j in range(self.space)]
+        if axis == "world":
+            return list(range(self.pipe * self.data * self.space))
+        raise ValueError(f"unknown grid axis {axis!r} (data | space | stage | world)")
+
+
+def coords_of(rank: int, data: int, space: int) -> Tuple[int, int, int]:
+    return rank // (data * space), (rank // space) % data, rank % space
+
+
+def grid_shape(world: int, pipe: int = 1, data: int = -1, space: int = 1) -> Tuple[int, int, int]:
+    """``(pipe, data, space)`` for a world of ``world`` processes, raising
+    where ``make_mesh`` raises: ``data=-1`` absorbs what ``space × pipe``
+    leaves.  Unlike JAX's mesh, which leaves spare devices idle with a
+    warning, a process grid must hold every process."""
+    space, pipe = max(1, space), max(1, pipe)
+    if world % (space * pipe):
+        raise ValueError(
+            f"space_axis_size={space} × pipeline_stages={pipe} does not "
+            f"divide device count {world}"
+        )
+    if data == -1:
+        data = world // (space * pipe)
+    if pipe * data * space > world:
+        raise ValueError(
+            f"mesh {pipe}×{data}×{space} (pipe×data×space) needs "
+            f"{pipe * data * space} devices, only {world} available"
+        )
+    if pipe * data * space < world:
+        raise ValueError(
+            f"mesh {pipe}×{data}×{space} (pipe×data×space) uses "
+            f"{pipe * data * space} of {world} processes; start exactly that many"
+        )
+    return pipe, data, space
+
+
+_GRID: Optional[Grid] = None
+
+
+def init_grid(pipe: int = 1, data: int = -1, space: int = 1) -> Grid:
+    """Lay the world out as ``pipe × data × space`` (:func:`grid_shape`)
+    and build every axis's process groups; every rank must call it with
+    the same sizes (``dist.new_group`` is collective).  The grid becomes
+    the one :func:`data_size`, :func:`replica_index` and the collectives
+    read."""
+    global _GRID
+    world, rank = world_size(), world_rank()
+    pipe, data, space = grid_shape(world, pipe, data, space)
+    grid = Grid(pipe, data, space, rank)
+    if pipe * space > 1:
+        for axis, count in (("data", pipe * space), ("space", pipe * data), ("stage", pipe)):
+            mine = grid.ranks(axis)
+            seen = set()
+            for r in range(world):
+                ranks = tuple(grid.ranks(axis, r))
+                if ranks in seen:
+                    continue
+                seen.add(ranks)
+                g = dist.new_group(list(ranks)) if len(ranks) > 1 else None
+                if axis == "stage":
+                    grid.stage_groups.append(g)
+                if list(ranks) == mine:
+                    grid.groups[axis] = g
+            assert len(seen) == count
+    _GRID = grid
+    return grid
+
+
+def reset_grid() -> None:
+    """Forget the grid (the world is one flat data axis again)."""
+    global _GRID
+    _GRID = None
+
+
+def grid() -> Grid:
+    """The grid; without :func:`init_grid`, the world as one data axis."""
+    if _GRID is not None:
+        return _GRID
+    return Grid(1, world_size(), 1, world_rank())
+
+
+def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def replica_index() -> int:
-    """This process's replica index, 0 without a group."""
+def world_rank() -> int:
+    """This process's global rank (0 without a group): the one rank that
+    writes checkpoints and logs."""
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def data_size() -> int:
+    """Replicas along the data axis: the world without a grid, 1 without a
+    group."""
+    return grid().data
+
+
+def replica_index() -> int:
+    """This process's index along the data axis, 0 without a group."""
+    return grid().coords[1]
+
+
+def space_size() -> int:
+    return grid().space
+
+
+def space_index() -> int:
+    return grid().coords[2]
+
+
+def pipe_size() -> int:
+    return grid().pipe
+
+
+def pipe_index() -> int:
+    return grid().coords[0]
+
+
+def axis_size(axis: str) -> int:
+    g = grid()
+    return {"data": g.data, "space": g.space, "stage": g.data * g.space,
+            "world": g.pipe * g.data * g.space}[axis]
+
+
+def process_group(axis: str = "data"):
+    """The ``torch.distributed`` group of this rank along ``axis``; None
+    is the default group (the whole world, or the data axis without a
+    grid)."""
+    if axis == "world" or _GRID is None:
+        return None
+    return _GRID.groups.get(axis)
+
+
 def check_world(axis_size: int) -> None:
-    """Raise unless the process group has exactly ``axis_size`` ranks."""
+    """Raise unless the data axis has exactly ``axis_size`` ranks."""
     if data_size() != axis_size:
         raise ValueError(
             f"axis_size={axis_size} but the process group has {data_size()} "
-            "rank(s) (initialize_distributed joins the world first)"
+            "rank(s) along the data axis (initialize_distributed joins the "
+            "world first, init_grid lays it out)"
         )
 
 
@@ -117,61 +281,95 @@ def _widened(t: torch.Tensor) -> torch.Tensor:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` over the world IN PLACE (``op`` ``sum`` or ``max``);
-    returns ``t``."""
+def all_reduce_(t: torch.Tensor, op: str = "sum", axis: str = "data") -> torch.Tensor:
+    """Reduce ``t`` over this rank's ``axis`` group IN PLACE (``op``
+    ``sum`` or ``max``); returns ``t``.  The identity on a group of one."""
+    if axis_size(axis) == 1:
+        return t
     wide = _widened(t)
-    dist.all_reduce(wide, op=_OPS[op])
+    dist.all_reduce(wide, op=_OPS[op], group=process_group(axis))
     if wide is not t:
         t.copy_(wide)
     return t
 
 
 def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` (``world · K`` elements) over the world and return this
-    rank's ``K``-element chunk of the sum, a new tensor."""
+    """Sum ``t`` (``N · K`` elements, ``N`` the data axis) over the data
+    axis and return this rank's ``K``-element chunk of the sum, a new
+    tensor."""
     world = data_size()
     if t.numel() % world:
         raise ValueError(f"{t.numel()} elements do not split into {world} chunks")
+    if world == 1:
+        return t.clone()
     wide = _widened(t)
     out = torch.empty(t.numel() // world, dtype=wide.dtype, device=t.device)
-    dist.reduce_scatter_tensor(out, wide)
+    dist.reduce_scatter_tensor(out, wide, group=process_group("data"))
     return out.to(t.dtype)
 
 
 def all_gather_(buf: torch.Tensor) -> torch.Tensor:
-    """Fill ``buf`` (``world · K`` elements) IN PLACE with every rank's
-    ``K``-element chunk, each rank's own chunk being the one at its
-    index; returns ``buf``."""
+    """Fill ``buf`` (``N · K`` elements, ``N`` the data axis) IN PLACE with
+    every replica's ``K``-element chunk, each replica's own chunk being
+    the one at its index; returns ``buf``."""
     world = data_size()
     k = buf.numel() // world
     if k * world != buf.numel():
         raise ValueError(f"{buf.numel()} elements do not split into {world} chunks")
+    if world == 1:
+        return buf
     r = replica_index()
-    dist.all_gather_into_tensor(buf, buf[r * k : (r + 1) * k])
+    dist.all_gather_into_tensor(buf, buf[r * k : (r + 1) * k], group=process_group("data"))
     return buf
 
 
-def ring_shift(t: torch.Tensor) -> torch.Tensor:
-    """One hop of a unidirectional ring: send ``t`` to rank ``r + 1`` and
-    return what rank ``r − 1`` sent (a new tensor of ``t``'s shape and
-    dtype, on its device).  The send and the receive are posted together,
-    so no order of ranks can deadlock.  The bytes sent are ``t``'s own, in
-    its dtype; gloo moves a card's tensor through a host copy (its
-    point-to-point ops take CPU tensors)."""
-    world, rank = data_size(), replica_index()
-    host = t.is_cuda and dist.get_backend() == "gloo"
-    send = t.cpu() if host else t.contiguous()
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, (rank + 1) % world),
-           dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]],
+             axis: Optional[str] = None) -> None:
+    """Post every send ``(tensor, global rank)`` and receive ``(buffer,
+    global rank)`` together and wait for all of them, so that no order of
+    ranks can deadlock.  gloo takes CPU tensors only: a card's tensors go
+    through host copies (the receive buffers are filled in place either
+    way); bfloat16 travels as its int16 bits.  ``axis`` names the group
+    the peers share (None: the world)."""
+    if not sends and not recvs:
+        return
+    host = dist.get_backend() == "gloo" and any(t.is_cuda for t, _ in (*sends, *recvs))
+    group = process_group(axis) if axis else None
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    ops, stage = [], []
+    for t, peer in sends:
+        buf = bits(t.contiguous())
+        ops.append(dist.P2POp(dist.isend, buf.cpu() if host else buf, peer, group))
+    for t, peer in recvs:
+        buf = torch.empty(t.shape, dtype=bits(t).dtype) if host else bits(t)
+        stage.append((t, buf))
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv.to(t.device) if host else recv
+    for t, buf in stage:
+        if host:
+            bits(t).copy_(buf)
+
+
+def ring_shift(t: torch.Tensor) -> torch.Tensor:
+    """One hop of a unidirectional ring along the data axis: send ``t`` to
+    replica ``r + 1`` and return what replica ``r − 1`` sent (a new tensor
+    of ``t``'s shape and dtype, on its device).  The send and the receive
+    are posted together, so no order of ranks can deadlock.  The bytes
+    sent are ``t``'s own, in its dtype; gloo moves a card's tensor through
+    a host copy (its point-to-point ops take CPU tensors)."""
+    ranks, r = grid().ranks("data"), replica_index()
+    world = len(ranks)
+    recv = torch.empty_like(t)
+    exchange([(t, ranks[(r + 1) % world])], [(recv, ranks[(r - 1) % world])])
+    return recv
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Overwrite ``t`` IN PLACE with rank ``src``'s; returns ``t``."""
+    """Overwrite ``t`` IN PLACE with global rank ``src``'s; returns ``t``."""
     if dist.is_initialized():
         dist.broadcast(t, src)
     return t

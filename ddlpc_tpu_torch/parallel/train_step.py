@@ -30,6 +30,19 @@ one replica with its own columns of the batch, at one of four ZeRO levels
 Every level gives the same params bit for bit: the update is elementwise
 and sees the same mean gradient, element for element.
 
+The spatial step (:func:`make_train_step_spatial`, the JAX package's
+``make_train_step_gspmd``) runs on a ``data × space`` grid: each rank
+holds its data shard's rows ``[s·H/S, (s+1)·H/S)``, the model's convs
+exchange halo rows and its BatchNorm reduces over the stage's whole
+(data, space) group (``models.shard_space``).  Its loss is the global
+batch's: each rank's NLL sum over the global valid-pixel count, which is
+all-reduced (void labels make it differ from shard to shard), and the
+gradient is the sum of every rank's contribution, all-reduced over the
+group.  The codec sees only that logical mean: ``quantize_mean`` per
+bucket (``quantize_local`` and the ring have no per-replica gradient to
+act on, and are refused in JAX's words).  The ZeRO levels then chunk the
+update over each data group, bit for bit the replicated update.
+
 After the micro-batches the BatchNorm running statistics are averaged over
 the replicas (as the JAX step's ``pmean`` does, equal or not), and the
 logged loss and accuracy are the replicas' mean.
@@ -56,10 +69,12 @@ from ddlpc_tpu_torch.convert import flax_param_path
 from ddlpc_tpu_torch.models.layers import group_labels, recomputing
 from ddlpc_tpu_torch.ops.losses import nll_correct_valid, softmax_cross_entropy_sum
 from ddlpc_tpu_torch.ops.metrics import confusion_from_logits
+from ddlpc_tpu_torch.ops import philox
 from ddlpc_tpu_torch.ops.philox import step_key
 from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import (
     check_supported,
+    resolve_codec_backend,
     sync_for_level,
     validate_scatter_compression,
 )
@@ -240,20 +255,9 @@ def create_train_state(
     return state
 
 
-def loss_from_logits(
-    logits: torch.Tensor, labels: torch.Tensor, train_head_layout: str = "fullres"
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean pixel NLL and tie-corrected accuracy over the micro-batch's
-    valid pixels (label −1 is void), as the reference computes them.
-
-    ``logits`` are ``[..., H, W, C]`` over labels ``[..., H, W]``, or, from
-    a model that declares ``train_head_layout='grouped'``, pre-d2s
-    ``[..., H/r, W/r, r²·C]``: the labels are grouped the same way
-    (``layers.group_labels``) and the loss runs on the ``[..., r², C]``
-    view, the same pairs of logit row and label.  A deep-supervision stack
-    ``[J, ...]`` takes the labels broadcast over J, and the validity mask
-    broadcast to the NLL's shape, so the loss is the mean of the per-head
-    losses and the accuracy stays in [0, 1]."""
+def _nll_terms(logits: torch.Tensor, labels: torch.Tensor, train_head_layout: str):
+    """``(nll, correct, valid)`` of :func:`loss_from_logits`, the mask
+    broadcast to the NLL's shape."""
     if logits.shape[-3:-1] != labels.shape[-2:]:
         # Regroup only where the model declared it: wrong-shaped logits
         # whose dims happen to divide the labels' must not train.
@@ -274,17 +278,49 @@ def loss_from_logits(
         labels = group_labels(labels, r)
         logits = logits.reshape(*logits.shape[:-1], r * r, -1)
     nll, correct, valid = nll_correct_valid(logits, labels, ignore_index=-1)
-    valid = valid.expand_as(nll)
+    return nll, correct, valid.expand_as(nll)
+
+
+def loss_from_logits(
+    logits: torch.Tensor, labels: torch.Tensor, train_head_layout: str = "fullres"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean pixel NLL and tie-corrected accuracy over the micro-batch's
+    valid pixels (label −1 is void), as the reference computes them.
+
+    ``logits`` are ``[..., H, W, C]`` over labels ``[..., H, W]``, or, from
+    a model that declares ``train_head_layout='grouped'``, pre-d2s
+    ``[..., H/r, W/r, r²·C]``: the labels are grouped the same way
+    (``layers.group_labels``) and the loss runs on the ``[..., r², C]``
+    view, the same pairs of logit row and label.  A deep-supervision stack
+    ``[J, ...]`` takes the labels broadcast over J, and the validity mask
+    broadcast to the NLL's shape, so the loss is the mean of the per-head
+    losses and the accuracy stays in [0, 1]."""
+    nll, correct, valid = _nll_terms(logits, labels, train_head_layout)
     denom = torch.clamp_min(valid.sum(), 1.0)
     return (nll * valid).sum() / denom, (correct * valid).sum() / denom
 
 
+def spatial_loss_from_logits(
+    logits: torch.Tensor, labels: torch.Tensor, train_head_layout: str = "fullres"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's share of the global batch's loss and accuracy on a
+    ``data × space`` grid: its NLL and correct sums over the valid-pixel
+    count of the whole (data, space) group, all-reduced.  The shares sum
+    over the group to :func:`loss_from_logits` of the global batch."""
+    nll, correct, valid = _nll_terms(logits, labels, train_head_layout)
+    count = mesh.all_reduce_(valid.sum().detach().reshape(1), "sum", "stage")[0]
+    denom = torch.clamp_min(count, 1.0)
+    return (nll * valid).sum() / denom, (correct * valid).sum() / denom
+
+
 def _accumulate_grads(
-    state: TrainState, images: torch.Tensor, labels: torch.Tensor, remat: bool = False
+    state: TrainState, images: torch.Tensor, labels: torch.Tensor, remat: bool = False,
+    loss_fn: Callable = loss_from_logits,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward/backward over the ``A`` micro-batches of ``images [A,B,H,W,C]``,
     leaving the MEAN fp32 gradient in ``state.params.grad``.  Returns the
-    per-micro-batch losses and accuracies ``[A]`` (on the device).
+    per-micro-batch losses and accuracies ``[A]`` (on the device) of
+    ``loss_fn``.
     ``remat`` keeps no activation between a micro-batch's forward and its
     backward, which recomputes the forward (under ``layers.recomputing``)."""
     model = state.model
@@ -303,7 +339,7 @@ def _accumulate_grads(
     state.params.grad.zero_()
     losses, accs = [], []
     for x, y in zip(images, labels):
-        loss, acc = loss_from_logits(forward(x), y, layout)
+        loss, acc = loss_fn(forward(x), y, layout)
         loss.backward()
         losses.append(loss.detach())
         accs.append(acc.detach())
@@ -378,27 +414,7 @@ def make_train_step(
         state.gather_params()
         losses, accs = _accumulate_grads(state, images, labels, remat)
         mean_batch_stats(state.model, axis_size)
-        flat = state.params
-        key = _rounding_rng(compression, seed, state.step)
-        buckets = flat.buckets()
-        sq = None
-        grads = sync_for_level(flat.grad, compression, axis_size, level, key=key,
-                               buckets=buckets, n_elements=flat.numel)
-        if grads is not None:
-            tx.update(grads, state.opt_state, state.owned_params())
-            if level == "zero2":
-                flat.all_gather_(flat.data)
-            else:
-                state.release_params()
-            sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
-        else:
-            if level == "zero1":
-                index = mesh.replica_index()
-                tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())
-                flat.all_gather_(flat.data)
-            else:
-                tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
-        state.step += 1
+        sq = sync_and_update(state, tx, compression, axis_size, level, seed)
         # One reduce for the logged metrics: the replicas' summed loss and
         # accuracy (then their mean) and, under zero2/zero3, the chunks'
         # squared norms (then the root of their sum).
@@ -409,20 +425,150 @@ def make_train_step(
         return {
             "loss": metrics[0],
             "pixel_acc": metrics[1],
-            "grad_norm": grad_norm(flat.grad) if sq is None else metrics[2].sqrt(),
+            "grad_norm": grad_norm(state.params.grad) if sq is None else metrics[2].sqrt(),
         }
 
     return step
 
 
+def sync_and_update(
+    state: TrainState, tx: Optimizer, compression: CompressionConfig, axis_size: int,
+    level: str, seed: int,
+) -> Optional[torch.Tensor]:
+    """The step's tail after backward: the gradient sync of ``level`` over
+    the data axis (the mean gradient of ``state.params.grad``), the
+    update, the publish, the step count.  Returns the squared norm of this
+    replica's chunks of the mean under zero2/zero3 (to be summed over the
+    replicas), else None (the whole mean is in ``params.grad``).  The
+    pipeline's stage update runs it on the stage's data group."""
+    flat = state.params
+    key = _rounding_rng(compression, seed, state.step)
+    grads = sync_for_level(flat.grad, compression, axis_size, level, key=key,
+                           buckets=flat.buckets(), n_elements=flat.numel)
+    sq = None
+    if grads is not None:
+        tx.update(grads, state.opt_state, state.owned_params())
+        if level == "zero2":
+            flat.all_gather_(flat.data)
+        else:
+            state.release_params()
+        sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
+    elif level == "zero1":
+        index = mesh.replica_index()
+        tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())
+        flat.all_gather_(flat.data)
+    else:
+        tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
+    state.step += 1
+    return sq
+
+
+def check_spatial_compression(compression: CompressionConfig) -> None:
+    """The JAX GSPMD step's refusals, in its words: it has no per-replica
+    gradient, so no ``quantize_local`` and no ring."""
+    check_supported(compression)
+    if compression.mode != "none" and not compression.quantize_mean:
+        raise ValueError(
+            "the GSPMD step cannot represent quantize_local-only compression "
+            "(there is no per-replica gradient in the program): set "
+            "compression.quantize_mean=True, or mode='none', or use a pure "
+            "data mesh for reference-parity codec semantics"
+        )
+    if compression.transport == "ring" and compression.mode != "none":
+        raise ValueError(
+            "transport='ring' requires explicit per-replica collectives — "
+            "use the shard_map step (pure data mesh); the GSPMD partitioner "
+            "owns the collectives in this path"
+        )
+    if compression.mode != "none" and compression.quantize_local:
+        raise ValueError(
+            "the GSPMD step cannot apply quantize_local (no per-replica "
+            "gradient exists in the program — only the averaged gradient is "
+            "representable): set compression.quantize_local=False to record "
+            "the semantics that actually execute, or use a pure data mesh "
+            "(shard_map step) for reference-parity two-point codec semantics"
+        )
+
+
+def codec_on_mean(flat: FlatParams, compression: CompressionConfig, key: Optional[int]) -> None:
+    """The spatial step's codec: the JAX package's
+    ``apply_codec_fenced_bucketed`` over the logical mean gradient in
+    ``flat.grad``, in place — one fake-quantize a bucket region (its own
+    max-abs, the step's key with the bucket's index folded in where there
+    are several)."""
+    if compression.mode == "none":
+        return
+    fq = resolve_codec_backend(compression)
+    buckets = flat.buckets()
+    for b, (start, size) in enumerate(buckets):
+        region = flat.grad[start : start + size]
+        draw = {}
+        if key is not None:
+            draw["key"] = key if len(buckets) == 1 else philox.fold_in(key, b)
+        fq(region, compression, out=region, **draw)
+
+
+def make_train_step_spatial(
+    tx: Optimizer,
+    compression: CompressionConfig,
+    data_size: int,
+    space_size: int,
+    seed: int = 0,
+    level: str = "off",
+    remat: bool = False,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The train step on a ``data × space`` grid (``mesh.init_grid``):
+    ``step(state, images [A,B,H/S,W,C], labels [A,B,H/S,W])``, this rank's
+    rows of its data shard, updates ``state`` in place and returns the
+    global batch's ``{loss, pixel_acc, grad_norm}``.  The model must be
+    sharded (``models.shard_space``); ``level`` (resolved with
+    ``spatial=True``) chunks the update over the data axis."""
+    check_spatial_compression(compression)
+    level = normalize_shard_update(level)
+    if data_size == 1:
+        level = "off"
+    group = data_size * space_size
+
+    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+        if state.level != level:
+            raise ValueError(f"a {state.level} state given to a {level} step")
+        state.gather_params()
+        losses, accs = _accumulate_grads(state, images, labels, remat, spatial_loss_from_logits)
+        flat = state.params
+        # Every rank's share of the gradient of the global loss, summed.
+        mesh.all_reduce_(flat.grad, "sum", "stage")
+        codec_on_mean(flat, compression, _rounding_rng(compression, seed, state.step))
+        norm = grad_norm(flat.grad)
+        if level == "off":
+            tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
+        else:
+            clip = tx.global_norm(flat.grad, flat.segments()) if tx.grad_clip_norm else None
+            index = mesh.replica_index()
+            tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params(),
+                      norm=clip)
+            if level == "zero3":
+                state.release_params()
+            else:
+                flat.all_gather_(flat.data)
+        state.step += 1
+        metrics = torch.stack([losses.mean(), accs.mean()])
+        if group > 1:
+            mesh.all_reduce_(metrics, "sum", "stage")
+        return {"loss": metrics[0], "pixel_acc": metrics[1], "grad_norm": norm}
+
+    return step
+
+
 def make_eval_step(
-    num_classes: int, axis_size: int = 1
+    num_classes: int, axis_size: int = 1, axis: str = "data",
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """Eval step on a batch ``[B,H,W,C]``: summed confusion matrix, summed
     NLL and valid-pixel count (the caller sums over batches, divides once).
-    With ``axis_size`` replicas, each evaluating its own columns of the
-    batch, the three sums are summed over the replicas in one float64
-    all-reduce (where the JAX step ``psum``s them)."""
+    With ``axis_size`` ranks in this rank's ``axis`` group, each evaluating
+    its own columns of the batch (and, on a ``data × space`` grid, its own
+    rows: ``axis='stage'``, the JAX package's ``make_eval_step_gspmd``),
+    the three sums are summed over the group in one float64 all-reduce
+    (where the JAX step ``psum``s them)."""
 
     @torch.no_grad()
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
@@ -433,7 +579,7 @@ def make_eval_step(
         cm = confusion_from_logits(logits, labels, num_classes)
         if axis_size > 1:
             sums = torch.cat([cm.reshape(-1), nll_sum.reshape(1), count.reshape(1)]).double()
-            mesh.all_reduce_(sums)
+            mesh.all_reduce_(sums, "sum", axis)
             cm, nll_sum, count = sums[:-2].view_as(cm), sums[-2], sums[-1]
         return {"confusion": cm, "loss_sum": nll_sum, "pixel_count": count}
 

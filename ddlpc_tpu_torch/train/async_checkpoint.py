@@ -30,7 +30,7 @@ import concurrent.futures
 import time
 from typing import Optional
 
-from ddlpc_tpu_torch.parallel.mesh import replica_index
+from ddlpc_tpu_torch.parallel.mesh import world_rank
 from ddlpc_tpu_torch.train import checkpoint as ckpt
 
 
@@ -77,7 +77,7 @@ class AsyncCheckpointer:
         (raising its failure here)."""
         t0 = time.perf_counter()
         self.wait()
-        writer = replica_index() == 0
+        writer = world_rank() == 0
         snap = ckpt.snapshot_state(state, host=self._host, to_host=writer)
         if not writer:
             self.last_stall_s = time.perf_counter() - t0

@@ -438,9 +438,9 @@ def save_checkpoint(
     """Write a train state as checkpoint ``step`` (default: its own step)
     synchronously; every replica calls it (the chunked levels gather), replica 0
     writes and gets the path, the others None."""
-    from ddlpc_tpu_torch.parallel.mesh import replica_index
+    from ddlpc_tpu_torch.parallel.mesh import world_rank
 
-    writer = replica_index() == 0
+    writer = world_rank() == 0
     snap = snapshot_state(state, to_host=writer)
     if not writer:
         return None

@@ -247,16 +247,18 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params,
-               segments: Optional[Sequence[Tuple[int, int]]] = None) -> None:
+               segments: Optional[Sequence[Tuple[int, int]]] = None,
+               norm: Optional[torch.Tensor] = None) -> None:
         """One step: ``params`` and the state in place.  ``grads`` and
         ``params`` are one buffer or matching lists of pieces (this
         replica's chunks of several bucket regions), the state's buffers
         the pieces' concatenation.  Clipping needs the whole gradient as
-        one buffer and its leaves' ``segments``."""
+        one buffer and its leaves' ``segments``, or its global ``norm``
+        (:meth:`global_norm`) where ``grads`` are chunks of it."""
         gs, ps = _as_list(grads), _as_list(params)
         sizes = [g.numel() for g in gs]
         moments = {k: v.split(sizes) for k, v in state.buffers().items()}
-        if self.grad_clip_norm:
+        if self.grad_clip_norm and norm is None:
             if len(gs) != 1 or segments is None:
                 raise ValueError("grad_clip_norm clips the whole gradient: one buffer and its leaves")
             norm = self.global_norm(gs[0], segments)

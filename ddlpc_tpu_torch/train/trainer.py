@@ -82,10 +82,17 @@ Observability, as in the JAX trainer:
   ``fit`` leaves the endpoint and the tracer open; :meth:`Trainer.close`
   closes both.
 
-Settings this slice does not implement (the space axis and pipeline
-stages) raise ``NotImplementedError`` when enabled, all of them in one
-message that names the ``--set`` overrides which switch them off; none is
-silently ignored.
+The space axis (``parallel.space_axis_size > 1``), as the JAX trainer's
+GSPMD path: the world is a ``data × space`` grid (``mesh.init_grid``), the
+model is sharded over H (``models.shard_space``), each rank loads its data
+shard's rows, and the spatial train and eval steps
+(``parallel/train_step.py``) take the global batch's loss, gradient,
+BatchNorm statistics and confusion.  Perf accounting divides the FLOPs a
+step by the space axis, and the comm record prices the ``gspmd`` variant,
+as JAX does; there is no comm probe on that path.  Checkpoints hold the
+canonical state, so a spatial run's restores into an unsharded one and
+back.  ``parallel.pipeline_stages > 1`` raises the JAX trainer's
+``ValueError``: the pipeline driver is ``parallel/pipeline.py``'s.
 """
 
 from __future__ import annotations
@@ -98,7 +105,7 @@ import signal
 import threading
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -114,7 +121,7 @@ from ddlpc_tpu_torch.data.loader import (
     steps_per_epoch,
 )
 from ddlpc_tpu_torch.kernels.build import load_library
-from ddlpc_tpu_torch.models import build_model_from_experiment
+from ddlpc_tpu_torch.models import build_model_from_experiment, check_space_rows, space_off
 from ddlpc_tpu_torch.obs import comm as obs_comm
 from ddlpc_tpu_torch.obs import flops as obs_flops
 from ddlpc_tpu_torch.obs import hbm as obs_hbm
@@ -129,9 +136,11 @@ from ddlpc_tpu_torch.parallel import mesh
 from ddlpc_tpu_torch.parallel.grad_sync import check_supported
 from ddlpc_tpu_torch.parallel.shard_update import resolve_shard_update
 from ddlpc_tpu_torch.parallel.train_step import (
+    check_spatial_compression,
     create_train_state,
     make_eval_step,
     make_train_step,
+    make_train_step_spatial,
 )
 from ddlpc_tpu_torch.resilience import chaos as _chaos_mod
 from ddlpc_tpu_torch.resilience.protocol import EXIT_PREEMPTED, write_breadcrumb
@@ -149,15 +158,15 @@ from ddlpc_tpu_torch.train.watchdog import StallWatchdog
 from ddlpc_tpu_torch.utils import wire
 
 
-def unsupported_settings(cfg: ExperimentConfig) -> List[str]:
-    """``key=value`` overrides that switch off every enabled setting this
-    slice does not implement (empty when the config is supported)."""
-    t, p = cfg.train, cfg.parallel
-    checks = [  # (key, enabled, value that switches it off)
-        ("parallel.space_axis_size", p.space_axis_size != 1, 1),
-        ("parallel.pipeline_stages", p.pipeline_stages != 1, 1),
-    ]
-    return [f"{key}={value!r}" for key, enabled, value in checks if enabled]
+PIPELINE_REFUSAL = (
+    "pipeline_stages > 1 is not wired into the epoch Trainer: "
+    "staged execution is host-scheduled (one program per stage, "
+    "microbatch round-robin), which the Trainer's single-step "
+    "loop cannot drive — build the step via "
+    "parallel/pipeline.make_pipeline_train_step (bench.py "
+    "--pipeline-ab shows the full driver loop); Trainer "
+    "integration is a ROADMAP follow-on"
+)
 
 
 def check_exclusive(cfg: ExperimentConfig) -> None:
@@ -251,12 +260,6 @@ class Trainer:
     ):
         self.device = mesh.rank_device(str(resolve_device(device)))
         check_exclusive(cfg)
-        off = unsupported_settings(cfg)
-        if off:
-            raise NotImplementedError(
-                "settings not yet ported by ddlpc_tpu_torch; switch them off "
-                "with " + " ".join(f"--set {o}" for o in off)
-            )
         if cfg.model.num_classes != cfg.data.num_classes:
             raise ValueError(
                 f"model.num_classes={cfg.model.num_classes} != "
@@ -265,17 +268,33 @@ class Trainer:
         check_supported(cfg.compression)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        if cfg.parallel.pipeline_stages > 1:
+            raise ValueError(PIPELINE_REFUSAL)
         mesh.initialize_distributed(dist_backend or mesh.default_backend(self.device))
-        self.world = mesh.data_size()
-        self.rank = mesh.replica_index()
-        if cfg.parallel.data_axis_size not in (-1, self.world):
+        space = max(1, cfg.parallel.space_axis_size)
+        self.spatial = space > 1
+        world = mesh.world_size()
+        if world % space == 0 and cfg.parallel.data_axis_size not in (-1, world // space):
             raise ValueError(
-                f"parallel.data_axis_size={cfg.parallel.data_axis_size} but the "
-                f"world has {self.world} process(es); start one process per "
-                f"replica (torchrun --nproc-per-node) or set it to -1"
+                f"parallel.data_axis_size={cfg.parallel.data_axis_size} × "
+                f"space_axis_size={space} but the world has {world} process(es); "
+                f"start one process per device of the data × space grid "
+                f"(torchrun --nproc-per-node) or set data_axis_size to -1"
             )
+        mesh.init_grid(1, cfg.parallel.data_axis_size, space)
+        # ``world``: the replicas along the data axis; ``rank``: the global
+        # rank (rank 0 logs and writes); ``replica``: the data index.
+        self.world = mesh.data_size()
+        self.rank = mesh.world_rank()
+        self.replica = mesh.replica_index()
+        self.space = (mesh.space_index(), space)
+        if self.spatial:
+            check_spatial_compression(cfg.compression)
+            check_space_rows(cfg.data.image_size[0], space,
+                             cfg.model.stem_factor if cfg.model.stem == "s2d" else 1,
+                             len(cfg.model.features))
         self.shard_update = resolve_shard_update(
-            cfg.parallel.shard_update, cfg.compression, self.world, spatial=False,
+            cfg.parallel.shard_update, cfg.compression, self.world, spatial=self.spatial,
             grad_clip_norm=cfg.train.grad_clip_norm,
         )
         warn_large_batch_stochastic(cfg, self.world)
@@ -326,8 +345,9 @@ class Trainer:
             device=self.device,
             shuffle=cfg.data.shuffle,
             seed=cfg.data.seed,
-            replica=self.rank,
+            replica=self.replica,
             world=self.world,
+            space=self.space,
         )
         if cfg.data.device_cache:
             self.loader = DeviceCachedLoader(self.train_ds, compact=cfg.data.compact_upload, **loader_kw)
@@ -336,11 +356,18 @@ class Trainer:
                 self.train_ds, compact=cfg.data.compact_upload, workers=cfg.data.loader_workers,
                 native_gather=cfg.data.native_gather, timer=self.timer, **loader_kw
             )
-        self.train_step = make_train_step(
-            self.tx, cfg.compression, self.world, seed=cfg.train.seed,
-            level=self.shard_update, remat=cfg.train.remat,
-        )
-        self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
+        if self.spatial:
+            self.train_step = make_train_step_spatial(
+                self.tx, cfg.compression, self.world, space, seed=cfg.train.seed,
+                level=self.shard_update, remat=cfg.train.remat,
+            )
+            self.eval_step = make_eval_step(cfg.model.num_classes, self.world * space, "stage")
+        else:
+            self.train_step = make_train_step(
+                self.tx, cfg.compression, self.world, seed=cfg.train.seed,
+                level=self.shard_update, remat=cfg.train.remat,
+            )
+            self.eval_step = make_eval_step(cfg.model.num_classes, self.world)
         self.perf: Optional[obs_flops.PerfAccountant] = None
         self.comm: Optional[obs_comm.CommAccountant] = None
         self._comm_probe = None
@@ -432,6 +459,10 @@ class Trainer:
             flops_per_step = obs_flops.conv_step_flops(
                 cfg, cfg.train.micro_batch_size, cfg.train.sync_period, channels=channels
             )
+            if self.spatial:
+                # Each rank runs 1/space of the unpartitioned convs (the
+                # halo's few rows a conv ignored), as the JAX trainer counts.
+                flops_per_step //= cfg.parallel.space_axis_size
         except Exception as e:  # noqa: BLE001 — accounting must never kill the run
             warnings.warn(
                 f"per-step FLOP model unavailable ({type(e).__name__}: {e}); "
@@ -447,7 +478,7 @@ class Trainer:
             restart_gap_s=obs_flops.restart_gap_seconds(cfg.workdir),
         )
         obs_hbm.publish_hbm_gauges(self.registry, self.state, self.shard_update)
-        variant = obs_comm.step_variant(cfg.compression, self.shard_update)
+        variant = obs_comm.step_variant(cfg.compression, self.shard_update, self.spatial)
         flat = self.state.params
         self.comm = obs_comm.CommAccountant(
             self.registry,
@@ -455,7 +486,7 @@ class Trainer:
                                variant, n_buckets=len(flat.regions), level=self.shard_update),
             variant,
         )
-        if cfg.train.trace and self.world > 1:
+        if cfg.train.trace and self.world > 1 and not self.spatial:
             self._comm_probe = obs_comm.make_comm_probe(
                 cfg.compression, flat, self.world, level=self.shard_update, seed=cfg.train.seed)
 
@@ -707,7 +738,7 @@ class Trainer:
         per_batch = []
         for images, labels in eval_batches(
             self.test_ds, self.cfg.train.micro_batch_size, self.device,
-            self.rank, self.world,
+            self.replica, self.world, self.space,
         ):
             self.watchdog.beat("eval")
             out = self.eval_step(self.state, images, labels)
@@ -739,7 +770,10 @@ class Trainer:
         maxima, as ``jnp.argmax``)."""
         model = self.state.model
         model.eval()
-        logits = model(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
+        # Whole tiles on one rank: the halos are off (eval-mode BatchNorm
+        # reads its running statistics, no collective).
+        with space_off(model):
+            logits = model(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
         return logits.argmax(-1).cpu().numpy()
 
     def dump_images(self, epoch: int) -> None:

@@ -1,0 +1,272 @@
+"""One rank of a gloo world laid out as a ``pipe × data × space`` grid, for
+the port's space-axis and pipeline tests (it holds no test of its own:
+``tests/test_torch_halo.py``, ``tests/test_torch_spatial.py`` and
+``tests/test_torch_pipeline.py`` start it through :func:`run_grid`).
+
+Run as ``python tests/test_torch_grid_worker.py <task> <dir>`` with ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK`` set (``mesh.spawn_world`` sets them): the
+rank joins the world through ``file://<dir>/rendezvous``, lays it out as
+``task["grid"]`` (``[pipe, data, space]``), reads ``<dir>/task.json`` and
+``<dir>/in.npz``, and writes ``<dir>/out_<rank>.npz``.  It imports only
+the port (and numpy), never JAX.
+
+Tasks:
+
+- ``halo``: this rank's rows of ``x`` (NHWC) through ``halo_exchange``;
+  with ``conv``, ``sharded_same_conv`` of them and its gradients against
+  the cotangent ``w``; with ``carry``, stage 0 exchanges, sends its rows
+  to stage 1, which exchanges again;
+- ``spatial``: the tiny U-Net from the canonical weights in ``in.npz``
+  trains ``images`` with the spatial step on this rank's columns and rows,
+  at each of ``runs``' ZeRO levels, recording the metrics and at the end
+  the canonical state;
+- ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
+- ``pipeline``: ``PipelineTrainStep`` from the canonical weights, each of
+  ``runs`` (its level, and its ``compression`` if it has one, else the
+  task's) ``steps`` steps of ``images``; records the metrics,
+  ``last_schedule``, the canonical state; with ``roundtrip``, the
+  canonical snapshot's checkpoint written, restored into a fresh driver,
+  and one more step of each.  Where ``in.npz`` holds fields
+  ``noise<stage>/<k0>_<k1>/<param>``, a stage's stochastic rounding
+  draws them for the Philox key ``(k0, k1)`` instead of its own stream
+  (the JAX package's noise, laid out in the stage's flat order).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ddlpc_tpu_torch.config import CompressionConfig, ModelConfig, TrainConfig
+from ddlpc_tpu_torch.convert import gather_canonical, load_canonical
+from ddlpc_tpu_torch.models import build_model, shard_space
+from ddlpc_tpu_torch.parallel import mesh
+from ddlpc_tpu_torch.parallel import train_step as ts
+from ddlpc_tpu_torch.train.optim import build_optimizer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rows(a: np.ndarray, axis: int) -> np.ndarray:
+    s, n = mesh.space_index(), mesh.space_size()
+    h = a.shape[axis] // n
+    return np.take(a, np.arange(s * h, (s + 1) * h), axis=axis)
+
+
+def _halo(task: dict, inputs, rank: int) -> dict:
+    """Each case of ``task["cases"]``, its outputs under ``"<name>/"``."""
+    out = {}
+    for case in task["cases"]:
+        got = _halo_case(case, {k[len(case["name"]) + 1:]: inputs[k] for k in inputs.files
+                                if k.startswith(case["name"] + "/")})
+        out.update({f"{case['name']}/{k}": v for k, v in got.items()})
+    return out
+
+
+def _halo_case(case: dict, inputs: dict) -> dict:
+    from ddlpc_tpu_torch.parallel.halo import halo_exchange, sharded_same_conv
+
+    x = torch.from_numpy(_rows(inputs["x"], 1).copy())
+    out = {"x": x.numpy().copy()}
+    if case.get("dtype"):
+        y = halo_exchange(x.to(getattr(torch, case["dtype"])), case["halo"], spatial_axis=1)
+        out["y"] = y.float().numpy()
+        return out
+    if case.get("carry"):
+        g = mesh.grid()
+        p, d, s = g.coords
+        if p == 0:
+            out["y"] = halo_exchange(x, 1, spatial_axis=1).numpy()
+            mesh.exchange([(x, g.global_rank(1, d, s))], [])
+        else:
+            got = torch.empty_like(x)
+            mesh.exchange([], [(got, g.global_rank(0, d, s))])
+            out["y"] = halo_exchange(got, 1, spatial_axis=1).numpy()
+        return out
+    out["y"] = halo_exchange(x, case["halo"], spatial_axis=1).numpy()
+    if case.get("conv"):
+        k = torch.from_numpy(inputs["k"]).permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+        xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        y = sharded_same_conv(xl, k)
+        w = torch.from_numpy(_rows(inputs["w"], 1).copy()).permute(0, 3, 1, 2)
+        (y * w).sum().backward()
+        gk = mesh.all_reduce_(k.grad.clone(), "sum", "space")
+        out["conv"] = y.permute(0, 2, 3, 1).detach().numpy()
+        out["gx"] = xl.grad.permute(0, 2, 3, 1).numpy()
+        out["gk"] = gk.permute(2, 3, 1, 0).numpy()
+    return out
+
+
+def _canonical(state, prefix: str) -> dict:
+    sd, opt = gather_canonical(state)
+    out = {f"{prefix}sd/{k}": v.numpy().copy() for k, v in sd.items()}
+    for key in state.opt_state.buffers():
+        out.update({f"{prefix}{key}/{k}": v.numpy().copy() for k, v in opt[key].items()})
+    out[f"{prefix}count"] = np.array(opt["count"])
+    return out
+
+
+def _weights(inputs) -> dict:
+    return {k[3:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("sd/")}
+
+
+def _spatial(task: dict, inputs, rank: int) -> dict:
+    g = mesh.grid()
+    _, d, _ = g.coords
+    out = {}
+    for i, run in enumerate(task["runs"]):
+        level = run["level"]
+        model = build_model(ModelConfig(**task["model"]))
+        shard_space(model, g.data, g.space)
+        tx = build_optimizer(TrainConfig(learning_rate=task["lr"]), total_steps=len(inputs["images"]))
+        comp = CompressionConfig(**task["compression"])
+        state = ts.create_train_state(model, tx, g.data, level)
+        load_canonical(state, _weights(inputs))
+        step = ts.make_train_step_spatial(tx, comp, g.data, g.space, level=level)
+        b = inputs["images"].shape[2] // g.data
+        for t, (x, y) in enumerate(zip(inputs["images"], inputs["labels"])):
+            xs = _rows(x[:, d * b : (d + 1) * b], 2)
+            ys = _rows(y[:, d * b : (d + 1) * b], 2)
+            m = step(state, torch.from_numpy(xs.copy()), torch.from_numpy(ys.astype(np.int64)))
+            for key, v in m.items():
+                out[f"{i}:{key}{t}"] = np.float32(v)
+        out.update(_canonical(state, f"{i}:"))
+        out[f"{i}:flat"] = state.params.data.to("cpu", copy=True).numpy() if state.params.resident \
+            else np.zeros(0, np.float32)
+    return out
+
+
+def _cli(task: dict, inputs, rank: int) -> dict:
+    from ddlpc_tpu_torch.train.__main__ import main
+
+    assert main(task["argv"]) == 0
+    return {}
+
+
+def _pipeline(task: dict, inputs, rank: int) -> dict:
+    from ddlpc_tpu_torch.models.unet import UNet
+    from ddlpc_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+    from ddlpc_tpu_torch.convert import load_state_tree
+
+    from ddlpc_tpu_torch.ops import philox
+
+    out = {}
+    comp = CompressionConfig(**task.get("compression", {}))
+    images, labels = inputs["images"], inputs["labels"]
+
+    def fresh():
+        model = UNet(**task["model"], dtype=torch.float32)
+        tx = build_optimizer(TrainConfig(learning_rate=task["lr"]))
+        full = ts.create_train_state(model, tx, 1, "off")
+        load_canonical(full, _weights(inputs))
+        return model, tx, full
+
+    own_uniform = philox.uniform
+    for i, run in enumerate(task["runs"]):
+        model, tx, full = fresh()
+        rcomp = CompressionConfig(**run["compression"]) if "compression" in run else comp
+        drv = make_pipeline_train_step(model, tx, rcomp, task["m"], shard_update=run["level"])
+        if drv.n_stages == 1:
+            full = ts.create_train_state(model, tx, mesh.data_size(), drv._level)
+            load_canonical(full, _weights(inputs))
+        p = drv.init_state(full)
+        fields = _stage_noise(inputs, drv.stage, p.stages[0].params)
+        asked = set()
+        if fields and rcomp.rounding == "stochastic":
+            def given(key, offset, n, device=None):
+                asked.add(key)
+                return fields[key][offset : offset + n]
+
+            philox.uniform = given
+        try:
+            for t in range(task["steps"]):
+                p, m = drv.step(p, images, labels)
+                for key, v in m.items():
+                    out[f"{i}:{key}{t}"] = np.float64(v)
+        finally:
+            philox.uniform = own_uniform
+        out[f"{i}:noise_keys"] = np.int64(len(asked))
+        out.update({f"{i}:sched/{k}": np.float64(v) for k, v in drv.last_schedule.items()})
+        out[f"{i}:stash"] = np.int64(drv.stash_bytes)
+        out.update(_canonical(drv.canonical(p), f"{i}:"))
+    if task.get("roundtrip"):
+        model, tx, full = fresh()
+        drv = make_pipeline_train_step(model, tx, comp, task["m"], shard_update="zero2")
+        out.update(_canonical(drv.canonical(drv.init_state(full)), "rt0:"))
+        p = drv.init_state(full)
+        p, _ = drv.step(p, images, labels)
+        snap = drv.canonical(p)
+        ckdir = os.path.join(task["dir"], "ckpt")
+        ckpt.save_checkpoint(ckdir, snap, metadata={"epoch": 0})
+        torch.distributed.barrier()
+        p, _ = drv.step(p, images, labels)
+        out.update(_canonical(drv.canonical(p), "rt_cont:"))
+        model2, tx2, full2 = fresh()
+        tree = ckpt.restore_checkpoint(ckdir)[0] if mesh.world_rank() == 0 else None
+        load_state_tree(full2, tree)
+        drv2 = make_pipeline_train_step(model2, tx2, comp, task["m"], shard_update="zero2")
+        p2, _ = drv2.step(drv2.init_state(full2), images, labels)
+        out.update(_canonical(drv2.canonical(p2), "rt_res:"))
+    return out
+
+
+def _stage_noise(inputs, stage: int, flat) -> dict:
+    """``{(k0, k1): field}`` of ``in.npz``'s ``noise<stage>/<k0>_<k1>/<param>``
+    arrays: each key's fields of this stage's params laid out as ``flat``
+    lays out the params, zero in its padding."""
+    prefix = f"noise{stage}/"
+    keys = sorted({k[len(prefix):].split("/")[0] for k in inputs.files if k.startswith(prefix)})
+    out = {}
+    for key in keys:
+        field = np.zeros(flat.data.numel(), np.float32)
+        for name, (o, n) in zip(flat.names, flat.segments()):
+            field[o : o + n] = inputs[f"{prefix}{key}/{name}"].reshape(-1)
+        out[tuple(int(k) for k in key.split("_"))] = torch.from_numpy(field)
+    return out
+
+
+def run_grid(name: str, grid, work: str, task: dict, inputs: dict,
+             deadline_s: float = 180.0) -> list:
+    """Parent side: write the task, run the ``pipe × data × space`` ranks
+    of ``grid`` under a deadline that kills the world, return each rank's
+    outputs."""
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "task.json"), "w") as f:
+        json.dump({**task, "grid": list(grid), "dir": work}, f)
+    if inputs:
+        np.savez(os.path.join(work, "in.npz"), **inputs)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    world = int(np.prod(grid))
+    mesh.spawn_world([sys.executable, os.path.abspath(__file__), name, work], world,
+                     deadline_s, env=env, cwd=REPO)
+    return [dict(np.load(os.path.join(work, f"out_{r}.npz"))) for r in range(world)]
+
+
+def main() -> int:
+    name, work = sys.argv[1], sys.argv[2]
+    rank, _, _ = mesh.world_from_env()
+    torch.manual_seed(0)
+    mesh.initialize_distributed("gloo", f"file://{os.path.join(work, 'rendezvous')}")
+    with open(os.path.join(work, "task.json")) as f:
+        task = json.load(f)
+    path = os.path.join(work, "in.npz")
+    inputs = np.load(path) if os.path.exists(path) else None
+    try:
+        if name != "cli":
+            mesh.init_grid(*task["grid"])
+        out = {"halo": _halo, "spatial": _spatial, "cli": _cli,
+               "pipeline": _pipeline}[name](task, inputs, rank)
+    finally:
+        mesh.destroy_distributed()
+    np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

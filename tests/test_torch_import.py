@@ -44,7 +44,10 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.parallel.bucketing",
     "ddlpc_tpu_torch.parallel.compressed_allreduce",
     "ddlpc_tpu_torch.parallel.grad_sync",
+    "ddlpc_tpu_torch.parallel.halo",
     "ddlpc_tpu_torch.parallel.mesh",
+    "ddlpc_tpu_torch.parallel.partition",
+    "ddlpc_tpu_torch.parallel.pipeline",
     "ddlpc_tpu_torch.parallel.shard_update",
     "ddlpc_tpu_torch.parallel.train_step",
     "ddlpc_tpu_torch.resilience.protocol",

@@ -1,0 +1,304 @@
+"""The port's space axis against the JAX package's GSPMD path
+(``make_train_step_gspmd``, ``make_eval_step_gspmd``, the loaders'
+``space_axis``).
+
+The tiny U-Net of ``tests/test_torch_train_step.py`` (features [8, 16],
+fp32, s2d ×2, DetailHead) trains two optimizer steps of the fp16 codec on
+the mean (``quantize_local=False``, as the spatial step requires) on a
+(data 2 × space 2) grid of four gloo processes
+(``tests/test_torch_grid_worker.py``), every rank starting from the same
+seeded weights in the flax layout and taking its own columns and rows of
+the same numpy batches, whose void labels lie in the top shard only (so
+each shard's valid-pixel count differs).  JAX runs
+``make_train_step_gspmd`` on a (2, 2) slice of the 8-device CPU mesh.
+Tolerances, those of ``tests/test_torch_dist_train.py``:
+
+- the losses at rtol 1e-4, the BatchNorm statistics at rtol 1e-4 /
+  atol 1e-6;
+- params at rtol 1e-4 / atol 1e-6 but for at most 2 % of them (the fp16
+  codec's lattice flips), each within ``2·lr`` a step.
+
+The ZeRO layouts (JAX's ``gspmd``, ``gspmd_zero2``, ``gspmd_zero3``) equal
+the replicated spatial step bit for bit, as ``tests/test_shard_update.py``
+pins for JAX, and every rank holds the same state bit for bit.  Without
+norm or codec the spatial step equals the port's 4-way data-parallel step
+at atol 1e-5 (``tests/test_halo.py``'s bound for the same comparison).
+The loaders' rows are JAX's shards byte for byte.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from ddlpc_tpu.config import CompressionConfig as JCompression
+from ddlpc_tpu.config import ModelConfig as JModelConfig
+from ddlpc_tpu.config import ParallelConfig as JParallel
+from ddlpc_tpu.data import datasets as jdatasets
+from ddlpc_tpu.data.loader import DeviceCachedLoader as JDeviceCachedLoader
+from ddlpc_tpu.data.loader import ShardedLoader as JShardedLoader
+from ddlpc_tpu.data.loader import eval_batches as jeval_batches
+from ddlpc_tpu.models import build_model as jbuild_model
+from ddlpc_tpu.parallel import train_step as jts
+from ddlpc_tpu.parallel.mesh import make_mesh
+from ddlpc_tpu_torch.config import CompressionConfig, ModelConfig, TrainConfig
+from ddlpc_tpu_torch.convert import flax_from_torch, torch_state_from_flax
+from ddlpc_tpu_torch.data.datasets import TileDataset
+from ddlpc_tpu_torch.data.loader import DeviceCachedLoader, ShardedLoader, eval_batches
+from ddlpc_tpu_torch.models import build_model, shard_space
+from ddlpc_tpu_torch.parallel.train_step import make_train_step_spatial
+from ddlpc_tpu_torch.train.__main__ import parse_args
+from ddlpc_tpu_torch.train.optim import build_optimizer
+from ddlpc_tpu_torch.train.trainer import Trainer
+from test_torch_dist_worker import run_world
+from test_torch_grid_worker import run_grid
+from test_torch_model import flax_like_variables
+from test_torch_train_step import _OFF, LR, TINY, _flat, _tiny_cli_config
+
+A, B, STEPS, H = 2, 4, 2, 32  # micro-batches a step, global micro-batch, steps, rows
+CODEC = {"mode": "float16", "quantize_local": False}
+LEVELS = ("off", "zero1", "zero2", "zero3")
+
+
+def _batches(h=H, classes=6):
+    ds = jdatasets.SyntheticTiles(num_tiles=STEPS * A * B, image_size=(h, h), seed=4,
+                                  num_classes=classes)
+    labels = ds.labels.copy()
+    labels[:, :5, :7] = -1  # void pixels, all in the top space shard
+    return (ds.images.reshape(STEPS, A, B, h, h, 3), labels.reshape(STEPS, A, B, h, h))
+
+
+def _jax_gspmd(params0, stats0, images, labels, model_kw, codec):
+    jmodel = jbuild_model(JModelConfig(**model_kw))
+    tx = optax.adam(LR)
+    mesh = make_mesh(JParallel(data_axis_size=2, space_axis_size=2), jax.devices()[:4])
+    params = jax.tree.map(jnp.asarray, params0)
+    state = jts.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=jax.tree.map(jnp.asarray, stats0),
+                           opt_state=tx.init(params))
+    state = jax.device_put(state, NamedSharding(mesh, P()))
+    step = jts.make_train_step_gspmd(jmodel, tx, mesh, JCompression(**codec), donate_state=False)
+    sh = NamedSharding(mesh, P(None, "data", "space"))
+    losses = []
+    for x, y in zip(images, labels):
+        state, m = step(state, jax.device_put(x, sh), jax.device_put(y, sh))
+        losses.append(float(m["loss"]))
+    state = jax.device_get(state)
+    return {"params": _flat(state.params), "batch_stats": _flat(state.batch_stats),
+            "losses": losses}
+
+
+_RUNS: dict = {}
+
+
+def _tiny(tmp_path_factory):
+    if "tiny" not in _RUNS:
+        images, labels = _batches()
+        variables = flax_like_variables(jbuild_model(JModelConfig(**TINY)))
+        params0, stats0 = variables["params"], variables["batch_stats"]
+        sd, _ = torch_state_from_flax(params0, stats0)
+        inputs = {f"sd/{k}": v.numpy() for k, v in sd.items()}
+        inputs.update(images=images, labels=labels)
+        task = {"model": {k: list(v) if isinstance(v, tuple) else v for k, v in TINY.items()},
+                "lr": LR, "compression": CODEC, "runs": [{"level": lv} for lv in LEVELS]}
+        outs = run_grid("spatial", (1, 2, 2), str(tmp_path_factory.mktemp("spatial")), task,
+                        inputs)
+        _RUNS["tiny"] = (_jax_gspmd(params0, stats0, images, labels, TINY, CODEC), outs, labels)
+    return _RUNS["tiny"]
+
+
+def _port_part(out: dict, prefix: str, run: int = 0) -> dict:
+    sd = {k[len(f"{run}:sd/"):]: torch.from_numpy(v) for k, v in out.items()
+          if k.startswith(f"{run}:sd/")}
+    params, stats, _ = flax_from_torch(sd)
+    return _flat(params if prefix == "params" else stats)
+
+
+def test_void_labels_split_unevenly_across_the_space_shards():
+    _, labels = _batches()
+    top, bottom = (int((labels[..., s * 16 : (s + 1) * 16, :] >= 0).sum()) for s in range(2))
+    assert top < bottom
+
+
+def test_spatial_step_losses_and_batch_stats_match_jax_gspmd(tmp_path_factory):
+    jout, outs, _ = _tiny(tmp_path_factory)
+    for r, out in enumerate(outs):
+        np.testing.assert_allclose([float(out[f"0:loss{s}"]) for s in range(STEPS)],
+                                   jout["losses"], rtol=1e-4, err_msg=f"rank {r}")
+        got = _port_part(out, "batch_stats")
+        for k, want in jout["batch_stats"].items():
+            np.testing.assert_allclose(got[k], want, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_spatial_step_params_match_jax_gspmd_and_every_rank_agrees(tmp_path_factory):
+    jout, outs, _ = _tiny(tmp_path_factory)
+    got = _port_part(outs[0], "params")
+    total = off = 0
+    for k, want in jout["params"].items():
+        diff = np.abs(got[k] - want)
+        off += int((diff > 1e-4 * np.abs(want) + 1e-6).sum())
+        total += want.size
+        assert diff.max() <= STEPS * 2 * LR, (k, diff.max())
+    assert off <= 2e-2 * total, (off, total)
+    for out in outs[1:]:
+        for k in outs[0]:
+            np.testing.assert_array_equal(out[k], outs[0][k], err_msg=k)
+
+
+@pytest.mark.parametrize("run", [1, 2, 3], ids=[f"gspmd_{lv}" for lv in LEVELS[1:]])
+def test_zero_layouts_are_bit_identical_to_replicated(run, tmp_path_factory):
+    _, outs, _ = _tiny(tmp_path_factory)
+    for out in outs:
+        keys = [k[2:] for k in out if k.startswith("0:") and k != "0:flat"]
+        for k in keys:
+            np.testing.assert_array_equal(out[f"{run}:{k}"], out[f"0:{k}"], err_msg=k)
+
+
+def test_spatial_step_equals_the_data_parallel_step(tmp_path_factory):
+    """``tests/test_halo.py::test_gspmd_matches_dataparallel_step`` on the
+    port: a (2, 2) spatial step and the 4-way data-parallel step, same data
+    and weights, norm 'none', no codec."""
+    model = dict(features=[8], bottleneck_features=8, num_classes=3, norm="none",
+                 compute_dtype="float32")
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 1, (1, 2, 8, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 3, (1, 2, 8, 16, 16)).astype(np.int32)
+    variables = flax_like_variables(jbuild_model(JModelConfig(**model)))
+    sd, _ = torch_state_from_flax(variables["params"], variables.get("batch_stats", {}))
+    inputs = {f"sd/{k}": v.numpy() for k, v in sd.items()}
+    inputs.update(images=x, labels=y)
+    sp = run_grid("spatial", (1, 2, 2), str(tmp_path_factory.mktemp("sp_dp")),
+                  {"model": model, "lr": LR, "compression": {"mode": "none"},
+                   "runs": [{"level": "off"}]}, inputs)[0]
+    dp = run_world("step", 4, str(tmp_path_factory.mktemp("dp")),
+                   {"model": model, "lr": LR, "compression": {"mode": "none"}, "level": "off",
+                    "local_batch": 2}, inputs)[0]
+    assert abs(float(sp["0:loss0"]) - float(dp["loss0"])) < 1e-5
+    for k in dp:
+        if k.startswith("sd/"):
+            np.testing.assert_allclose(sp[f"0:{k}"], dp[k], atol=1e-5, err_msg=k)
+
+
+def test_refusals_in_the_jax_words():
+    tx = build_optimizer(TrainConfig())
+    jmodel = jbuild_model(JModelConfig(**TINY))
+    mesh = make_mesh(JParallel(data_axis_size=2, space_axis_size=2), jax.devices()[:4])
+    for kw in ({"mode": "float16"}, {"mode": "int8", "transport": "ring", "quantize_local": False},
+               {"mode": "float16", "quantize_mean": False}):
+        with pytest.raises(ValueError) as want:
+            jts.make_train_step_gspmd(jmodel, optax.adam(LR), mesh, JCompression(**kw))
+        with pytest.raises(ValueError) as got:
+            make_train_step_spatial(tx, CompressionConfig(**kw), 2, 2)
+        assert str(got.value) == str(want.value)
+    for name in ("unetpp", "deeplabv3p"):
+        model = build_model(ModelConfig(name=name, features=(64, 128, 256, 512), width_divisor=16)
+                            if name == "deeplabv3p" else ModelConfig(name=name, features=(8, 16)))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            shard_space(model, 1, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        shard_space(build_model(ModelConfig(features=(8, 16), up_sample_mode="bilinear")), 1, 2)
+    sharded = shard_space(build_model(ModelConfig(**TINY)), 1, 2)
+    with pytest.raises(ValueError, match="deviation"):
+        sharded(torch.zeros(1, 12, 32, 3))  # 24 rows over 2: 12 a shard, not a multiple of 8
+
+
+def _cli_argv(tmp_path, workdir, epochs, space):
+    return ["--config", _tiny_cli_config(tmp_path), "--device", "cpu", "--workdir", str(workdir),
+            "--set", f"train.epochs={epochs}", "--set", f"parallel.space_axis_size={space}",
+            "--set", "compression.quantize_local=False",
+            "--set", "train.dump_images_per_epoch=0", "--set", "train.perf_accounting=False",
+            "--set", "data.native_gather=False"]
+
+
+def test_trainer_selects_the_spatial_path_trains_and_restores_both_ways(tmp_path):
+    """``tests/test_halo.py::test_trainer_selects_gspmd_and_trains`` on the
+    port, through the CLI in a world of (data 1 × space 2): two epochs with
+    a checkpoint each; an unsharded trainer resumes the spatial run's
+    checkpoint for a third, and a spatial world resumes that for a fourth."""
+    workdir = tmp_path / "run"
+    run_grid("cli", (1, 1, 2), str(tmp_path / "w1"),
+             {"argv": _cli_argv(tmp_path, workdir, 2, 2)}, {})
+    records = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()
+               if '"epoch"' in line and '"kind"' not in line]
+    assert [r["epoch"] for r in records] == [0, 1]
+    for r in records:
+        assert np.isfinite(r["loss"]) and 0.0 <= r["val_miou"] <= 1.0
+    cfg, _, device, _ = parse_args(_cli_argv(tmp_path, workdir, 3, 1))
+    plain = Trainer(cfg, resume=True, device=device)
+    assert not plain.spatial and plain.start_epoch == 2
+    rec = plain.fit()
+    assert rec["epoch"] == 2 and np.isfinite(rec["loss"])
+    plain.close()
+    del plain
+    run_grid("cli", (1, 1, 2), str(tmp_path / "w2"),
+             {"argv": _cli_argv(tmp_path, workdir, 4, 2)}, {})
+    records = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()
+               if '"epoch"' in line and '"kind"' not in line]
+    assert [r["epoch"] for r in records] == [0, 1, 2, 3]
+
+
+def test_trainer_refuses_pipeline_stages_in_the_jax_words(tmp_path):
+    from ddlpc_tpu.train import trainer as jtrainer
+    import inspect
+
+    cfg, _, device, _ = parse_args(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
+                                    "--set", "parallel.pipeline_stages=2", *_OFF])
+    with pytest.raises(ValueError) as e:
+        Trainer(cfg, resume=False, device=device)
+    src = inspect.getsource(jtrainer.Trainer._build_train_step)
+    for piece in ("pipeline_stages > 1 is not wired into the epoch Trainer",
+                  "parallel/pipeline.make_pipeline_train_step", "ROADMAP follow-on"):
+        assert piece in src and piece in str(e.value)
+
+
+# ---- the loaders --------------------------------------------------------------
+
+
+def _shards_by_position(arr, mesh):
+    """{(d, s): numpy} of a global array sharded (…, data, space)."""
+    pos = {dev: (i, j) for (i, j), dev in np.ndenumerate(mesh.devices)}
+    return {pos[sh.device]: np.asarray(sh.data) for sh in arr.addressable_shards}
+
+
+@pytest.mark.parametrize("kind", ["sharded", "cache"])
+def test_loader_rows_are_jax_shards_byte_for_byte(kind):
+    tiles = jdatasets.SyntheticTiles(num_tiles=21, image_size=(8, 8), seed=9)
+    tiles.labels[0, 0, 0] = -1
+    mesh = make_mesh(JParallel(data_axis_size=2, space_axis_size=2), jax.devices()[:4])
+    jcls, tcls = ((JShardedLoader, ShardedLoader) if kind == "sharded"
+                  else (JDeviceCachedLoader, DeviceCachedLoader))
+    jl = jcls(tiles, mesh, global_micro_batch=4, sync_period=2, seed=4, space_axis="space")
+    for e in range(2):
+        jl.set_epoch(e)
+        jbatches = [(_shards_by_position(i, mesh), _shards_by_position(l, mesh)) for i, l in jl]
+        for d in range(2):
+            for s in range(2):
+                tl = tcls(TileDataset(tiles.images, tiles.labels), micro_batch=2, sync_period=2,
+                          device=torch.device("cpu"), seed=4, replica=d, world=2, space=(s, 2))
+                tl.set_epoch(e)
+                got = list(tl)
+                assert len(got) == len(jbatches)
+                for (gi, gl), (ji, jl_) in zip(got, jbatches):
+                    assert gi.shape == (2, 2, 4, 8, 3)
+                    assert gi.numpy().tobytes() == np.ascontiguousarray(ji[(d, s)]).tobytes()
+                    np.testing.assert_array_equal(gl.numpy(), jl_[(d, s)])
+
+
+def test_eval_batches_rows_are_jax_shards():
+    tiles = jdatasets.SyntheticTiles(num_tiles=7, image_size=(8, 8), seed=2)
+    mesh = make_mesh(JParallel(data_axis_size=2, space_axis_size=2), jax.devices()[:4])
+    jb = [(_shards_by_position(i, mesh), _shards_by_position(l, mesh))
+          for i, l in jeval_batches(tiles, mesh, 4, space_axis="space")]
+    ds = TileDataset(tiles.images, tiles.labels)
+    for d in range(2):
+        for s in range(2):
+            got = list(eval_batches(ds, 2, torch.device("cpu"), d, 2, (s, 2)))
+            assert len(got) == len(jb)
+            for (gi, gl), (ji, jl) in zip(got, jb):
+                np.testing.assert_array_equal(gi.numpy(), ji[(d, s)])
+                np.testing.assert_array_equal(gl.numpy(), jl[(d, s)])

@@ -279,12 +279,15 @@ def test_cli_refuses_settings_that_are_not_ported(tmp_path):
     perf accounting, every data mode and checkpoints are ported), not even
     with tracing, the telemetry endpoint or the per-epoch profile switched
     on: those run (a tiny fit writes the spans, the trace and the
-    profile).  A setting still unported, the space axis, is refused, the
-    trainer naming each ``--set`` that switches one off, and only those."""
+    profile).  No setting is left unported: each config passes the
+    trainer's refusals; a space axis the world cannot hold is refused as
+    the JAX mesh refuses it, and pipeline stages as the JAX trainer
+    refuses them."""
     import dataclasses
 
     from ddlpc_tpu_torch.config import ExperimentConfig
-    from ddlpc_tpu_torch.train.trainer import unsupported_settings
+    from ddlpc_tpu_torch.parallel.grad_sync import check_supported
+    from ddlpc_tpu_torch.train.trainer import PIPELINE_REFUSAL, check_exclusive
 
     observed = {"trace": True, "telemetry_port": 0, "profile_epoch": 0}
     for name in ("vaihingen_unet_tpu_flagship.json", "vaihingen_unet_v5e8.json",
@@ -292,8 +295,10 @@ def test_cli_refuses_settings_that_are_not_ported(tmp_path):
                  "vaihingen_unetpp_s2d.json", "potsdam_deeplabv3p.json"):
         with open(os.path.join(os.path.dirname(FLAGSHIP), name)) as f:
             cfg = ExperimentConfig.from_json(f.read())
-        assert unsupported_settings(cfg) == [], name
-        assert unsupported_settings(cfg.replace(train=dataclasses.replace(cfg.train, **observed))) == [], name
+        for c in (cfg, cfg.replace(train=dataclasses.replace(cfg.train, **observed))):
+            check_exclusive(c)
+            check_supported(c.compression)
+            assert c.model.num_classes == c.data.num_classes, name
     workdir = tmp_path / "traced"
     assert cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu", "--no-resume",
                      "--workdir", str(workdir), "--set", "train.epochs=1",
@@ -301,16 +306,17 @@ def test_cli_refuses_settings_that_are_not_ported(tmp_path):
                      "--set", "train.telemetry_port=0", *_OFF]) == 0
     for path in ("spans.jsonl", "trace.json", "profile/ops.json", "profile/trace.json"):
         assert (workdir / path).is_file(), path
-    with pytest.raises(NotImplementedError) as e:
+    # The space axis is ported: a space axis of 2 in a world of one process
+    # is refused as the JAX mesh refuses it (it does not divide the devices).
+    with pytest.raises(ValueError) as e:
         cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
                   "--workdir", str(tmp_path / "run"), "--set", "train.trace=True",
                   "--set", "train.profile_epoch=0", "--set", "parallel.space_axis_size=2"])
     msg = str(e.value)
-    assert "--set parallel.space_axis_size=1" in msg
-    for ported in ("checkpoint", "dump_images", "stall", "device_cache", "native_gather",
-                   "perf_accounting", "remat", "compact_upload", "augment", "lazy_tiles",
-                   "mmap_scenes", "crops_per_epoch", "loader_workers", "trace", "profile_epoch",
-                   "telemetry_port"):
-        assert ported not in msg
+    assert "space_axis_size=2" in msg and "does not divide device count 1" in msg
+    with pytest.raises(ValueError) as e:
+        cli_main(["--config", _tiny_cli_config(tmp_path), "--device", "cpu",
+                  "--workdir", str(tmp_path / "stages"), "--set", "parallel.pipeline_stages=2"])
+    assert str(e.value) == PIPELINE_REFUSAL
     with pytest.raises(KeyError, match="unknown config key"):
         cli_main(["--device", "cpu", "--set", "train.no_such_knob=1"])

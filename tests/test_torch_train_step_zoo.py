@@ -51,11 +51,12 @@ from ddlpc_tpu.utils import wire as jwire
 from ddlpc_tpu_torch.config import CompressionConfig, ExperimentConfig, ModelConfig, TrainConfig
 from ddlpc_tpu_torch.convert import flax_from_torch, load_state_tree, torch_state_from_flax
 from ddlpc_tpu_torch.models import build_model
+from ddlpc_tpu_torch.parallel.grad_sync import check_supported
 from ddlpc_tpu_torch.parallel.train_step import create_train_state, make_train_step
 from ddlpc_tpu_torch.train import checkpoint as tckpt
 from ddlpc_tpu_torch.train.__main__ import main as cli_main
 from ddlpc_tpu_torch.train.optim import Adam, build_optimizer
-from ddlpc_tpu_torch.train.trainer import unsupported_settings
+from ddlpc_tpu_torch.train.trainer import check_exclusive
 from ddlpc_tpu_torch.utils import wire as twire
 from test_torch_model import flax_like_variables
 
@@ -190,7 +191,8 @@ def test_checkpoint_crosses_packages_both_ways(tmp_path, monkeypatch, name):
 def test_committed_configs_enable_nothing_unported(config):
     with open(os.path.join(REPO, "configs", config)) as f:
         cfg = ExperimentConfig.from_json(f.read())
-    assert unsupported_settings(cfg) == []
+    check_exclusive(cfg)
+    check_supported(cfg.compression)
     build_model(cfg.model)  # at full width; no refusal
 
 
