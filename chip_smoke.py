@@ -180,7 +180,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    batches equal to ``DeviceLoader``'s.  Each prints its epochs' step
    time, MFU and goodput and its peak memory beside the card;
 
-4d. the data paths, each through the CLI's entry for two epochs, with the
+4d. the data paths, each through the CLI's entry for ``DATA_EPOCHS`` (1)
+   epoch, their fixtures written meanwhile by a process of this script
+   (``--fixtures``) at the lowest CPU priority, with the
    same checks as the main paths (exact launches, the FLOP integer, PNGs,
    the loader's batches equal to ``DeviceLoader``'s on the same wire) and,
    for each run, a ``data path row``: the last epoch's step time,
@@ -195,7 +197,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``--set data.data_dir=``): npy eager on the device cache, png eager
    (its losses must be npy's bits), and npy with ``lazy_tiles``, the host
    loader, four workers and the compact wire (its first loss npy's bits,
-   the second within one fp32 ulp); ``flagship_scenes`` writes 33 uint8
+   any later one within one fp32 ulp); ``flagship_scenes`` writes 33 uint8
    scenes at the sizes of ``docs/disk_fit/scene_scale.json`` (152.3
    MPix) and trains in crop mode (``crops_per_epoch=512,
    test_split_scenes=1, device_cache=false``), eager and then with
@@ -229,7 +231,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    restore into that unsharded trainer bit for bit.  It prints the step
    times, each rank's peak memory against the unsharded run's, a halo
    hop's ms (one bf16 row each way of the first down block) and the
-   gradient all-reduce's ms (``spatial row``);
+   gradient all-reduce's ms (``spatial_cityscapes row``);
+
+4g'. ``spatial_unetpp``: ``configs/vaihingen_unetpp.json`` as written
+   (full width, features 32…512, deep supervision, bf16, no stem, 512²
+   tiles, no codec) with ``parallel.data_axis_size=-1,
+   space_axis_size=2``, in the same two rank processes after
+   ``spatial_cityscapes``'s runs (one start-up for both), each holding 256
+   rows (16 of U-Net++'s 16-row units), three steps of 4 micro-batches
+   of 4 on the synthetic data (no directory run).  The same gates as
+   ``spatial_cityscapes`` but no codec launch at all, and its FLOPs half
+   of 12,480,638,091,264 a step.  The unsharded reference runs twice:
+   past the first step (whose loss no update has moved, held at
+   ``SPATIAL_LOSS_RTOL``) the loss gate is ``SPATIAL_LOSS_RTOL`` or twice
+   the reference's own spread, whichever is larger.  It prints the same
+   row (``spatial_unetpp row``), with the phase's wall seconds;
 
 4h. ``pipe2_flagship``: ``parallel/pipeline.PipelineTrainStep`` on the
    flagship at full width, pipe 2 × data 1, two gloo processes of this
@@ -312,7 +328,8 @@ counts the fp32 values on which ``torch.sqrt`` on the card differs from
 the correctly rounded square root that Adam takes (``optim.sqrt_rn``),
 over 2**23 values spanning 1e-12..1e2.
 
-6. the stall watchdog: a process of this script (``--stall``) trains a
+6. the stall watchdog (run beside the supervised phase, its outcome read
+   after it): a process of this script (``--stall``) trains a
    tiny config on the card with ``stall_timeout_s=2`` and
    ``stall_action=abort`` while its loader sleeps 6 s in the second batch;
    it must exit 42 with ``stall.log`` naming the phase ``data`` and the
@@ -325,8 +342,11 @@ prints the device time by kernel, the device's idle share over that step
 and the step's FLOPs against the card's bf16 peak (this phase is for
 measurement, not part of the plain smoke run).
 
-It prints one JSON line with every kernel's numbers and the floor, then
-the card's ``nvidia-smi`` line, then the contract line
+After each phase it prints ``phase_seconds: {...}``, every phase's wall
+seconds so far (also when the phase fails), so that a failed run's
+output places the failure.  It prints one JSON line with every kernel's
+numbers and the floor, then the card's ``nvidia-smi`` line, then the
+contract line
 ``{"ok": true, "device": {...}}`` last.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -446,7 +466,7 @@ TINY_ZOO = {
 # 127 training tiles and 30 held out) and from scenes at the reference
 # scale of docs/disk_fit/scene_scale.json (its six sizes, cycled over 33
 # scenes: 152.3 MPix), and the Cityscapes config at full width.
-DATA_EPOCHS = 2
+DATA_EPOCHS = 1  # 2 until PR 16's spatial_unetpp needed the script's time
 TILES_DIR_TILES = 157
 TILE_PX = 512
 SCENE_SIZES = ((2566, 1893), (2428, 2006), (2500, 1934), (1281, 2336), (2546, 1903), (2064, 2494))
@@ -480,6 +500,22 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS: dict = {}  # each phase's wall seconds, in the order run
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds recorded under ``name``
+    and the map so far printed (``phase_seconds: {...}``), also when it
+    fails, so that a failed run's output places its failure and its
+    time."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+        log("phase_seconds: " + json.dumps(PHASE_SECONDS))
 
 
 def smi_line() -> str:
@@ -1477,6 +1513,11 @@ def vaihingen_like(rng, h: int, w: int):
     return np.clip(palette[labels] + noise, 0, 255).astype(np.uint8), labels
 
 
+def tile_dirs(root: str) -> tuple:
+    """The npy and the PNG tile directories under the fixtures' ``root``."""
+    return os.path.join(root, "tiles_npy"), os.path.join(root, "tiles_png")
+
+
 def write_tile_dirs(root: str) -> tuple:
     """``TILES_DIR_TILES`` tiles of 512², from the seed, with void pixels
     in every fifth label, written once as ``--format npy`` (``<stem>_img.npy``)
@@ -1486,7 +1527,7 @@ def write_tile_dirs(root: str) -> tuple:
     from ddlpc_tpu_torch.data import png
 
     t0 = time.perf_counter()
-    npy_dir, png_dir = os.path.join(root, "tiles_npy"), os.path.join(root, "tiles_png")
+    npy_dir, png_dir = tile_dirs(root)
     for d in (npy_dir, png_dir):
         os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(0)
@@ -1560,6 +1601,33 @@ def write_cityscapes(root: str) -> str:
     return tiles
 
 
+def write_fixtures(root: str) -> None:
+    """The data phases' fixtures under ``root``: the tile directories, the
+    scene directory and the converted Cityscapes layout.  A process of
+    this script (``--fixtures``, :func:`start_fixtures`) writes them at
+    the lowest CPU priority while the phases before the data phases run."""
+    os.nice(19)
+    write_tile_dirs(root)
+    write_scene_dir(root)
+    write_cityscapes(os.path.join(root, "cityscapes"))
+
+
+def start_fixtures(root: str) -> subprocess.Popen:
+    """Start the fixture writer; it is killed if this script exits first."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fixtures", root],
+                            cwd=REPO)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def wait_fixtures(proc: subprocess.Popen) -> None:
+    rc = proc.wait()
+    if rc != 0:
+        fail(f"the fixture writer (--fixtures) exited {rc}")
+
+
 def host_rate(loader, epochs: int = 1) -> float:
     """Tiles a second the loader alone delivers onto the card: ``epochs``
     epochs through it, host clock, ending in a synchronize."""
@@ -1617,14 +1685,14 @@ def codec_expect(steps: int) -> dict:
 
 def tiles_dir_phase(root: str) -> dict:
     """``flagship_tiles_dir``: the flagship as written from a tile
-    directory (``--set data.data_dir=``), two epochs (one step each) three
-    ways: (a) npy, eager, the device cache as written; (b) png, eager,
-    whose losses must be (a)'s bits; (c) npy, ``lazy_tiles``, the host
-    loader with four workers and the compact wire, whose first loss must
-    be (a)'s bits and the second within one fp32 ulp of it."""
+    directory (``--set data.data_dir=``), ``DATA_EPOCHS`` epochs (one step
+    each) three ways: (a) npy, eager, the device cache as written; (b) png,
+    eager, whose losses must be (a)'s bits; (c) npy, ``lazy_tiles``, the
+    host loader with four workers and the compact wire, whose first loss
+    must be (a)'s bits and any later one within one fp32 ulp of it."""
     import numpy as np
 
-    npy_dir, png_dir = write_tile_dirs(root)
+    npy_dir, png_dir = tile_dirs(root)
     runs, rows = {}, {}
     for label, data_dir, extra, loader in (
         ("tiles_npy_eager", npy_dir, (), "DeviceCachedLoader"),
@@ -1655,8 +1723,8 @@ def tiles_dir_phase(root: str) -> dict:
 def scenes_phase(root: str) -> dict:
     """``flagship_scenes``: the flagship as written over a scene directory
     at the reference's scale (``write_scene_dir``) in crop mode,
-    ``crops_per_epoch=512, test_split_scenes=1, device_cache=false``, two
-    epochs: eager, then ``mmap_scenes, augment, compact_upload,
+    ``crops_per_epoch=512, test_split_scenes=1, device_cache=false``,
+    ``DATA_EPOCHS`` epochs: eager, then ``mmap_scenes, augment, compact_upload,
     loader_workers=4``.  Each loader's first epoch must equal by digest
     the same loader's over the other residency: the eager run's against an
     mmap loading of the same settings, the mmap run's against the eager
@@ -1664,7 +1732,7 @@ def scenes_phase(root: str) -> dict:
     from ddlpc_tpu_torch.data.datasets import DihedralAugment, build_dataset
     from ddlpc_tpu_torch.data.loader import ShardedLoader
 
-    scenes = write_scene_dir(root)
+    scenes = os.path.join(root, "scenes")
     base = (f"data.data_dir={scenes}", "data.crops_per_epoch=512", "data.test_split_scenes=1",
             "data.device_cache=False")
     rows, runs = {}, {}
@@ -1710,16 +1778,17 @@ def scenes_phase(root: str) -> dict:
 
 def cityscapes_phase(root: str) -> dict:
     """``cityscapes_full_width``: ``configs/cityscapes_unet_v5e64.json`` as
-    written at one replica (``parallel.data_axis_size=-1``), synthetic, two
-    epochs of 7 steps (fp16 codec with ``quantize_local=false``: the
-    fake-quantize of the mean and its max-abs, once a step); then two
-    epochs from a converted Cityscapes layout (``write_cityscapes``) with
+    written at one replica (``parallel.data_axis_size=-1``), synthetic,
+    ``DATA_EPOCHS`` epochs of 7 steps (fp16 codec with
+    ``quantize_local=false``: the fake-quantize of the mean and its
+    max-abs, once a step); then ``DATA_EPOCHS`` epochs of 1 step from a
+    converted Cityscapes layout (``write_cityscapes``) with
     void labels, ``data.test_split`` cut to 8 for the 24 frames."""
     rows, runs = {}, {}
     for label in CITYSCAPES_STEPS:
         extra = ()
         if label == "cityscapes_dir":
-            extra = (f"data.data_dir={write_cityscapes(os.path.join(root, 'cityscapes'))}",
+            extra = (f"data.data_dir={os.path.join(root, 'cityscapes', 'tiles')}",
                      "data.test_split=8")
         steps = CITYSCAPES_STEPS[label]
         run = main_path_phase(label, ("parallel.data_axis_size=-1", *extra),
@@ -2153,19 +2222,35 @@ def stall_run(workdir: str) -> None:
     log("stall run: fit returned")
 
 
-def stall_phase() -> dict:
-    """A training process on the card whose data fetch stalls: it must exit
-    42 (``EXIT_STALL``) with ``stall.log`` naming the phase ``data`` and the
-    breadcrumb ``stalled``."""
+def start_stall() -> tuple:
+    """Start the watchdog phase's training process (``--stall``), its output
+    into files: it runs beside the supervised phase (a tiny model, asleep
+    most of its life) and :func:`stall_phase` collects it.  It is killed if
+    this script exits first."""
+    import atexit
     import shutil
-
-    from ddlpc_tpu_torch.resilience.protocol import EXIT_STALL, read_breadcrumb
 
     workdir = os.path.join(WORKDIR, "stall")
     shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    out, err = (open(os.path.join(workdir, f"stall.{k}"), "w") for k in ("out", "err"))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--stall", workdir],
-                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--stall", workdir],
+                            stdout=out, stderr=err, text=True, cwd=REPO)
+    out.close()
+    err.close()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, workdir, t0
+
+
+def stall_phase(started: tuple) -> dict:
+    """The training process of :func:`start_stall`, whose data fetch
+    stalls: it must exit 42 (``EXIT_STALL``) with ``stall.log`` naming the
+    phase ``data`` and the breadcrumb ``stalled``."""
+    from ddlpc_tpu_torch.resilience.protocol import EXIT_STALL, read_breadcrumb
+
+    proc, workdir, t0 = started
+    rc = proc.wait(timeout=300)
     wall = time.perf_counter() - t0
     run = os.path.join(workdir, "run")
     crumb = read_breadcrumb(run) or {}
@@ -2174,14 +2259,18 @@ def stall_phase() -> dict:
             diagnosis = f.read()
     except OSError:
         diagnosis = ""
-    row = {"rc": r.returncode, "wall_s": wall, "phase": crumb.get("phase"),
+    row = {"rc": rc, "wall_s": wall, "phase": crumb.get("phase"),
            "stall_tag": crumb.get("stall_tag"), "stall_age_s": crumb.get("stall_age_s")}
     log(f"stall phase: " + json.dumps(row) + "; stall.log: "
         + (diagnosis.splitlines()[0] if diagnosis else "(none)"))
-    if (r.returncode != EXIT_STALL or crumb.get("phase") != "stalled"
+    if (rc != EXIT_STALL or crumb.get("phase") != "stalled"
             or crumb.get("stall_tag") != "data" or "last phase: 'data'" not in diagnosis):
+        with open(os.path.join(workdir, "stall.out")) as f:
+            out = f.read()
+        with open(os.path.join(workdir, "stall.err")) as f:
+            err = f.read()
         fail(f"stall phase: expected exit {EXIT_STALL}, breadcrumb stalled at data and a stall.log "
-             f"naming it; got {row}\nstdout: {r.stdout[-2000:]}\nstderr: {r.stderr[-4000:]}")
+             f"naming it; got {row}\nstdout: {out[-2000:]}\nstderr: {err[-4000:]}")
     return row
 
 
@@ -3723,14 +3812,29 @@ def supervised_phase(argv: list) -> dict:
 SPATIAL_WORLD = 2  # data 1 × space 2, both ranks on RANK_DEVICE over gloo
 RANK_DEVICE = "cuda:0"  # every rank of the two phases time-shares the one card
 SPATIAL_SETS = ("parallel.data_axis_size=-1", "parallel.space_axis_size=2")
-# The synthetic run: 16 training tiles (one step of micro 16 an epoch) and
-# 8 held out, three epochs: three optimizer steps; then one epoch from the
+# The synthetic run: 16 training tiles (one optimizer step an epoch:
+# Cityscapes' micro 16, U-Net++'s micro 4 × sync 4) and 8 held out, three
+# epochs: three optimizer steps; then, for Cityscapes, one epoch from the
 # converted Cityscapes layout (16 of its 24 frames train: one step).
 SPATIAL_RUNS = {"synthetic": ("data.synthetic_len=24", "data.test_split=8", "train.epochs=3"),
                 "dir": ("data.test_split=8", "train.epochs=1")}
-SPATIAL_STEPS = {"synthetic": 3, "dir": 1}
 SPATIAL_LOSS_RTOL = 1e-4  # the tiny models' card-vs-CPU tolerance (reference_phase)
 SPATIAL_DEADLINE_S = 420
+UNETPP = os.path.join(REPO, "configs", "vaihingen_unetpp.json")
+# The space-axis phases: the config as written at space 2, its runs and
+# their steps, the unsharded step's FLOPs, the codec kernels each step
+# launches once, the halo hop timed (a 3×3 conv's input in the first
+# level: micro, channels, this rank's rows, columns) and whether the unsharded
+# reference runs twice, to measure its own spread before the loss gate.
+SPATIAL_PHASES = {
+    "spatial_cityscapes": {"config": CITYSCAPES, "steps": {"synthetic": 3, "dir": 1},
+                           "flops": CITYSCAPES_FLOPS,
+                           "codec": ("fake_quantize_fused", "absmax"),
+                           "halo": (16, 64, 64, 256), "twice": False},
+    "spatial_unetpp": {"config": UNETPP, "steps": {"synthetic": 3},
+                       "flops": ZOO_PATHS["unetpp"][1], "codec": (),
+                       "halo": (4, 32, 256, 512), "twice": True},
+}
 PIPE_STAGES, PIPE_M, PIPE_MICRO, PIPE_STEPS = 2, 4, 128, 3
 PIPE_SCHEDULE = {"executed_slots": 12, "idle_slots": 2, "measured_bubble": 0.1429}
 PIPE_PARAM_SHARE = 2e-2  # reference_phase's allowance: params apart, each within 2·lr a step
@@ -3770,8 +3874,10 @@ def stagewise_codec(flat, stage_names: list):
         train_step.sync_for_level = real
 
 
-def spatial_argv(workdir: str, run: str, space: int, device: str, data_dir: str) -> list:
-    argv = ["--config", CITYSCAPES, "--device", device, "--workdir", os.path.join(workdir, run)]
+def spatial_argv(label: str, workdir: str, run: str, space: int, device: str,
+                 data_dir: str) -> list:
+    argv = ["--config", SPATIAL_PHASES[label]["config"], "--device", device, "--workdir",
+            os.path.join(workdir, run)]
     if device != "cuda":
         argv += ["--dist-backend", "gloo"]
     sets = SPATIAL_RUNS[run] + (f"data.data_dir={data_dir}",) * (run == "dir")
@@ -3780,12 +3886,22 @@ def spatial_argv(workdir: str, run: str, space: int, device: str, data_dir: str)
     return argv
 
 
-def spatial_rank(workdir: str, data_dir: str) -> None:
-    """One rank of ``spatial_cityscapes``: each run of ``SPATIAL_RUNS``
-    through the CLI's entry at space 2 with the launch counts set to 0 just
-    before and read just after, the canonical state's digest all-gathered,
-    then a halo hop and the world's gradient all-reduce timed; writes
-    ``rank<r>.json``."""
+def spatial_rank(labels: str, data_dir: str) -> None:
+    """One rank of the space-axis phases (``SPATIAL_PHASES``; ``labels``
+    comma-separated), one world for all of them: each phase's runs through
+    the CLI's entry at space 2 with the launch counts set to 0 just before
+    and read just after, the canonical state's digest all-gathered, then a
+    halo hop and the world's gradient all-reduce timed; writes each
+    phase's ``rank<r>.json`` into ``WORKDIR/<label>``."""
+    from ddlpc_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed("gloo", f"file://{os.path.join(WORKDIR, 'spatial_rendezvous')}")
+    for label in labels.split(","):
+        _spatial_rank_phase(label, data_dir)
+    mesh.destroy_distributed()
+
+
+def _spatial_rank_phase(label: str, data_dir: str) -> None:
     import torch.distributed as dist
 
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
@@ -3794,15 +3910,16 @@ def spatial_rank(workdir: str, data_dir: str) -> None:
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
-    mesh.initialize_distributed("gloo", f"file://{os.path.join(workdir, 'rendezvous')}")
+    workdir = os.path.join(WORKDIR, label)
     rank = mesh.world_rank()
+    start = time.perf_counter()
     result = {"rank": rank, "runs": {}}
-    for run in SPATIAL_RUNS:
-        cfg, _, dev, backend = parse_args(["--no-resume"]
-                                          + spatial_argv(workdir, run, 2, RANK_DEVICE, data_dir))
+    for run in SPATIAL_PHASES[label]["steps"]:
+        cfg, _, dev, backend = parse_args(
+            ["--no-resume"] + spatial_argv(label, workdir, run, 2, RANK_DEVICE, data_dir))
         trainer = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
         if run == "synthetic":
-            loader_equal(f"spatial_cityscapes rank {rank}", trainer, trainer.loader, 1)
+            loader_equal(f"{label} rank {rank}", trainer, trainer.loader, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cq.reset_launch_counts()
@@ -3819,23 +3936,42 @@ def spatial_rank(workdir: str, data_dir: str) -> None:
                "last": last, "spatial": trainer.spatial, "space": list(trainer.space),
                "level": trainer.shard_update, "n_params": trainer.state.params.numel}
         if run == "synthetic":
-            # A halo hop of the first down block's second conv (micro 16,
-            # 64 channels, this rank's 64 of the stem grid's 128 rows, 256
-            # columns, bf16), and the step's fp32 gradient all-reduce.
-            x = torch.randn(16, 64, 64, 256, device=trainer.device).to(torch.bfloat16)
+            # A halo hop of a first-level 3×3 conv's input (one bf16 row
+            # each way), and the step's fp32 gradient all-reduce.
+            b, c, h, w = SPATIAL_PHASES[label]["halo"]
+            x = torch.randn(b, c, h, w, device=trainer.device).to(torch.bfloat16)
             row["halo_ms"] = _timed_ms(lambda: halo_exchange(x, 1), reps=9)
-            row["halo_bytes"] = 2 * 16 * 64 * 256 * 2
+            row["halo_bytes"] = 2 * b * c * w * 2
             grad = trainer.state.params.grad
             row["allreduce_ms"] = _timed_ms(lambda: mesh.all_reduce_(grad, "sum", "stage"))
             row["allreduce_bytes"] = grad.numel() * 4
             del x, grad
         result["runs"][run] = row
+        trainer.close()
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - start
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    mesh.destroy_distributed()
+
+
+def spatial_world(data_dir: str) -> None:
+    """The space-axis phases' two ranks (``--spatial-rank``), one world for
+    every phase of ``SPATIAL_PHASES``: one start-up of the processes."""
+    import shutil
+
+    from ddlpc_tpu_torch.parallel import mesh
+
+    for label in SPATIAL_PHASES:
+        shutil.rmtree(os.path.join(WORKDIR, label), ignore_errors=True)
+        os.makedirs(os.path.join(WORKDIR, label))
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(os.path.join(WORKDIR, "spatial_rendezvous"))
+    torch.cuda.empty_cache()
+    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--spatial-rank",
+                      ",".join(SPATIAL_PHASES), data_dir], SPATIAL_WORLD, SPATIAL_DEADLINE_S,
+                     cwd=REPO)
 
 
 def _run_records(path: str) -> tuple:
@@ -3844,43 +3980,67 @@ def _run_records(path: str) -> tuple:
     return lines, [r for r in lines if "kind" not in r]
 
 
-def spatial_phase(data_dir: str) -> dict:
-    """``spatial_cityscapes``: ``configs/cityscapes_unet_v5e64.json`` as
-    written (512×1024, 19 classes, full width, s2d ×4, bf16, the fp16 codec
-    on the mean) with ``parallel.data_axis_size=-1`` and
-    ``space_axis_size=2``: two gloo ranks of this script on ``cuda:0``
-    (``--spatial-rank``), each holding 256 of every tile's 512 rows.  Gates:
-    finite losses; every rank's canonical state the same bits; the codec's
-    launches exactly one ``absmax`` and one ``fake_quantize_fused`` a step
-    a rank; each epoch's FLOPs half the unsharded step's; the synthetic
-    run's losses within ``SPATIAL_LOSS_RTOL`` of the same config unsharded
-    in one process; and its checkpoint restored into that unsharded
-    trainer bit for bit."""
-    import shutil
-
-    from ddlpc_tpu_torch.parallel import mesh
+def _unsharded(label: str, workdir: str, data_dir: str, name: str) -> tuple:
+    """The phase's synthetic run unsharded in this process, in
+    ``<workdir>/<name>``: its epoch records and peak memory."""
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
-    label = "spatial_cityscapes"
-    workdir = os.path.join(WORKDIR, label)
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
+    argv = spatial_argv(label, workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
+    argv[argv.index("--workdir") + 1] = os.path.join(workdir, name)
+    cfg, _, dev, backend = parse_args(["--no-resume"] + argv)
+    ref = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
+    torch.cuda.reset_peak_memory_stats()
+    ref.fit()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ref.close()
+    del ref
+    gc.collect()
     torch.cuda.empty_cache()
+    return _run_records(os.path.join(workdir, name))[1], peak
+
+
+def _max_rel(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def spatial_phase(label: str, data_dir: str) -> dict:
+    """A space-axis phase (``SPATIAL_PHASES``): the config as written with
+    ``parallel.data_axis_size=-1`` and ``space_axis_size=2``, run by the
+    two gloo ranks of :func:`spatial_world` on ``cuda:0``, each holding
+    256 of every tile's 512 rows; this checks their records and runs the
+    unsharded reference.  ``spatial_cityscapes``:
+    ``configs/cityscapes_unet_v5e64.json`` (512×1024, 19 classes, full
+    width, s2d ×4, bf16, the fp16 codec on the mean), the synthetic run
+    and the converted layout's; ``spatial_unetpp``:
+    ``configs/vaihingen_unetpp.json`` (full width, deep supervision, bf16,
+    no stem, no codec), the synthetic run.  Gates: finite losses; every
+    rank's canonical state the same bits; the codec's launches exactly
+    one of each of the phase's kernels a step a rank and none of the
+    others; each epoch's FLOPs half the unsharded step's; the host
+    loader's rows ``DeviceLoader``'s; the synthetic run's losses within
+    ``SPATIAL_LOSS_RTOL`` of the same config unsharded in one process
+    (under ``twice``, the unsharded run repeats, and past the first step,
+    whose loss no update has moved, the gate widens to twice its own
+    spread where that is larger); and its checkpoint restored into that
+    unsharded trainer bit for bit."""
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    spec = SPATIAL_PHASES[label]
+    workdir = os.path.join(WORKDIR, label)
     t0 = time.perf_counter()
-    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--spatial-rank", workdir, data_dir],
-                     SPATIAL_WORLD, SPATIAL_DEADLINE_S, cwd=REPO)
-    wall_s = time.perf_counter() - t0
     ranks = []
     for r in range(SPATIAL_WORLD):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    out = {"world": SPATIAL_WORLD, "wall_s": wall_s, "runs": {}}
-    for run, steps in SPATIAL_STEPS.items():
+    out = {"world": SPATIAL_WORLD, "runs": {}}
+    for run, steps in spec["steps"].items():
         lines, records = _run_records(os.path.join(workdir, run))
-        perf = perf_checks(f"{label}:{run}", lines, CITYSCAPES_FLOPS // 2, len(records))
+        perf = perf_checks(f"{label}:{run}", lines, spec["flops"] // 2, len(records))
         want = {name: 0 for name in ranks[0]["runs"][run]["launches"]}
-        want.update(fake_quantize_fused=steps, absmax=steps)
+        want.update({name: steps for name in spec["codec"]})
         for rr in ranks:
             row = rr["runs"][run]
             log(f"[{label}:{run}] rank {rr['rank']} space {row['space']}: kernels "
@@ -3903,47 +4063,49 @@ def spatial_phase(data_dir: str) -> dict:
                             "peak_bytes": [rr["runs"][run]["peak_bytes"] for rr in ranks],
                             "launches": ranks[0]["runs"][run]["launches"],
                             "epochs": path_row(f"{label}:{run}", records, perf)}
-    # The same synthetic run unsharded in one process, then its checkpoint.
-    argv = spatial_argv(workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
-    argv[argv.index("--workdir") + 1] = os.path.join(workdir, "unsharded")
-    cfg, _, dev, backend = parse_args(["--no-resume"] + argv)
-    ref = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
-    torch.cuda.reset_peak_memory_stats()
-    ref.fit()
-    torch.cuda.synchronize()
-    ref_peak = torch.cuda.max_memory_allocated()
-    _, ref_records = _run_records(os.path.join(workdir, "unsharded"))
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    # The same synthetic run unsharded in one process (twice under
+    # ``twice``), then its checkpoint.
+    ref_records, ref_peak = _unsharded(label, workdir, data_dir, "unsharded")
     got, want = out["runs"]["synthetic"]["losses"], [r["loss"] for r in ref_records]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    log(f"[{label}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e} "
-        f"(tolerance {SPATIAL_LOSS_RTOL})")
-    if len(got) != len(want) or rel > SPATIAL_LOSS_RTOL:
-        fail(f"[{label}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} of unsharded {want}")
-    argv[argv.index("--workdir") + 1] = os.path.join(workdir, "synthetic")
+    if len(got) != len(want):
+        fail(f"[{label}] {len(got)} losses at space 2 against {len(want)} unsharded")
+    self_rel, rtol = None, SPATIAL_LOSS_RTOL
+    if spec["twice"]:
+        again = [r["loss"] for r in _unsharded(label, workdir, data_dir, "unsharded_again")[0]]
+        self_rel = _max_rel(again, want)
+        rtol = max(SPATIAL_LOSS_RTOL, 2 * self_rel)
+        log(f"[{label}] unsharded twice: {want} and {again}, max rel {self_rel:.3e}; the gate "
+            f"past the first step {rtol:.3e}")
+    first, rel = _max_rel(got[:1], want[:1]), _max_rel(got, want)
+    log(f"[{label}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e}, first "
+        f"step {first:.3e} (tolerance {SPATIAL_LOSS_RTOL}, then {rtol:.3e})")
+    if first > SPATIAL_LOSS_RTOL or _max_rel(got[1:], want[1:]) > rtol:
+        fail(f"[{label}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} (first step) and "
+             f"{rtol:.3e} of unsharded {want}")
+    argv = spatial_argv(label, workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
     cfg, _, dev, backend = parse_args(argv)
     restored = Trainer(cfg, resume=True, device=dev, dist_backend=backend)
     equal = _canonical_digest(restored.state) == ranks[0]["runs"]["synthetic"]["hashes"][0]
     if restored.spatial or restored.start_epoch != 3 or not equal:
         fail(f"[{label}] the space-2 checkpoint restored into one unsharded process: spatial "
              f"{restored.spatial}, start_epoch {restored.start_epoch}, bits equal {equal}")
+    restored.close()
     del restored
     gc.collect()
     torch.cuda.empty_cache()
     syn = ranks[0]["runs"]["synthetic"]
     row = {"step_time_s": out["runs"]["synthetic"]["step_time_s"],
            "unsharded_step_time_s": [r["step_time_s"] for r in ref_records],
-           "losses": got, "unsharded_losses": want, "max_rel": rel,
+           "losses": got, "unsharded_losses": want, "max_rel": rel, "first_rel": first,
+           "unsharded_self_rel": self_rel, "loss_rtol": rtol,
            "peak_gib": [rr["runs"]["synthetic"]["peak_bytes"] / 2**30 for rr in ranks],
            "unsharded_peak_gib": ref_peak / 2**30,
            "halo_ms": [rr["runs"]["synthetic"]["halo_ms"] for rr in ranks],
            "halo_bytes": syn["halo_bytes"],
            "allreduce_ms": [rr["runs"]["synthetic"]["allreduce_ms"] for rr in ranks],
            "allreduce_bytes": syn["allreduce_bytes"], "restored_unsharded": equal,
-           "wall_s": wall_s}
-    log(f"spatial row: {json.dumps(row)} ({smi_line()})")
+           "ranks_s": ranks[0]["wall_s"], "wall_s": ranks[0]["wall_s"] + time.perf_counter() - t0}
+    log(f"{label} row: {json.dumps(row)} ({smi_line()})")
     out["row"] = row
     return out
 
@@ -4188,7 +4350,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of a data-parallel phase
         dp_rank(*sys.argv[2:6])
         return 0
-    if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of spatial_cityscapes
+    if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of the space-axis phases
         spatial_rank(*sys.argv[2:4])
         return 0
     if sys.argv[1:2] == ["--pipe-rank"]:  # one stage of pipe2_flagship
@@ -4197,10 +4359,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--stall"]:  # the watchdog phase's training process
         stall_run(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--fixtures"]:  # the data phases' fixture writer
+        write_fixtures(sys.argv[2])
+        return 0
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    path = kbuild.build(verbose=True)
+    start = t0 = time.perf_counter()
+    path = timed("build", kbuild.build, verbose=True)
     kbuild.load_library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
     sass = encode_sr_sass(path)
@@ -4212,18 +4377,23 @@ def main() -> int:
     with open(FLAGSHIP) as f:
         flagship = ExperimentConfig.from_json(f.read())
     n = sum(p.numel() for p in build_model(flagship.model).parameters())
-    floor = floor_phase(n)
-    rows = kernel_phase(n)
-    sr_rows = stochastic_kernel_phase(n, sass, fq_sass)
-    chunk_rows = shard_kernel_rows(n)
-    sqrt_row = sqrt_phase()
-    reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
-    reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4, param_share=2e-2)
-    for model, size in TINY_ZOO.values():
-        reference_phase({"mode": "none"}, loss_rtol=1e-4, param_share=2e-2, model=model, size=size,
-                        param_step=1)
-    main = main_path_phase(
-        "nearest_fp16", (), warns=False,
+    floor = timed("floor", floor_phase, n)
+    rows = timed("kernels", kernel_phase, n)
+    sr_rows = timed("stochastic_kernels", stochastic_kernel_phase, n, sass, fq_sass)
+    chunk_rows = timed("chunk_kernels", shard_kernel_rows, n)
+    sqrt_row = timed("sqrt", sqrt_phase)
+
+    def references():
+        reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
+        reference_phase({"mode": "int8", "rounding": "stochastic"}, loss_rtol=1e-4,
+                        param_share=2e-2)
+        for model, size in TINY_ZOO.values():
+            reference_phase({"mode": "none"}, loss_rtol=1e-4, param_share=2e-2, model=model,
+                            size=size, param_step=1)
+
+    timed("references", references)
+    main = timed(
+        "nearest_fp16", main_path_phase, "nearest_fp16", (), warns=False,
         expect={"encode_to_wire": EPOCHS, "decode_from_wire": EPOCHS,
                 "fake_quantize_fused": EPOCHS, "absmax": 2 * EPOCHS},
     )
@@ -4232,54 +4402,65 @@ def main() -> int:
     log(f"[nearest_fp16] losses == the committed bits {FLAGSHIP_LOSSES}")
     profile = "--profile" in sys.argv[1:]
     if profile:
-        profile_phase(main["trainer"], "nearest_fp16")
-    host_rows = host_phase(main["trainer"])
-    ckpt_row = checkpoint_phase(main["trainer"], main["argv"], main["losses"])
+        timed("profile_nearest_fp16", profile_phase, main["trainer"], "nearest_fp16")
+    host_rows = timed("host", host_phase, main["trainer"])
+    ckpt_row = timed("checkpoint", checkpoint_phase, main["trainer"], main["argv"], main["losses"])
+    # The data phases' fixtures are written meanwhile, after the host and
+    # checkpoint rows, which time the host.
+    data_root = os.path.join(WORKDIR, "data")
+    fixtures = start_fixtures(data_root)
     del main["trainer"]  # free its state, so the next run's peak memory is its own
     # The first Trainer of a process is also held by a cycle until a
     # collection: its FLOP model's meta forward is what imports
     # torch._dynamo, and torch.fx's import keeps the importing frames.
     gc.collect()
     torch.cuda.empty_cache()
-    traced = traced_phase(main)
-    serve = serve_phase(main["argv"])
-    fleet = fleet_phase(serve)
-    supervised = supervised_phase(main["argv"])
-    sr = main_path_phase(
-        "stochastic_int8", STOCHASTIC, warns=True,
+    traced = timed("traced", traced_phase, main)
+    serve = timed("serve", serve_phase, main["argv"])
+    fleet = timed("fleet", fleet_phase, serve)
+    stall = start_stall()
+    supervised = timed("supervised", supervised_phase, main["argv"])
+    stall_row = timed("stall", stall_phase, stall)
+    sr = timed(
+        "stochastic_int8", main_path_phase, "stochastic_int8", STOCHASTIC, warns=True,
         expect={"encode_sr": EPOCHS, "decode_from_wire": EPOCHS,
                 "fake_quantize_sr": EPOCHS, "absmax": 2 * EPOCHS},
     )
     if profile:
-        profile_phase(sr["trainer"], "stochastic_int8")
+        timed("profile_stochastic_int8", profile_phase, sr["trainer"], "stochastic_int8")
     del sr["trainer"]
     gc.collect()
     torch.cuda.empty_cache()
-    opts = options_phase(main)
-    zoo = {label: zoo_phase(label, profile) for label in ZOO_PATHS}
-    data_root = os.path.join(WORKDIR, "data")
+    opts = timed("flagship_options", options_phase, main)
+    zoo = {label: timed(label, zoo_phase, label, profile) for label in ZOO_PATHS}
+    timed("fixtures_wait", wait_fixtures, fixtures)
     data = {}
-    for phase in (tiles_dir_phase, scenes_phase, cityscapes_phase):
-        data = {key: {**data.get(key, {}), **part} for key, part in phase(data_root).items()}
+    for name, phase in (("flagship_tiles_dir", tiles_dir_phase), ("flagship_scenes", scenes_phase),
+                        ("cityscapes_full_width", cityscapes_phase)):
+        data = {key: {**data.get(key, {}), **part}
+                for key, part in timed(name, phase, data_root).items()}
     data_runs = data["runs"]
     cs_run = data_runs.pop("cityscapes_synthetic")
     cs_dir_run = data_runs.pop("cityscapes_dir")
     if cs_run["n_params"] != CITYSCAPES_PARAMS:
         fail(f"the Cityscapes config has {cs_run['n_params']} parameters, not {CITYSCAPES_PARAMS}")
     # The codec's kernels at the Cityscapes config's gradient size.
-    cs_rows = kernel_phase(cs_run["n_params"])
+    cs_rows = timed("cityscapes_kernels", kernel_phase, cs_run["n_params"])
     for row in cs_rows:
         row["launches"] = cs_run["launches"][row["name"]]
         row["launches_by_path"] = {"cityscapes_synthetic": row["launches"],
                                    "cityscapes_dir": cs_dir_run["launches"][row["name"]]}
-    spatial = spatial_phase(os.path.join(data_root, "cityscapes", "tiles"))
+    cs_tiles = os.path.join(data_root, "cityscapes", "tiles")
+    timed("spatial_ranks", spatial_world, cs_tiles)
+    spatial = timed("spatial_cityscapes", spatial_phase, "spatial_cityscapes", cs_tiles)
+    spatial_pp = timed("spatial_unetpp", spatial_phase, "spatial_unetpp", cs_tiles)
     for row in cs_rows:
-        row["launches_by_path"]["spatial_cityscapes"] = sum(
-            run["launches"][row["name"]] for run in spatial["runs"].values())
-    pipe = pipe_phase()
-    dp = {label: dp_phase(label) for label in DP_PHASES}
+        for label, run in (("spatial_cityscapes", spatial), ("spatial_unetpp", spatial_pp)):
+            row["launches_by_path"][label] = sum(
+                r["launches"][row["name"]] for r in run["runs"].values())
+    pipe = timed("pipe2_flagship", pipe_phase)
+    dp = {label: timed(label, dp_phase, label) for label in DP_PHASES}
     traced_dp = traced_dp_checks(dp)
-    stall_row = stall_phase()
     for run in (main, traced, sr, opts, *dp.values(), *data_runs.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
@@ -4299,6 +4480,8 @@ def main() -> int:
             by_path["serve_int8"] = serve["modes"]["int8"]["path_launches"].get(row["name"], 0)
             by_path["pipe2_flagship_stage0"] = pipe["launches"][row["name"]]
             by_path["pipe2_flagship_stage1"] = pipe["launches_s1"][row["name"]]
+            by_path["spatial_unetpp"] = sum(r["launches"][row["name"]]
+                                            for r in spatial_pp["runs"].values())
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
@@ -4325,7 +4508,11 @@ def main() -> int:
                       "traced": {k: traced[k] for k in ("step_time_s", "untraced_step_time_s", "sizes",
                                                         "span_counts", "top_ops_001",
                                                         "codec_in_capture")},
-                      "traced_dp": traced_dp, "spatial": spatial["row"], "pipeline": pipe["row"]}))
+                      "traced_dp": traced_dp, "spatial": spatial["row"],
+                      "spatial_unetpp": spatial_pp["row"], "pipeline": pipe["row"],
+                      "phase_seconds": PHASE_SECONDS}))
+    PHASE_SECONDS["total"] = round(time.perf_counter() - start, 1)
+    log("phase_seconds: " + json.dumps(PHASE_SECONDS) + f" ({smi})")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ from torch import nn
 
 from ddlpc_tpu_torch.config import ExperimentConfig, ModelConfig
 from ddlpc_tpu_torch.models.deeplabv3p import DeepLabV3Plus
-from ddlpc_tpu_torch.models.layers import BatchNorm, Conv, GroupNorm
+from ddlpc_tpu_torch.models.layers import BatchNorm, Conv, GroupNorm, UpBlock
 from ddlpc_tpu_torch.models.unet import UNet
 from ddlpc_tpu_torch.models.unetpp import UNetPP
 
@@ -123,24 +123,32 @@ def build_model(
 
 
 SPACE_ROADMAP = (
-    "ROADMAP A6 queues U-Net++, DeepLabV3+ and bilinear up-sampling under "
-    "the space axis"
+    "ROADMAP A6.3 queues DeepLabV3+ (its dilated and stride-2 convs, image "
+    "pooling and ×4/×8 resizes) under the space axis"
 )
 
 
-def check_space_rows(height: int, space: int, stem_factor: int, depth: int) -> None:
-    """Refuse an image height whose shards are not row-local for the
-    U-Net: each of the ``space`` shards must hold a multiple of
-    ``stem_factor · 2**depth`` rows, so that space-to-depth, every 2×2
-    pool and transposed conv, and depth-to-space stay inside a shard.
-    The JAX package's GSPMD path pads uneven shards instead: refusing them
-    is a deviation of the port (ROADMAP C17)."""
-    unit = stem_factor * 2 ** depth
+def space_pools(cfg: ModelConfig) -> int:
+    """The 2×2 pools behind the stem, which set the model's row unit
+    (:func:`check_space_rows`): the U-Net pools once a level before its
+    bottleneck, U-Net++ ``depth − 1`` times (its deepest node is not
+    pooled)."""
+    return len(cfg.features) - (cfg.name == "unetpp")
+
+
+def check_space_rows(height: int, space: int, stem_factor: int, pools: int) -> None:
+    """Refuse an image height whose shards are not row-local: each of the
+    ``space`` shards must hold a multiple of ``stem_factor · 2**pools``
+    rows, so that space-to-depth, every 2×2 pool and transposed conv, and
+    depth-to-space stay inside a shard (``pools`` is the caller's model's,
+    :func:`space_pools`).  The JAX package's GSPMD path pads uneven shards
+    instead: refusing them is a deviation of the port (ROADMAP C17)."""
+    unit = stem_factor * 2 ** pools
     if height % space or (height // space) % unit:
         raise ValueError(
             f"image height {height} over space_axis_size={space} gives "
-            f"{height / space:g} rows a shard, not a multiple of stem_factor·2**depth "
-            f"= {stem_factor}·2**{depth} = {unit}; the port shards only evenly "
+            f"{height / space:g} rows a shard, not a multiple of stem_factor·2**pools "
+            f"= {stem_factor}·2**{pools} = {unit}; the port shards only evenly "
             f"(the JAX package's GSPMD pads uneven shards — a documented "
             f"deviation, ROADMAP C17): pick a tile height divisible by {unit * space}"
         )
@@ -149,26 +157,21 @@ def check_space_rows(height: int, space: int, stem_factor: int, depth: int) -> N
 def shard_space(model: nn.Module, data_size: int, space_size: int) -> nn.Module:
     """Shard ``model``'s H over the space axis, in place: every conv of a
     kernel wider than 1 exchanges ``dilation · (k // 2)`` rows with its
-    neighbours, BatchNorm reduces over the stage's (data, space) group of
+    neighbours, a bilinear ``UpBlock`` one clamped row (``UpBlock.space``),
+    BatchNorm reduces over the stage's (data, space) group of
     ``data_size · space_size`` ranks (the JAX GSPMD step's statistics over
     the logical global batch, which it takes with or without
-    ``sync_batch_norm``), GroupNorm over the space group.  Only the U-Net
-    with transposed-conv up-sampling is row-local otherwise; the rest raise
-    ``NotImplementedError``."""
+    ``sync_batch_norm``), GroupNorm over the space group.  The U-Net and
+    U-Net++, with either up-sampling, are row-local otherwise; DeepLabV3+
+    and any strided conv raise ``NotImplementedError``."""
     if space_size <= 1:
         return model
-    if not isinstance(model, UNet):
+    if not isinstance(model, (UNet, UNetPP)):
         raise NotImplementedError(
             f"{type(model).__name__} under parallel.space_axis_size={space_size}: "
-            f"its bilinear resizes and dilated ASPP convs need halos up to 18 rows "
-            f"and its image pooling a space all-reduce, none of which is ported; "
-            f"{SPACE_ROADMAP}"
-        )
-    if model.up_sample_mode != "conv_transpose":
-        raise NotImplementedError(
-            f"up_sample_mode={model.up_sample_mode!r} under "
-            f"parallel.space_axis_size={space_size}: the bilinear resize needs a "
-            f"halo, which is not ported; {SPACE_ROADMAP}"
+            f"its dilated ASPP convs need halos up to 18 rows, its stride-2 convs and "
+            f"pool a strided halo and its image pooling a space all-reduce, none of "
+            f"which is ported; {SPACE_ROADMAP}"
         )
     model.space = space_size
     for m in model.modules():
@@ -181,7 +184,7 @@ def shard_space(model: nn.Module, data_size: int, space_size: int) -> nn.Module:
             m.halo = m.dilation * (m.kernel // 2)
         elif isinstance(m, BatchNorm):
             m.axis_size, m.axis = data_size * space_size, "stage"
-        elif isinstance(m, GroupNorm):
+        elif isinstance(m, (GroupNorm, UpBlock)):
             m.space = space_size
     return model
 
@@ -192,7 +195,8 @@ def space_off(model: nn.Module):
     rank, no halo and no statistics over the space axis (an eval-mode
     forward then needs no collective).  Restores the sharding after."""
     saved = [(m, m.halo) for m in model.modules() if isinstance(m, Conv)]
-    saved += [(m, m.space) for m in model.modules() if isinstance(m, (GroupNorm, UNet))]
+    saved += [(m, m.space) for m in model.modules()
+              if isinstance(m, (GroupNorm, UpBlock, UNet, UNetPP))]
     for m, _ in saved:
         if isinstance(m, Conv):
             m.halo = 0

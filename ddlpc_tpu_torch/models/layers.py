@@ -16,12 +16,14 @@ right only.  :func:`same_pads` computes it; :class:`Conv` and
 
 H sharded over the ``space`` axis (``models.shard_space``): a stride-1
 conv with ``Conv.halo`` rows takes them from its neighbours
-(``parallel/halo.py``) and pads only W; BatchNorm reduces its statistics
-over the stage's whole (data, space) group (``BatchNorm.axis``), GroupNorm
-over the space group (``GroupNorm.space``).  Every other op of the U-Net
-(space-to-depth, the 2×2 pool, the 2×2 transposed conv, the 1×1 head,
+(``parallel/halo.py``) and pads only W; the bilinear 2× up-sampling of an
+``UpBlock`` with ``UpBlock.space > 1`` takes one clamped halo row a side
+(:func:`upsample_2x`); BatchNorm reduces its statistics over the stage's
+whole (data, space) group (``BatchNorm.axis``), GroupNorm over the space
+group (``GroupNorm.space``).  Every other op of the U-Net and U-Net++
+(space-to-depth, the 2×2 pool, the 2×2 transposed conv, the 1×1 heads,
 depth-to-space, ``group_labels``) is row-local once the local H divides
-by the stem factor times ``2**depth``.
+by the stem factor times 2 to the number of pools.
 """
 
 from __future__ import annotations
@@ -352,14 +354,21 @@ def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Te
     return F.max_pool2d(x, kernel, stride)
 
 
-def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+def rows_first(h: int, w: int, out_h: int, out_w: int) -> bool:
+    """Whether ``jnp.einsum`` contracts the rows first when resizing
+    ``(h, w)`` to ``(out_h, out_w)``: the cheaper order, the rows on a tie."""
+    return h * w * out_h + out_h * w * out_w <= h * w * out_w + h * out_w * out_h
+
+
+def resize_bilinear(x: torch.Tensor, size, rows: bool | None = None) -> torch.Tensor:
     """``jax.image.resize(x, ..., 'bilinear')`` for an up-sampling
     ``size = (H, W)``, NCHW, in ``x.dtype``.
 
     JAX's triangle kernel renormalizes the taps that fall off the edge,
     which is ``align_corners=False``'s clamp.  JAX contracts one dimension
     at a time, each a dot that rounds to the input dtype, in the order
-    ``jnp.einsum`` finds cheaper (the rows first on a tie); one pass a
+    ``jnp.einsum`` finds cheaper (:func:`rows_first`; ``rows`` overrides
+    it, for a shard that must take its whole array's order); one pass a
     dimension in that order gives JAX's bf16 bits wherever the scale's
     weights are exact in bf16 (a power of two).  JAX anti-aliases when it
     down-samples, which bilinear ``F.interpolate`` does not: refused."""
@@ -370,15 +379,30 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
             f"resize_bilinear from {(h, w)} to {(out_h, out_w)} down-samples; "
             f"jax.image.resize anti-aliases there and this port does not"
         )
-    rows_first = h * w * out_h + out_h * w * out_w <= h * w * out_w + h * out_w * out_h
-    for step in ((out_h, w), (out_h, out_w)) if rows_first else ((h, out_w), (out_h, out_w)):
+    if rows is None:
+        rows = rows_first(h, w, out_h, out_w)
+    for step in ((out_h, w), (out_h, out_w)) if rows else ((h, out_w), (out_h, out_w)):
         if step != tuple(x.shape[2:]):
             x = F.interpolate(x, size=step, mode="bilinear", align_corners=False)
     return x
 
 
-def upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]))
+def upsample_2x(x: torch.Tensor, space: int = 1) -> torch.Tensor:
+    """2× bilinear up-sampling of NCHW.  ``space > 1``: H is sharded over
+    a space group of that size, and each rank holds its rows.  The shard
+    takes one halo row a side, clamped at the global edges
+    (``halo_exchange(edge="clamp")``), resizes its ``h + 2`` rows in the
+    whole array's pass order and drops 2 output rows at each end: under
+    ``align_corners=False`` at scale 2 output row ``2k`` reads input rows
+    ``k − 1`` and ``k``, row ``2k + 1`` rows ``k`` and ``k + 1``, so the
+    rows kept are the unsharded resize's rows of this shard, and at the
+    global edges the clamped row weighs what the edge clamp gives it."""
+    h, w = x.shape[2:]
+    if space <= 1:
+        return resize_bilinear(x, (2 * h, 2 * w))
+    rows = rows_first(h * space, w, 2 * h * space, 2 * w)
+    y = resize_bilinear(halo_exchange(x, 1, edge="clamp"), (2 * h + 4, 2 * w), rows)
+    return y[:, :, 2 : 2 * h + 2]
 
 
 class DownBlock(nn.Module):
@@ -397,7 +421,9 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     """2× upsample (transposed conv or bilinear), concat ``[*skips, x]``,
-    DoubleConv.  ``skip_features`` counts the channels of all the skips."""
+    DoubleConv.  ``skip_features`` counts the channels of all the skips.
+    ``space > 1`` (``models.shard_space`` sets it): H is sharded over a
+    space group of that size, which the bilinear resize takes a halo from."""
 
     def __init__(self, in_features, skip_features, features, dtype, norm="batch",
                  generator=None, up_sample_mode="conv_transpose", norm_groups=8):
@@ -410,6 +436,7 @@ class UpBlock(nn.Module):
         else:
             raise ValueError(f"unknown up_sample_mode {up_sample_mode!r}")
         self.up_sample_mode = up_sample_mode
+        self.space = 1
         self.DoubleConv_0 = DoubleConv(
             skip_features + up_features, features, dtype, norm, generator, norm_groups
         )
@@ -424,7 +451,7 @@ class UpBlock(nn.Module):
             if self.up_sample_mode == "conv_transpose":
                 x = self.ConvTranspose_0(x)
             else:
-                x = upsample_2x(x)
+                x = upsample_2x(x, self.space)
             x = torch.cat([*skips, x], dim=1)
             if phase == "up":
                 return x

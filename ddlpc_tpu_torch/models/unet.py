@@ -217,7 +217,7 @@ class UNet(nn.Module):
         if self.space > 1:
             from ddlpc_tpu_torch.models import check_space_rows
 
-            check_space_rows(images.shape[1] * self.space, self.space, self.r, self.depth)
+            check_space_rows(images.shape[1] * self.space, self.space, self.r, pools=self.depth)
         if self.stem == "s2d":
             x = space_to_depth(x, self.r)
         min_px = 2 ** self.depth

@@ -12,6 +12,12 @@ runs.  An optional shared ``detail_head`` (``DetailHead`` or
 ``StemGridDetailHead``) refines every head (``per_head``) or only the
 ensemble mean, which then joins the train stack (``ensemble``).  Names
 are flax's, so ``convert.py`` maps the param trees by path.
+
+H sharded over the space axis (``models.shard_space`` sets ``space``):
+every tensor holds this rank's rows, which must be a whole number of the
+row unit of the ``depth − 1`` pools behind the stem
+(``models.check_space_rows``); the heads, their mean and the detail heads
+are row-local, their 3×3 convs taking halos (``layers.Conv.halo``).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ class UNetPP(nn.Module):
         self.r = stem_factor if stem == "s2d" else 1
         self.depth = depth = len(features)
         self.deep_supervision = deep_supervision
+        self.space = 1  # models.shard_space sets the space axis's size
         self.dtype = dtype
         self.head_dtype = head_dtype
         self.refine = detail_head_kind if detail_head else None
@@ -128,6 +135,11 @@ class UNetPP(nn.Module):
         float32 where there is more than one head)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         image = x
+        if self.space > 1:
+            from ddlpc_tpu_torch.models import check_space_rows
+
+            check_space_rows(images.shape[1] * self.space, self.space, self.r,
+                             pools=self.depth - 1)
         if self.stem == "s2d":
             x = space_to_depth(x, self.r)
         min_px = 2 ** (self.depth - 1)

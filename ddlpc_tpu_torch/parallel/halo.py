@@ -8,12 +8,15 @@ to its upper neighbour and its bottom rows to its lower one and
 concatenates what arrives; the global edges receive zeros, as JAX's
 ``ppermute`` gives a device with no source, which composes exactly with
 'SAME' zero padding.  Where the JAX package lets XLA's partitioner insert
-these exchanges, the port's spatial U-Net calls this one
-(``models/layers.Conv``).
+these exchanges, the port's spatial U-Net and U-Net++ call this one
+(``models/layers.Conv``).  ``edge="clamp"`` fills the global edges' halo
+with the shard's own edge row instead (replicate padding), which composes
+with the edge clamp of a bilinear resize (``layers.upsample_2x``).
 
 The exchange is differentiable: its backward is the adjoint, as JAX
 transposes ``ppermute`` — each halo row's cotangent goes back to the
-shard it came from and is added into that row.
+shard it came from and is added into that row; under ``edge="clamp"`` the
+cotangent of a global edge's halo is added into the edge row.
 
 Under gloo with ranks time-sharing a card the rows go through the host
 (``mesh.exchange``); NCCL sends them card to card with ``batch_isend_irecv``.
@@ -50,13 +53,31 @@ def _swap(top: torch.Tensor, bottom: torch.Tensor):
     return from_up, from_down
 
 
+EDGES = ("zeros", "clamp")
+
+
+def _edge_rows(x: torch.Tensor, axis: int, at: int, halo: int) -> torch.Tensor:
+    """Row ``at`` of ``x`` along ``axis``, repeated ``halo`` times."""
+    shape = list(x.shape)
+    shape[axis] = halo
+    return x.narrow(axis, at, 1).expand(shape)
+
+
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, halo: int, axis: int) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, halo: int, axis: int, edge: str) -> torch.Tensor:
         ctx.halo, ctx.axis = halo, axis
         top = x.narrow(axis, 0, halo).contiguous()
         bottom = x.narrow(axis, x.shape[axis] - halo, halo).contiguous()
         from_up, from_down = _swap(top, bottom)
+        up, down = _neighbours()
+        # Under "clamp" the global edges repeat the shard's own edge row.
+        ctx.clamp_up = edge == "clamp" and up is None
+        ctx.clamp_down = edge == "clamp" and down is None
+        if ctx.clamp_up:
+            from_up = _edge_rows(x, axis, 0, halo)
+        if ctx.clamp_down:
+            from_down = _edge_rows(x, axis, x.shape[axis] - 1, halo)
         return torch.cat([from_up, x, from_down], dim=axis)
 
     @staticmethod
@@ -69,14 +90,26 @@ class _HaloExchange(torch.autograd.Function):
         gx = g.narrow(axis, halo, n).clone()
         gx.narrow(axis, 0, halo).add_(back_from_up)
         gx.narrow(axis, n - halo, halo).add_(back_from_down)
-        return gx, None, None
+        # Replicate padding's adjoint: a clamped halo's cotangent goes
+        # into the edge row it copied.
+        if ctx.clamp_up:
+            gx.narrow(axis, 0, 1).add_(g_up.sum(axis, keepdim=True))
+        if ctx.clamp_down:
+            gx.narrow(axis, n - 1, 1).add_(g_down.sum(axis, keepdim=True))
+        return gx, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, halo: int, spatial_axis: int = 2) -> torch.Tensor:
+def halo_exchange(
+    x: torch.Tensor, halo: int, spatial_axis: int = 2, edge: str = "zeros"
+) -> torch.Tensor:
     """Concatenate ``halo`` rows of each space neighbour onto this shard
     along ``spatial_axis`` (2 for the port's NCHW, 1 for NHWC): ``[.., H_local
-    + 2·halo, ..]``, the outer halo of the first and last shard zeros.
-    Every rank of the space group must call it."""
+    + 2·halo, ..]``.  The outer halo of the first and last shard is zeros
+    (``edge="zeros"``, 'SAME' zero padding) or that shard's own edge row
+    repeated (``edge="clamp"``, replicate padding).  Every rank of the
+    space group must call it."""
+    if edge not in EDGES:
+        raise ValueError(f"unknown halo edge {edge!r} ({' | '.join(EDGES)})")
     if halo <= 0:
         return x
     if x.shape[spatial_axis] < halo:
@@ -85,9 +118,13 @@ def halo_exchange(x: torch.Tensor, halo: int, spatial_axis: int = 2) -> torch.Te
             f"{halo}; use fewer shards or larger tiles"
         )
     if mesh.space_size() == 1:
+        if edge == "clamp":
+            last = x.shape[spatial_axis] - 1
+            return torch.cat([_edge_rows(x, spatial_axis, 0, halo), x,
+                              _edge_rows(x, spatial_axis, last, halo)], dim=spatial_axis)
         pad = [0, 0] * (x.dim() - 1 - spatial_axis) + [halo, halo]
         return F.pad(x, pad)
-    return _HaloExchange.apply(x, halo, spatial_axis)
+    return _HaloExchange.apply(x, halo, spatial_axis, edge)
 
 
 def sharded_same_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

@@ -246,12 +246,13 @@ class ReplicaSupervisor:
             launch=rp.launches,
         )
 
-    def _wait_ready(self, rp: _ManagedReplica) -> bool:
-        """Port file lands (post-warmup) and /healthz answers ok."""
+    def _wait_ready(self, rp: _ManagedReplica) -> Optional[dict]:
+        """Port file lands (post-warmup) and /healthz answers ok: that
+        answer, or None if the replica died or the warmup window ran out."""
         deadline = time.monotonic() + self.cfg.warmup_timeout_s
         while time.monotonic() < deadline and not self._stop.is_set():
             if rp.proc is None or rp.proc.poll() is not None:
-                return False  # died during startup
+                return None  # died during startup
             if rp.port is None and os.path.exists(rp.port_file):
                 try:
                     with open(rp.port_file) as f:
@@ -265,20 +266,23 @@ class ReplicaSupervisor:
                 try:
                     h = rp.client.healthz(self.cfg.scrape_timeout_s)
                     if h.get("status") == "ok":
-                        return True
+                        return h
                 except Exception:
                     pass
             time.sleep(0.2)
-        return False
+        return None
 
     # -- the per-replica supervision loop ------------------------------------
 
     def _run_replica(self, rp: _ManagedReplica) -> None:
         while not self._stop.is_set() and not rp.retired:
             self._launch(rp)
-            if self._wait_ready(rp) and not self._stop.is_set():
+            health = self._wait_ready(rp)
+            if health is not None and not self._stop.is_set():
                 rp.became_ready = True
-                self.router.add_replica(rp.name, rp.client)
+                # The answer that made it ready is its first scrape: the
+                # fleet's /healthz names its step from now on.
+                self.router.add_replica(rp.name, rp.client, health=health)
                 if self.aggregator is not None:
                     client = rp.client
                     timeout_s = self.cfg.scrape_timeout_s

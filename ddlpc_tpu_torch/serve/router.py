@@ -809,12 +809,19 @@ class FleetRouter:
         )
 
     def add_replica(
-        self, name: str, client: ReplicaClient, ready: bool = True
+        self, name: str, client: ReplicaClient, ready: bool = True,
+        health: Optional[Dict[str, object]] = None,
     ) -> None:
+        """``health``: the replica's ``/healthz`` answer that declared it
+        ready, taken as its first scrape, so that the fleet's view (its
+        serving step, queue, lineage) holds from the moment the replica
+        counts as ready rather than from the next scrape pass."""
         breaker = self._new_breaker(name)
         with self._lock:
-            self._replicas[name] = _Replica(name, client, breaker)
-            self._replicas[name].ready = ready
+            r = self._replicas[name] = _Replica(name, client, breaker)
+            r.ready = ready
+            if health is not None:
+                self._apply_health(r, health)
         self._log_event("replica_added", replica=name)
         self._publish_ready()
 
@@ -891,40 +898,46 @@ class FleetRouter:
             with self._lock:
                 if not r.healthy:
                     self._log_event("replica_recovered", replica=r.name)
-                r.scrape_fail_streak = 0
-                r.healthy = True
-                r.ever_ok = True
-                r.queue_depth = int(h.get("queue_depth") or 0)
-                r.queue_depth_interactive = int(
-                    h.get("queue_depth_interactive", h.get("queue_depth"))
-                    or 0
-                )
-                r.queue_depth_batch = int(h.get("queue_depth_batch") or 0)
-                r.quant_mode = h.get("quant_mode")
-                occ = h.get("batch_occupancy")
-                r.occupancy = float(occ) if occ is not None else None
-                r.checkpoint_step = h.get("checkpoint_step")
-                r.version = h.get("version")
-                sb = h.get("slot_busy_fraction")
-                r.slot_busy = float(sb) if sb is not None else None
-                lid = h.get("lineage_id")
-                r.lineage_id = lid if isinstance(lid, str) else None
-                sv = h.get("lineage_saved_at")
-                r.lineage_saved_at = (
-                    float(sv)
-                    if isinstance(sv, (int, float))
-                    and not isinstance(sv, bool)
-                    else None
-                )
-                if h.get("status") == "draining":
-                    # The replica is shutting down on its own (SIGTERM):
-                    # treat like a router-side drain — no new dispatch.
-                    r.draining = True
+                self._apply_health(r, h)
         try:
             self._update_freshness()
         except Exception:
             pass  # freshness accounting must never break the scrape
         self._publish_ready()
+
+    @staticmethod
+    def _apply_health(r: "_Replica", h: Dict[str, object]) -> None:
+        """One successful scrape's answer into the replica's record (the
+        caller holds the lock)."""
+        r.scrape_fail_streak = 0
+        r.healthy = True
+        r.ever_ok = True
+        r.queue_depth = int(h.get("queue_depth") or 0)
+        r.queue_depth_interactive = int(
+            h.get("queue_depth_interactive", h.get("queue_depth"))
+            or 0
+        )
+        r.queue_depth_batch = int(h.get("queue_depth_batch") or 0)
+        r.quant_mode = h.get("quant_mode")
+        occ = h.get("batch_occupancy")
+        r.occupancy = float(occ) if occ is not None else None
+        r.checkpoint_step = h.get("checkpoint_step")
+        r.version = h.get("version")
+        sb = h.get("slot_busy_fraction")
+        r.slot_busy = float(sb) if sb is not None else None
+        lid = h.get("lineage_id")
+        r.lineage_id = lid if isinstance(lid, str) else None
+        sv = h.get("lineage_saved_at")
+        r.lineage_saved_at = (
+            float(sv)
+            if isinstance(sv, (int, float))
+            and not isinstance(sv, bool)
+            else None
+        )
+        if h.get("status") == "draining":
+            # The replica is shutting down on its own (SIGTERM):
+            # treat like a router-side drain — no new dispatch.
+            r.draining = True
 
     def _update_freshness(self) -> None:
         """Model-age + step-skew gauges from the latest scrape.

@@ -852,3 +852,42 @@ def test_server_ends_hung_up_connections_quietly(capsys):
         t.join(5)
     err = capsys.readouterr().err
     assert "Traceback" not in err and "ConnectionResetError" not in err, err
+
+
+# ---- readiness carries the replica's state (ROADMAP C19) ---------------------
+
+
+def test_a_replica_declared_ready_reports_its_step_before_any_scrape(tmp_path):
+    """The fleet CLI printed "2/2 replicas ready" and its ``/healthz`` then
+    answered ``checkpoint_steps: []`` until the router's next scrape
+    pass, which a loaded host delays (``tests/test_torch_fleet_procs.py``
+    failed so in 5 of 10 runs beside other process-heavy test files under
+    six test workers).  The ``/healthz`` answer that makes the supervisor
+    declare a replica ready is now its first scrape: the fleet names the
+    step as soon as it counts the replica.  No scrape runs here
+    (``scrape_every_s=0``)."""
+    cfg = tconfig.FleetConfig(replicas=1, workdir=str(tmp_path), scrape_every_s=0.0,
+                              metrics_every_s=0.0, hedge_ms=0.0)
+    router = trouter.FleetRouter(cfg, logger=Logger())
+    sup = tfleet.ReplicaSupervisor(cfg, router=router, logger=Logger(), echo=False)
+    rp = sup.replicas[0]
+    answer = {"status": "ok", "checkpoint_step": 7, "queue_depth": 0, "quant_mode": "int8"}
+    exited = threading.Event()
+
+    def launch(r):
+        r.proc, r.client = FakeChild(0, exited.wait), object()
+
+    sup._launch, sup._wait_ready = launch, lambda r: answer
+    loop = threading.Thread(target=sup._run_replica, args=(rp,), daemon=True)
+    loop.start()
+    try:
+        assert rp.ready_evt.wait(10)
+        health = router.healthz()
+        assert health["ready"] == 1 and health["checkpoint_steps"] == [7], health
+        status = router.replica_status()[0]
+        assert status["checkpoint_step"] == 7 and status["quant_mode"] == "int8"
+    finally:
+        sup._stop.set()
+        exited.set()
+        loop.join(10)
+    assert not loop.is_alive()

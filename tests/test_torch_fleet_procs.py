@@ -94,7 +94,7 @@ def test_fleet_cli_serves_survives_a_kill_reloads_and_drains(tmp_path):
         assert proc.poll() is None, out.seek(0) or out.read()
         port = int(banner().group(1))
         health = json.loads(_req(port, "GET", "/healthz")[2])
-        assert health["ready"] == 2 and health["checkpoint_steps"] == [1]
+        assert health["ready"] == 2 and health["checkpoint_steps"] == [1], health
 
         # Class maps against the JAX package's in-process int8 engine.
         ref = jengine.InferenceEngine.from_workdir(run, max_bucket=4, echo=False,

@@ -16,11 +16,17 @@ Tasks:
   with ``conv``, ``sharded_same_conv`` of them and its gradients against
   the cotangent ``w``; with ``carry``, stage 0 exchanges, sends its rows
   to stage 1, which exchanges again;
-- ``spatial``: the tiny U-Net from the canonical weights in ``in.npz``
-  trains ``images`` with the spatial step on this rank's columns and rows,
-  at each of ``runs``' ZeRO levels, recording the metrics and at the end
-  the canonical state;
+- ``halo`` with ``upsample``: ``layers.upsample_2x`` of this rank's rows
+  of ``x`` in ``dtype`` (its clamped halo) and its gradient against the
+  cotangent ``w``;
+- ``spatial``: the model of ``task["model"]`` from the canonical weights
+  in ``in.npz`` trains ``images`` with the spatial step on this rank's
+  columns and rows, at each of ``runs``' ZeRO levels, recording the
+  metrics and at the end the canonical state; a run with a ``model`` of
+  its own takes that model and its ``in.npz`` arrays under its ``prefix``;
 - ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
+- ``trainer``: a ``Trainer`` of the CLI's arguments in ``task.json``
+  fits, and records its canonical state, epochs and spatial layout;
 - ``pipeline``: ``PipelineTrainStep`` from the canonical weights, each of
   ``runs`` (its level, and its ``compression`` if it has one, else the
   task's) ``steps`` steps of ``images``; records the metrics,
@@ -72,6 +78,16 @@ def _halo_case(case: dict, inputs: dict) -> dict:
 
     x = torch.from_numpy(_rows(inputs["x"], 1).copy())
     out = {"x": x.numpy().copy()}
+    if case.get("upsample"):
+        from ddlpc_tpu_torch.models.layers import upsample_2x
+
+        xl = x.permute(0, 3, 1, 2).to(getattr(torch, case["dtype"])).requires_grad_(True)
+        y = upsample_2x(xl, mesh.space_size())
+        w = torch.from_numpy(_rows(inputs["w"], 1).copy()).permute(0, 3, 1, 2).to(y.dtype)
+        y.backward(w)
+        out["y"] = y.detach().permute(0, 2, 3, 1).float().numpy()
+        out["gx"] = xl.grad.permute(0, 2, 3, 1).float().numpy()
+        return out
     if case.get("dtype"):
         y = halo_exchange(x.to(getattr(torch, case["dtype"])), case["halo"], spatial_axis=1)
         out["y"] = y.float().numpy()
@@ -110,8 +126,9 @@ def _canonical(state, prefix: str) -> dict:
     return out
 
 
-def _weights(inputs) -> dict:
-    return {k[3:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("sd/")}
+def _weights(inputs, prefix: str = "") -> dict:
+    sd = f"{prefix}sd/"
+    return {k[len(sd):]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith(sd)}
 
 
 def _spatial(task: dict, inputs, rank: int) -> dict:
@@ -119,16 +136,17 @@ def _spatial(task: dict, inputs, rank: int) -> dict:
     _, d, _ = g.coords
     out = {}
     for i, run in enumerate(task["runs"]):
-        level = run["level"]
-        model = build_model(ModelConfig(**task["model"]))
+        level, prefix = run["level"], run.get("prefix", "")
+        images, labels = inputs[f"{prefix}images"], inputs[f"{prefix}labels"]
+        model = build_model(ModelConfig(**run.get("model", task.get("model"))))
         shard_space(model, g.data, g.space)
-        tx = build_optimizer(TrainConfig(learning_rate=task["lr"]), total_steps=len(inputs["images"]))
+        tx = build_optimizer(TrainConfig(learning_rate=task["lr"]), total_steps=len(images))
         comp = CompressionConfig(**task["compression"])
         state = ts.create_train_state(model, tx, g.data, level)
-        load_canonical(state, _weights(inputs))
+        load_canonical(state, _weights(inputs, prefix))
         step = ts.make_train_step_spatial(tx, comp, g.data, g.space, level=level)
-        b = inputs["images"].shape[2] // g.data
-        for t, (x, y) in enumerate(zip(inputs["images"], inputs["labels"])):
+        b = images.shape[2] // g.data
+        for t, (x, y) in enumerate(zip(images, labels)):
             xs = _rows(x[:, d * b : (d + 1) * b], 2)
             ys = _rows(y[:, d * b : (d + 1) * b], 2)
             m = step(state, torch.from_numpy(xs.copy()), torch.from_numpy(ys.astype(np.int64)))
@@ -145,6 +163,22 @@ def _cli(task: dict, inputs, rank: int) -> dict:
 
     assert main(task["argv"]) == 0
     return {}
+
+
+def _trainer(task: dict, inputs, rank: int) -> dict:
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    cfg, resume, device, backend = parse_args(task["argv"])
+    trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
+    try:
+        record = trainer.fit()
+        out = _canonical(trainer.state, "")
+        out.update(epoch=np.int64(record["epoch"]), spatial=np.bool_(trainer.spatial),
+                   space=np.array(trainer.space))
+    finally:
+        trainer.close()
+    return out
 
 
 def _pipeline(task: dict, inputs, rank: int) -> dict:
@@ -258,9 +292,9 @@ def main() -> int:
     path = os.path.join(work, "in.npz")
     inputs = np.load(path) if os.path.exists(path) else None
     try:
-        if name != "cli":
+        if name not in ("cli", "trainer"):
             mesh.init_grid(*task["grid"])
-        out = {"halo": _halo, "spatial": _spatial, "cli": _cli,
+        out = {"halo": _halo, "spatial": _spatial, "cli": _cli, "trainer": _trainer,
                "pipeline": _pipeline}[name](task, inputs, rank)
     finally:
         mesh.destroy_distributed()

@@ -73,10 +73,13 @@ def _batches(h=H, classes=6):
     return (ds.images.reshape(STEPS, A, B, h, h, 3), labels.reshape(STEPS, A, B, h, h))
 
 
-def _jax_gspmd(params0, stats0, images, labels, model_kw, codec):
+def _jax_gspmd(params0, stats0, images, labels, model_kw, codec, grid=(2, 2)):
+    """JAX's ``make_train_step_gspmd`` on a ``grid`` = (data, space) slice
+    of the CPU mesh: the losses and the final params and statistics."""
     jmodel = jbuild_model(JModelConfig(**model_kw))
     tx = optax.adam(LR)
-    mesh = make_mesh(JParallel(data_axis_size=2, space_axis_size=2), jax.devices()[:4])
+    mesh = make_mesh(JParallel(data_axis_size=grid[0], space_axis_size=grid[1]),
+                     jax.devices()[: grid[0] * grid[1]])
     params = jax.tree.map(jnp.asarray, params0)
     state = jts.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                            batch_stats=jax.tree.map(jnp.asarray, stats0),
@@ -195,13 +198,16 @@ def test_refusals_in_the_jax_words():
         with pytest.raises(ValueError) as got:
             make_train_step_spatial(tx, CompressionConfig(**kw), 2, 2)
         assert str(got.value) == str(want.value)
-    for name in ("unetpp", "deeplabv3p"):
-        model = build_model(ModelConfig(name=name, features=(64, 128, 256, 512), width_divisor=16)
-                            if name == "deeplabv3p" else ModelConfig(name=name, features=(8, 16)))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            shard_space(model, 1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_space(build_model(ModelConfig(features=(8, 16), up_sample_mode="bilinear")), 1, 2)
+    deeplab = build_model(ModelConfig(name="deeplabv3p", features=(64, 128, 256, 512),
+                                      width_divisor=16))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
+        shard_space(deeplab, 1, 2)
+    # U-Net++ and bilinear up-sampling shard since they were ported.
+    for kw in (dict(name="unetpp", features=(8, 16)),
+               dict(name="unetpp", features=(8, 16), up_sample_mode="bilinear"),
+               dict(features=(8, 16), up_sample_mode="bilinear")):
+        model = shard_space(build_model(ModelConfig(**kw)), 1, 2)
+        assert model.space == 2
     sharded = shard_space(build_model(ModelConfig(**TINY)), 1, 2)
     with pytest.raises(ValueError, match="deviation"):
         sharded(torch.zeros(1, 12, 32, 3))  # 24 rows over 2: 12 a shard, not a multiple of 8
