@@ -247,9 +247,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the reference's own spread, whichever is larger.  It prints the same
    row (``spatial_unetpp row``), with the phase's wall seconds;
 
+4g''. ``spatial_deeplabv3p``: ``configs/potsdam_deeplabv3p.json`` as
+   written (full width, output stride 16, ASPP rates 6/12/18, bf16, micro
+   8 × sync 4, no codec) with ``parallel.data_axis_size=-1,
+   space_axis_size=2``, in the same two rank processes, each holding 256
+   rows (16 units of 16: the ASPP sees 16 of its 32 rows, so the rate-18
+   conv's halo takes the neighbour's whole 16 rows and two past the
+   global edge).  First the config's own data for the zoo phase's epoch
+   (4 steps): its batches' row blocks must be the ``deeplabv3p`` zoo
+   phase's batches digest for digest, so that run is its unsharded
+   reference (its losses are printed against the ranks', not gated: in
+   bf16 one rounding flip spreads through the encoder and Adam's first
+   update, and two unsharded runs of the same config already differ by
+   1e-4 and more past the first step); then the config computing in
+   float32 with SGD, two steps on 32 training tiles, whose losses must lie
+   within ``SPATIAL_LOSS_RTOL`` of the same run unsharded here, the first
+   step too.  The other gates are ``spatial_unetpp``'s (the first run's
+   checkpoint restored unsharded), its FLOPs half of 7,940,345,954,304 a
+   step.  The timed hop is the rate-18 conv's input, 8 × 512 × 16 × 32
+   bf16 (``spatial_deeplabv3p row``);
+
 4h. ``pipe2_flagship``: ``parallel/pipeline.PipelineTrainStep`` on the
-   flagship at full width, pipe 2 × data 1, two gloo processes of this
-   script (``--pipe-rank``) on ``cuda:0``, ``PIPE_M`` = 4 micro-batches
+   flagship at full width, pipe 2 × data 1, the same two gloo processes
+   after the space phases (``--spatial-rank``: one start-up of the
+   processes for the four phases) on ``cuda:0``, ``PIPE_M`` = 4 micro-batches
    of 128 a step (the flagship trainer's own super-batches of epochs
    0–2), three steps with the flagship's fp16 codec in each stage's
    update (3 launches of each of its kernels, ``absmax`` 6, a stage).
@@ -298,6 +319,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    state (the moments gathered, rank 0 writing), and then every rank
    builds a fresh Trainer that restores it: every rank's params and its
    own chunk of the moments must be bit-identical to the ones saved.
+   Phases of the same world size share one world of processes, run one
+   after another (``DP_SHARED``): the ring and zero3 phases run in
+   ``dp4_zero2_fp16``'s processes, ``dp2_off_int8_sr_traced`` in
+   ``dp2_off_int8_sr``'s.
    ``dp4_zero1_int8_ring`` (4 replicas, zero1, the int8 codec on the ring
    transport: point-to-point hops of the int8 chunks themselves) and
    ``dp4_zero3_fp16_bucket`` (4 replicas, zero3, 8 MiB gradient buckets:
@@ -437,6 +462,12 @@ DP_PHASES = {
                                "absmax": 2},
                               False),
 }
+# The phases that run after a phase in its world of processes, one after
+# another (one start-up of the ranks for all of them): the same world
+# size, backend and card.
+DP_SHARED = {"dp4_zero2_fp16": ("dp4_zero1_int8_ring", "dp4_zero3_fp16_bucket"),
+             "dp2_off_int8_sr": ("dp2_off_int8_sr_traced",)}
+DP_FOLLOWERS = {f for fs in DP_SHARED.values() for f in fs}
 # Substrings of the codec kernels' names (the C entries' and the CUDA
 # kernels', as the profiler names them).
 CODEC_KERNEL_NAMES = ("ddlpc_encode", "ddlpc_decode", "fake_quantize", "absmax", "encode_kernel",
@@ -1484,10 +1515,18 @@ def zoo_phase(label: str, profile: bool) -> dict:
     take ``ZOO_EPOCHS`` times the config's steps an epoch.  Prints its
     peak memory beside the card."""
     config, flops, steps = ZOO_PATHS[label]
+    recorded = {}
+    # A space phase that reuses this run as its unsharded reference needs
+    # its steps' losses and the row blocks of its batches.
+    blocks = max((s["space"] for s in SPATIAL_PHASES.values()
+                  if s.get("reference", (None, None))[1] == label), default=0)
     run = main_path_phase(label, (), {}, warns=False, config=os.path.join(REPO, "configs", config),
                           epochs=ZOO_EPOCHS, micro_batch=None, flops=flops,
-                          loader="ShardedLoader")
+                          loader="ShardedLoader",
+                          prepare=(lambda t: record_steps(t, recorded)) if blocks else None)
     trainer = run["trainer"]
+    if blocks:
+        run.update(recorded, batch_digests=batch_digests(trainer.loader, blocks))
     if trainer.state.step != ZOO_EPOCHS * steps:
         fail(f"[{label}] {trainer.state.step} optimizer steps, expected {ZOO_EPOCHS} x {steps}")
     log(f"[{label}] {trainer.state.step} optimizer steps; peak memory {run['peak_bytes']} bytes "
@@ -1498,6 +1537,34 @@ def zoo_phase(label: str, profile: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return run
+
+
+def record_steps(trainer, into: dict) -> None:
+    """Wrap ``trainer.train_step`` so that each step appends its loss to
+    ``into["step_losses"]`` (a space phase holds each step's loss)."""
+    step = trainer.train_step
+    into["step_losses"] = []
+
+    def recorded(state, images, labels):
+        m = step(state, images, labels)
+        into["step_losses"].append(float(m["loss"]))
+        return m
+
+    trainer.train_step = recorded
+
+
+def batch_digests(loader, blocks: int, epoch: int = 0) -> list:
+    """The digests of the ``blocks`` row blocks (images and labels) of each
+    of ``loader``'s batches in ``epoch``: what a space phase needs to
+    reuse an unsharded run as its reference (its ranks' batches, taken
+    with ``blocks`` 1, must be these blocks)."""
+    loader.set_epoch(epoch)
+    out = []
+    for images, labels in loader:
+        h = images.shape[2] // blocks
+        out.append([_digest(images[:, :, i * h : (i + 1) * h], labels[:, :, i * h : (i + 1) * h])
+                    for i in range(blocks)])
+    return out
 
 
 def vaihingen_like(rng, h: int, w: int):
@@ -2454,10 +2521,26 @@ def _canonical_digest(state) -> str:
 
 def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     """One rank of a data-parallel phase (``mesh.spawn_world`` starts it
-    with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``): the CLI's entry on v5e8
-    for ``EPOCHS`` steps with the launch counts set to 0 just before and
-    read just after, the params' hash all-gathered, the sync-level check,
-    and the sync's cost; writes ``rank<r>.json`` for the parent."""
+    with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``), then of each phase that
+    shares its world (``DP_SHARED``), each in its own directory under
+    ``WORKDIR`` (:func:`_dp_rank_run`)."""
+    from ddlpc_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(backend, f"file://{os.path.join(workdir, 'rendezvous')}")
+    _dp_rank_run(label, workdir, backend, device)
+    for other in DP_SHARED.get(label, ()):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _dp_rank_run(other, os.path.join(WORKDIR, other), backend, device)
+    mesh.destroy_distributed()
+
+
+def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
+    """One rank's run of a data-parallel phase: the CLI's entry on v5e8 for
+    ``EPOCHS`` steps with the launch counts set to 0 just before and read
+    just after, the params' hash all-gathered, the sync-level check, and
+    the sync's cost; writes ``rank<r>.json`` into ``workdir`` for the
+    parent."""
     import torch.distributed as dist
 
     from ddlpc_tpu_torch.obs import hbm
@@ -2468,7 +2551,7 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     from ddlpc_tpu_torch.train.trainer import Trainer
 
     world, extra, level = DP_PHASES[label][:3]
-    mesh.initialize_distributed(backend, f"file://{os.path.join(workdir, 'rendezvous')}")
+    start = time.perf_counter()
     rank = mesh.replica_index()
 
     def argv_for(run: str, extra: tuple) -> list:
@@ -2664,9 +2747,9 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
             "twin_hashes": twin_hashes, "twin_launches": twin_launches,
             "twin_hbm": hbm.state_hbm_bytes(twin.state, "zero2"),
         }
+    result["wall_s"] = time.perf_counter() - start
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    mesh.destroy_distributed()
 
 
 def zero3_restore_into_off(label: str, workdir: str, want: str) -> dict:
@@ -2701,30 +2784,37 @@ def dp_phase(label: str) -> dict:
     """A data-parallel phase: ``W`` ranks of this script (``dp_rank``) as
     one world under ``DP_DEADLINE_S``, NCCL with a card a rank where the
     host has ``W`` cards, else gloo with every rank on ``cuda:0``; then
-    every rank's checks."""
+    every rank's checks.  A phase that shares an earlier phase's world
+    (``DP_SHARED``) ran there: its checks read what that world wrote."""
     import shutil
 
     from ddlpc_tpu_torch.parallel import mesh
 
     world, _, level, per_bucket, warns = DP_PHASES[label]
     workdir = os.path.join(WORKDIR, label)
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
     if torch.cuda.device_count() >= world:
         backend, device = "nccl", "cuda"
     else:
         backend, device = "gloo", "cuda:0"
-    log(f"[{label}] {world} ranks, backend {backend}, device {device} "
-        f"({torch.cuda.device_count()} card(s) on this host)")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--dp-rank", label, workdir,
-                      backend, device], world, DP_DEADLINE_S, cwd=REPO)
-    wall_s = time.perf_counter() - t0
+    world_wall_s = None
+    if label in DP_FOLLOWERS:
+        log(f"[{label}] ran in an earlier phase's world of {world} ranks")
+    else:
+        for d in (label, *DP_SHARED.get(label, ())):
+            shutil.rmtree(os.path.join(WORKDIR, d), ignore_errors=True)
+            os.makedirs(os.path.join(WORKDIR, d))
+        log(f"[{label}] {world} ranks, backend {backend}, device {device} "
+            f"({torch.cuda.device_count()} card(s) on this host)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--dp-rank", label, workdir,
+                          backend, device], world, DP_DEADLINE_S, cwd=REPO)
+        world_wall_s = time.perf_counter() - t0  # with the phases that share the world
     ranks = []
     for r in range(world):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    wall_s = max(rr["wall_s"] for rr in ranks)  # the ranks' own run of this phase
     with open(os.path.join(workdir, "run", "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     records = [r for r in lines if "kind" not in r]
@@ -2770,10 +2860,12 @@ def dp_phase(label: str) -> dict:
     perf = perf_checks(label, lines, V5E8_FLOPS)
     comm_checks(label, lines, ranks, level)
     log(f"[{label}] replicas bit-identical ({ranks[0]['params_hashes'][0][:16]}), synced gradient "
-        f"== plain simulation bit for bit; world wall {wall_s:.1f} s")
+        f"== plain simulation bit for bit; the ranks' run {wall_s:.1f} s, the world's wall "
+        f"{'n/a' if world_wall_s is None else f'{world_wall_s:.1f} s'}")
     return {
         "world": world, "backend": backend, "device": device, "level": level,
         "launches": ranks[0]["launches"], "n_buckets": n_buckets, "wall_s": wall_s,
+        "world_wall_s": world_wall_s,
         "step_time_s": [rec["step_time_s"] for rec in records],
         "losses": [rec["loss"] for rec in records],
         "peak_bytes": [rr["peak_bytes"] for rr in ranks],
@@ -3817,25 +3909,59 @@ SPATIAL_SETS = ("parallel.data_axis_size=-1", "parallel.space_axis_size=2")
 # epochs: three optimizer steps; then, for Cityscapes, one epoch from the
 # converted Cityscapes layout (16 of its 24 frames train: one step).
 SPATIAL_RUNS = {"synthetic": ("data.synthetic_len=24", "data.test_split=8", "train.epochs=3"),
-                "dir": ("data.test_split=8", "train.epochs=1")}
+                "dir": ("data.test_split=8", "train.epochs=1"),
+                # The config's own data as written (Potsdam: 97 training
+                # tiles, 30 held out), for the zoo phase's epochs.
+                "zoo": (f"train.epochs={ZOO_EPOCHS}",),
+                # The config computing in float32 with SGD, on 32 training
+                # tiles (one step of micro 8 × sync 4 an epoch) and 8 held
+                # out, two epochs: two optimizer steps, the second's loss a
+                # smooth function of the first's gradient (Adam's first
+                # update is lr·sign(g), which rounding flips wherever g
+                # nearly vanishes).
+                "fp32_sgd": ("model.compute_dtype=float32", "train.optimizer=sgd",
+                             "data.synthetic_len=40", "data.test_split=8", "train.epochs=2")}
 SPATIAL_LOSS_RTOL = 1e-4  # the tiny models' card-vs-CPU tolerance (reference_phase)
 SPATIAL_DEADLINE_S = 420
 UNETPP = os.path.join(REPO, "configs", "vaihingen_unetpp.json")
+DEEPLAB = os.path.join(REPO, "configs", "potsdam_deeplabv3p.json")
 # The space-axis phases: the config as written at space 2, its runs and
-# their steps, the unsharded step's FLOPs, the codec kernels each step
-# launches once, the halo hop timed (a 3×3 conv's input in the first
-# level: micro, channels, this rank's rows, columns) and whether the unsharded
-# reference runs twice, to measure its own spread before the loss gate.
+# their optimizer steps (one an epoch unless ``epochs`` says otherwise;
+# the first run's checkpoint is restored unsharded, and its step, peak,
+# halo hop and all-reduce are timed), the unsharded step's FLOPs, the
+# codec kernels each step launches once, the halo hop (a conv's input:
+# micro, channels, this rank's rows, columns, and its halo rows), the
+# ``gate`` run (default the first), whose step losses are held within
+# ``SPATIAL_LOSS_RTOL`` of the same run unsharded here (twice under
+# ``twice``, to measure its own spread), and a ``reference``: a run of the
+# phase and the zoo phase that ran it unsharded before, whose batches'
+# row blocks must be the ranks' batches and whose losses it is compared
+# with.
 SPATIAL_PHASES = {
     "spatial_cityscapes": {"config": CITYSCAPES, "steps": {"synthetic": 3, "dir": 1},
                            "flops": CITYSCAPES_FLOPS,
                            "codec": ("fake_quantize_fused", "absmax"),
-                           "halo": (16, 64, 64, 256), "twice": False},
+                           "halo": (16, 64, 64, 256, 1), "twice": False},
     "spatial_unetpp": {"config": UNETPP, "steps": {"synthetic": 3},
                        "flops": ZOO_PATHS["unetpp"][1], "codec": (),
-                       "halo": (4, 32, 256, 512), "twice": True},
+                       "halo": (4, 32, 256, 512, 1), "twice": True},
+    # The ASPP's rate-18 input at 512² and output stride 16: 16 of its 32
+    # rows a rank, so the halo takes all 16 of the neighbour's (the other
+    # two rows lie past the global edge).  bf16 and Adam as written are
+    # compared with the zoo phase's run; the loss gate runs in float32
+    # with SGD, because a rounding's difference grows through the bf16
+    # encoder and Adam's first update into 1e-4–1e-2 of the loss with no
+    # fault (PERF.md §6).
+    "spatial_deeplabv3p": {"config": DEEPLAB,
+                           "steps": {"zoo": ZOO_PATHS["deeplabv3p"][2], "fp32_sgd": 2},
+                           "epochs": {"zoo": ZOO_EPOCHS}, "gate": "fp32_sgd",
+                           "flops": ZOO_PATHS["deeplabv3p"][1], "codec": (),
+                           "halo": (8, 512, 16, 32, 18), "twice": False,
+                           "reference": ("zoo", "deeplabv3p"), "space": SPATIAL_WORLD},
 }
-PIPE_STAGES, PIPE_M, PIPE_MICRO, PIPE_STEPS = 2, 4, 128, 3
+# pipe2_flagship's stages are the space world's two ranks.
+PIPE_LABEL = "pipe2_flagship"
+PIPE_STAGES, PIPE_M, PIPE_MICRO, PIPE_STEPS = SPATIAL_WORLD, 4, 128, 3
 PIPE_SCHEDULE = {"executed_slots": 12, "idle_slots": 2, "measured_bubble": 0.1429}
 PIPE_PARAM_SHARE = 2e-2  # reference_phase's allowance: params apart, each within 2·lr a step
 PIPE_LOSS_RTOL = 1e-4  # reference_phase's loss tolerance
@@ -3888,16 +4014,22 @@ def spatial_argv(label: str, workdir: str, run: str, space: int, device: str,
 
 def spatial_rank(labels: str, data_dir: str) -> None:
     """One rank of the space-axis phases (``SPATIAL_PHASES``; ``labels``
-    comma-separated), one world for all of them: each phase's runs through
-    the CLI's entry at space 2 with the launch counts set to 0 just before
-    and read just after, the canonical state's digest all-gathered, then a
-    halo hop and the world's gradient all-reduce timed; writes each
-    phase's ``rank<r>.json`` into ``WORKDIR/<label>``."""
+    comma-separated) and then of ``pipe2_flagship``, one world of two
+    processes for all of them: each space phase's runs through the CLI's
+    entry at space 2 with the launch counts set to 0 just before and read
+    just after, the canonical state's digest all-gathered, then a halo
+    hop and the world's gradient all-reduce timed; writes each phase's
+    ``rank<r>.json`` into ``WORKDIR/<label>``."""
     from ddlpc_tpu_torch.parallel import mesh
 
     mesh.initialize_distributed("gloo", f"file://{os.path.join(WORKDIR, 'spatial_rendezvous')}")
     for label in labels.split(","):
-        _spatial_rank_phase(label, data_dir)
+        if label == PIPE_LABEL:
+            pipe_rank(os.path.join(WORKDIR, label))
+        else:
+            _spatial_rank_phase(label, data_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
     mesh.destroy_distributed()
 
 
@@ -3914,12 +4046,16 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
     rank = mesh.world_rank()
     start = time.perf_counter()
     result = {"rank": rank, "runs": {}}
-    for run in SPATIAL_PHASES[label]["steps"]:
+    spec = SPATIAL_PHASES[label]
+    first = next(iter(spec["steps"]))
+    for run in spec["steps"]:
         cfg, _, dev, backend = parse_args(
             ["--no-resume"] + spatial_argv(label, workdir, run, 2, RANK_DEVICE, data_dir))
         trainer = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
-        if run == "synthetic":
+        if run == first:
             loader_equal(f"{label} rank {rank}", trainer, trainer.loader, 1)
+        steps = {}
+        record_steps(trainer, steps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cq.reset_launch_counts()
@@ -3929,19 +4065,23 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
         fit_s = time.perf_counter() - t0
         launches = dict(cq.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        if run == spec.get("reference", (None,))[0]:
+            steps["batch_digests"] = batch_digests(trainer.loader, 1)
         digest = _canonical_digest(trainer.state)
         hashes = [None] * SPATIAL_WORLD
         dist.all_gather_object(hashes, digest)
         row = {"launches": launches, "peak_bytes": peak, "fit_s": fit_s, "hashes": hashes,
                "last": last, "spatial": trainer.spatial, "space": list(trainer.space),
-               "level": trainer.shard_update, "n_params": trainer.state.params.numel}
-        if run == "synthetic":
-            # A halo hop of a first-level 3×3 conv's input (one bf16 row
-            # each way), and the step's fp32 gradient all-reduce.
-            b, c, h, w = SPATIAL_PHASES[label]["halo"]
+               "level": trainer.shard_update, "n_params": trainer.state.params.numel, **steps}
+        if run == first:
+            # A halo hop of the phase's conv input (bf16 rows each way;
+            # more rows than the neighbour holds come from it whole, the
+            # rest are past the global edge), and the step's fp32 gradient
+            # all-reduce.
+            b, c, h, w, rows = spec["halo"]
             x = torch.randn(b, c, h, w, device=trainer.device).to(torch.bfloat16)
-            row["halo_ms"] = _timed_ms(lambda: halo_exchange(x, 1), reps=9)
-            row["halo_bytes"] = 2 * b * c * w * 2
+            row["halo_ms"] = _timed_ms(lambda: halo_exchange(x, rows, multi_hop=True), reps=9)
+            row["halo_bytes"] = 2 * min(rows, h) * b * c * w * 2
             grad = trainer.state.params.grad
             row["allreduce_ms"] = _timed_ms(lambda: mesh.all_reduce_(grad, "sum", "stage"))
             row["allreduce_bytes"] = grad.numel() * 4
@@ -3957,21 +4097,22 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
 
 
 def spatial_world(data_dir: str) -> None:
-    """The space-axis phases' two ranks (``--spatial-rank``), one world for
-    every phase of ``SPATIAL_PHASES``: one start-up of the processes."""
+    """The two ranks (``--spatial-rank``) of every phase of
+    ``SPATIAL_PHASES`` and then of ``pipe2_flagship``: one start-up of the
+    processes for all of them."""
     import shutil
 
     from ddlpc_tpu_torch.parallel import mesh
 
-    for label in SPATIAL_PHASES:
+    labels = [*SPATIAL_PHASES, PIPE_LABEL]
+    for label in labels:
         shutil.rmtree(os.path.join(WORKDIR, label), ignore_errors=True)
         os.makedirs(os.path.join(WORKDIR, label))
     with contextlib.suppress(FileNotFoundError):
         os.remove(os.path.join(WORKDIR, "spatial_rendezvous"))
     torch.cuda.empty_cache()
     mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--spatial-rank",
-                      ",".join(SPATIAL_PHASES), data_dir], SPATIAL_WORLD, SPATIAL_DEADLINE_S,
-                     cwd=REPO)
+                      ",".join(labels), data_dir], SPATIAL_WORLD, SPATIAL_DEADLINE_S, cwd=REPO)
 
 
 def _run_records(path: str) -> tuple:
@@ -3980,16 +4121,18 @@ def _run_records(path: str) -> tuple:
     return lines, [r for r in lines if "kind" not in r]
 
 
-def _unsharded(label: str, workdir: str, data_dir: str, name: str) -> tuple:
-    """The phase's synthetic run unsharded in this process, in
-    ``<workdir>/<name>``: its epoch records and peak memory."""
+def _unsharded(label: str, workdir: str, data_dir: str, run: str, name: str) -> tuple:
+    """The phase's ``run`` unsharded in this process, in
+    ``<workdir>/<name>``: its step losses, epoch records and peak memory."""
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
-    argv = spatial_argv(label, workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
+    argv = spatial_argv(label, workdir, run, 1, RANK_DEVICE.split(":")[0], data_dir)
     argv[argv.index("--workdir") + 1] = os.path.join(workdir, name)
     cfg, _, dev, backend = parse_args(["--no-resume"] + argv)
     ref = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
+    steps = {}
+    record_steps(ref, steps)
     torch.cuda.reset_peak_memory_stats()
     ref.fit()
     torch.cuda.synchronize()
@@ -3998,14 +4141,14 @@ def _unsharded(label: str, workdir: str, data_dir: str, name: str) -> tuple:
     del ref
     gc.collect()
     torch.cuda.empty_cache()
-    return _run_records(os.path.join(workdir, name))[1], peak
+    return steps["step_losses"], _run_records(os.path.join(workdir, name))[1], peak
 
 
 def _max_rel(got: list, want: list) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def spatial_phase(label: str, data_dir: str) -> dict:
+def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
     """A space-axis phase (``SPATIAL_PHASES``): the config as written with
     ``parallel.data_axis_size=-1`` and ``space_axis_size=2``, run by the
     two gloo ranks of :func:`spatial_world` on ``cuda:0``, each holding
@@ -4015,16 +4158,22 @@ def spatial_phase(label: str, data_dir: str) -> dict:
     width, s2d ×4, bf16, the fp16 codec on the mean), the synthetic run
     and the converted layout's; ``spatial_unetpp``:
     ``configs/vaihingen_unetpp.json`` (full width, deep supervision, bf16,
-    no stem, no codec), the synthetic run.  Gates: finite losses; every
-    rank's canonical state the same bits; the codec's launches exactly
-    one of each of the phase's kernels a step a rank and none of the
-    others; each epoch's FLOPs half the unsharded step's; the host
-    loader's rows ``DeviceLoader``'s; the synthetic run's losses within
-    ``SPATIAL_LOSS_RTOL`` of the same config unsharded in one process
-    (under ``twice``, the unsharded run repeats, and past the first step,
-    whose loss no update has moved, the gate widens to twice its own
-    spread where that is larger); and its checkpoint restored into that
-    unsharded trainer bit for bit."""
+    no stem, no codec), the synthetic run; ``spatial_deeplabv3p``:
+    ``configs/potsdam_deeplabv3p.json`` (full width, output stride 16,
+    ASPP rates 6/12/18, bf16, no codec) on its own data for the zoo
+    phase's epoch, against ``reference``, the ``deeplabv3p`` zoo phase's
+    run, then computing in float32 with SGD for two steps.  Gates: finite losses;
+    every rank's canonical state the same bits; the codec's launches
+    exactly one of each of the phase's kernels a step a rank and none of
+    the others; each epoch's FLOPs half the unsharded step's; the host
+    loader's rows ``DeviceLoader``'s; the gate run's step losses within
+    ``SPATIAL_LOSS_RTOL`` of the same run unsharded in one process (under
+    ``twice``, the unsharded run repeats, and past the first step, whose
+    loss no update has moved, the gate widens to twice its own spread
+    where that is larger); a reference run's batches split into the
+    ranks' row blocks the ranks' batches, digest for digest (its losses
+    against the reference's are reported); and the first run's
+    checkpoint restored into an unsharded trainer bit for bit."""
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
@@ -4036,7 +4185,9 @@ def spatial_phase(label: str, data_dir: str) -> dict:
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     out = {"world": SPATIAL_WORLD, "runs": {}}
+    first = next(iter(spec["steps"]))
     for run, steps in spec["steps"].items():
+        epochs = spec.get("epochs", {}).get(run, steps)
         lines, records = _run_records(os.path.join(workdir, run))
         perf = perf_checks(f"{label}:{run}", lines, spec["flops"] // 2, len(records))
         want = {name: 0 for name in ranks[0]["runs"][run]["launches"]}
@@ -4056,53 +4207,82 @@ def spatial_phase(label: str, data_dir: str) -> dict:
                 f"{rec['step_time_s']} grad_norm {rec['grad_norm']} val_miou {rec.get('val_miou')}")
             if not math.isfinite(rec["loss"]) or not math.isfinite(rec["grad_norm"]):
                 fail(f"[{label}:{run}] non-finite training metrics {rec}")
-        if len(records) != steps:  # one step an epoch
-            fail(f"[{label}:{run}] {len(records)} epoch records for {steps} steps")
-        out["runs"][run] = {"losses": [r["loss"] for r in records],
+        if len(records) != epochs or len(ranks[0]["runs"][run]["step_losses"]) != steps:
+            fail(f"[{label}:{run}] {len(records)} epoch records and "
+                 f"{len(ranks[0]['runs'][run]['step_losses'])} steps for {epochs} and {steps}")
+        out["runs"][run] = {"losses": ranks[0]["runs"][run]["step_losses"],
                             "step_time_s": [r["step_time_s"] for r in records],
                             "peak_bytes": [rr["runs"][run]["peak_bytes"] for rr in ranks],
                             "launches": ranks[0]["runs"][run]["launches"],
                             "epochs": path_row(f"{label}:{run}", records, perf)}
-    # The same synthetic run unsharded in one process (twice under
-    # ``twice``), then its checkpoint.
-    ref_records, ref_peak = _unsharded(label, workdir, data_dir, "unsharded")
-    got, want = out["runs"]["synthetic"]["losses"], [r["loss"] for r in ref_records]
+    # A reference run: its batches the zoo phase's run's row blocks, and
+    # its losses against that run's.
+    ref_run, ref_label = spec.get("reference", (None, None))
+    drift = None
+    if ref_run:
+        if reference is None:
+            fail(f"[{label}] no {ref_label} run to hold the ranks against")
+        for t, blocks in enumerate(reference["batch_digests"]):
+            mine = [rr["runs"][ref_run]["batch_digests"][t][0] for rr in ranks]
+            if mine != blocks:
+                fail(f"[{label}:{ref_run}] batch {t}: the ranks' batches {mine} are not the row "
+                     f"blocks of the {ref_label} run's {blocks}")
+        got, want = out["runs"][ref_run]["losses"], reference["step_losses"]
+        if len(got) != len(want):
+            fail(f"[{label}:{ref_run}] {len(got)} losses at space 2 against {len(want)} unsharded")
+        drift = {"losses": got, "unsharded_losses": want, "max_rel": _max_rel(got, want),
+                 "first_rel": _max_rel(got[:1], want[:1])}
+        log(f"[{label}:{ref_run}] the ranks' batches are the row blocks of the {ref_label} run's, "
+            f"{len(reference['batch_digests'])} batches, digest for digest; losses at space 2 {got} "
+            f"against the {ref_label} run's {want}: max rel {drift['max_rel']:.3e}, first step "
+            f"{drift['first_rel']:.3e}")
+    # The gate run unsharded in one process (twice under ``twice``).
+    gate = spec.get("gate", first)
+    want, ref_records, gate_peak = _unsharded(label, workdir, data_dir, gate, "unsharded")
+    got = out["runs"][gate]["losses"]
     if len(got) != len(want):
-        fail(f"[{label}] {len(got)} losses at space 2 against {len(want)} unsharded")
+        fail(f"[{label}:{gate}] {len(got)} losses at space 2 against {len(want)} unsharded")
     self_rel, rtol = None, SPATIAL_LOSS_RTOL
     if spec["twice"]:
-        again = [r["loss"] for r in _unsharded(label, workdir, data_dir, "unsharded_again")[0]]
+        again = _unsharded(label, workdir, data_dir, gate, "unsharded_again")[0]
         self_rel = _max_rel(again, want)
         rtol = max(SPATIAL_LOSS_RTOL, 2 * self_rel)
-        log(f"[{label}] unsharded twice: {want} and {again}, max rel {self_rel:.3e}; the gate "
-            f"past the first step {rtol:.3e}")
-    first, rel = _max_rel(got[:1], want[:1]), _max_rel(got, want)
-    log(f"[{label}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e}, first "
-        f"step {first:.3e} (tolerance {SPATIAL_LOSS_RTOL}, then {rtol:.3e})")
-    if first > SPATIAL_LOSS_RTOL or _max_rel(got[1:], want[1:]) > rtol:
-        fail(f"[{label}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} (first step) and "
+        log(f"[{label}:{gate}] unsharded twice: {want} and {again}, max rel {self_rel:.3e}; the "
+            f"gate past the first step {rtol:.3e}")
+    first_rel, rel = _max_rel(got[:1], want[:1]), _max_rel(got, want)
+    log(f"[{label}:{gate}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e}, "
+        f"first step {first_rel:.3e} (tolerance {SPATIAL_LOSS_RTOL}, then {rtol:.3e})")
+    if first_rel > SPATIAL_LOSS_RTOL or _max_rel(got[1:], want[1:]) > rtol:
+        fail(f"[{label}:{gate}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} (first step) and "
              f"{rtol:.3e} of unsharded {want}")
-    argv = spatial_argv(label, workdir, "synthetic", 1, RANK_DEVICE.split(":")[0], data_dir)
+    if ref_run:  # the first run's unsharded times and peak are the zoo run's
+        ref_step_s = [r["step_time_s"] for r in reference["epochs"]]
+        ref_peak = reference["peak_bytes"]
+    else:
+        ref_step_s, ref_peak = [r["step_time_s"] for r in ref_records], gate_peak
+    argv = spatial_argv(label, workdir, first, 1, RANK_DEVICE.split(":")[0], data_dir)
     cfg, _, dev, backend = parse_args(argv)
     restored = Trainer(cfg, resume=True, device=dev, dist_backend=backend)
-    equal = _canonical_digest(restored.state) == ranks[0]["runs"]["synthetic"]["hashes"][0]
-    if restored.spatial or restored.start_epoch != 3 or not equal:
+    equal = _canonical_digest(restored.state) == ranks[0]["runs"][first]["hashes"][0]
+    epochs = spec.get("epochs", {}).get(first, spec["steps"][first])
+    if restored.spatial or restored.start_epoch != epochs or not equal:
         fail(f"[{label}] the space-2 checkpoint restored into one unsharded process: spatial "
              f"{restored.spatial}, start_epoch {restored.start_epoch}, bits equal {equal}")
     restored.close()
     del restored
     gc.collect()
     torch.cuda.empty_cache()
-    syn = ranks[0]["runs"]["synthetic"]
-    row = {"step_time_s": out["runs"]["synthetic"]["step_time_s"],
-           "unsharded_step_time_s": [r["step_time_s"] for r in ref_records],
-           "losses": got, "unsharded_losses": want, "max_rel": rel, "first_rel": first,
-           "unsharded_self_rel": self_rel, "loss_rtol": rtol,
-           "peak_gib": [rr["runs"]["synthetic"]["peak_bytes"] / 2**30 for rr in ranks],
+    syn = ranks[0]["runs"][first]
+    row = {"step_time_s": out["runs"][first]["step_time_s"],
+           "unsharded_step_time_s": ref_step_s,
+           "losses": got, "unsharded_losses": want, "max_rel": rel, "first_rel": first_rel,
+           "unsharded_self_rel": self_rel, "loss_rtol": rtol, "gate_run": gate,
+           "reference_drift": drift,
+           "peak_gib": [rr["runs"][first]["peak_bytes"] / 2**30 for rr in ranks],
            "unsharded_peak_gib": ref_peak / 2**30,
-           "halo_ms": [rr["runs"]["synthetic"]["halo_ms"] for rr in ranks],
-           "halo_bytes": syn["halo_bytes"],
-           "allreduce_ms": [rr["runs"]["synthetic"]["allreduce_ms"] for rr in ranks],
+           "halo_ms": [rr["runs"][first]["halo_ms"] for rr in ranks],
+           "halo_bytes": syn["halo_bytes"], "halo_shape": list(spec["halo"]),
+           "allreduce_ms": [rr["runs"][first]["allreduce_ms"] for rr in ranks],
            "allreduce_bytes": syn["allreduce_bytes"], "restored_unsharded": equal,
            "ranks_s": ranks[0]["wall_s"], "wall_s": ranks[0]["wall_s"] + time.perf_counter() - t0}
     log(f"{label} row: {json.dumps(row)} ({smi_line()})")
@@ -4138,7 +4318,8 @@ def pipe_model(cfg):
 
 
 def pipe_rank(workdir: str) -> None:
-    """One rank of ``pipe2_flagship``: ``PipelineTrainStep`` on the
+    """One rank of ``pipe2_flagship``, in the world of the space phases
+    (:func:`spatial_rank`, after them): ``PipelineTrainStep`` on the
     flagship at full width with its own codec, ``PIPE_STEPS`` steps, the
     codec's launches counted a stage; writes ``rank<r>.json`` (and rank 0
     the canonical state's parameters and statistics)."""
@@ -4152,7 +4333,7 @@ def pipe_rank(workdir: str) -> None:
     from ddlpc_tpu_torch.parallel.pipeline import make_pipeline_train_step
     from ddlpc_tpu_torch.parallel.train_step import create_train_state
 
-    mesh.initialize_distributed("gloo", f"file://{os.path.join(workdir, 'rendezvous')}")
+    start = time.perf_counter()
     mesh.init_grid(PIPE_STAGES, 1, 1)
     rank = mesh.world_rank()
     device = torch.device(RANK_DEVICE)
@@ -4194,21 +4375,20 @@ def pipe_rank(workdir: str) -> None:
         "blocks": list(drv.blocks), "resident_bytes": resident, "priced": priced,
         "stash_bytes": drv.stash_bytes, "stash_priced": stash_want,
         "peak_bytes": torch.cuda.max_memory_allocated(), "digest": _canonical_digest(can),
-        "names": list(p.stages[0].params.names),
+        "names": list(p.stages[0].params.names), "wall_s": time.perf_counter() - start,
     }
     if rank == 0:
         sd, _ = gather_canonical(can)
         torch.save({k: v.clone() for k, v in sd.items()}, os.path.join(workdir, "staged.pt"))
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    mesh.destroy_distributed()
 
 
 def pipe_phase() -> dict:
     """``pipe2_flagship``: ``PipelineTrainStep`` on the flagship U-Net at
     full width (``configs/vaihingen_unet_tpu_flagship.json``, its fp16
-    codec), pipe 2 × data 1: two gloo ranks of this script on ``cuda:0``
-    (``--pipe-rank``), ``PIPE_M`` = 4 micro-batches of 128 (the flagship's
+    codec), pipe 2 × data 1: the two gloo ranks of :func:`spatial_world`
+    on ``cuda:0`` after the space phases, ``PIPE_M`` = 4 micro-batches of 128 (the flagship's
     super-batch of 512) a step, three steps.  Gates: the canonical state
     and losses within ``reference_phase``'s allowance of the unstaged step
     with the same codec on the same micro-batches, its scale taken a
@@ -4218,22 +4398,13 @@ def pipe_phase() -> dict:
     executed 12, idle 2, bubble 0.1429; the codec launched once a step a
     stage (``absmax`` twice); the last stage's carry stash equal to
     ``pipeline_carry_stash_bytes``; finite losses."""
-    import shutil
-
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.convert import gather_canonical
-    from ddlpc_tpu_torch.parallel import mesh
     from ddlpc_tpu_torch.parallel.train_step import create_train_state, make_train_step
 
-    label = "pipe2_flagship"
+    label = PIPE_LABEL
     workdir = os.path.join(WORKDIR, label)
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--pipe-rank", workdir],
-                     PIPE_STAGES, DP_DEADLINE_S, cwd=REPO)
-    wall_s = time.perf_counter() - t0
     stages = {}
     for r in range(PIPE_STAGES):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
@@ -4333,7 +4504,8 @@ def pipe_phase() -> dict:
            "launches": [stages[s]["launches"] for s in order], "param_share": share,
            "max_abs_diff": worst, "loss_rel": gate["loss_rel"],
            "whole_scale": {k: runs["whole"][k] for k in ("share", "worst", "stats_rel", "loss_rel")},
-           "wall_s": wall_s}
+           "ranks_s": max(a["wall_s"] for a in stages.values()),
+           "wall_s": max(a["wall_s"] for a in stages.values()) + time.perf_counter() - t0}
     log(f"pipeline row: {json.dumps(row)} ({smi_line()})")
     return {"row": row, "launches": stages[0]["launches"], "launches_s1": stages[1]["launches"]}
 
@@ -4352,9 +4524,6 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--spatial-rank"]:  # one rank of the space-axis phases
         spatial_rank(*sys.argv[2:4])
-        return 0
-    if sys.argv[1:2] == ["--pipe-rank"]:  # one stage of pipe2_flagship
-        pipe_rank(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--stall"]:  # the watchdog phase's training process
         stall_run(sys.argv[2])
@@ -4454,8 +4623,11 @@ def main() -> int:
     timed("spatial_ranks", spatial_world, cs_tiles)
     spatial = timed("spatial_cityscapes", spatial_phase, "spatial_cityscapes", cs_tiles)
     spatial_pp = timed("spatial_unetpp", spatial_phase, "spatial_unetpp", cs_tiles)
+    spatial_dl = timed("spatial_deeplabv3p", spatial_phase, "spatial_deeplabv3p", cs_tiles,
+                       zoo["deeplabv3p"])
     for row in cs_rows:
-        for label, run in (("spatial_cityscapes", spatial), ("spatial_unetpp", spatial_pp)):
+        for label, run in (("spatial_cityscapes", spatial), ("spatial_unetpp", spatial_pp),
+                           ("spatial_deeplabv3p", spatial_dl)):
             row["launches_by_path"][label] = sum(
                 r["launches"][row["name"]] for r in run["runs"].values())
     pipe = timed("pipe2_flagship", pipe_phase)
@@ -4480,8 +4652,8 @@ def main() -> int:
             by_path["serve_int8"] = serve["modes"]["int8"]["path_launches"].get(row["name"], 0)
             by_path["pipe2_flagship_stage0"] = pipe["launches"][row["name"]]
             by_path["pipe2_flagship_stage1"] = pipe["launches_s1"][row["name"]]
-            by_path["spatial_unetpp"] = sum(r["launches"][row["name"]]
-                                            for r in spatial_pp["runs"].values())
+            for label, run in (("spatial_unetpp", spatial_pp), ("spatial_deeplabv3p", spatial_dl)):
+                by_path[label] = sum(r["launches"][row["name"]] for r in run["runs"].values())
             row["launches"] = by_path[path]
             row["launches_by_path"] = by_path
     rows += sr_rows
@@ -4509,7 +4681,8 @@ def main() -> int:
                                                         "span_counts", "top_ops_001",
                                                         "codec_in_capture")},
                       "traced_dp": traced_dp, "spatial": spatial["row"],
-                      "spatial_unetpp": spatial_pp["row"], "pipeline": pipe["row"],
+                      "spatial_unetpp": spatial_pp["row"],
+                      "spatial_deeplabv3p": spatial_dl["row"], "pipeline": pipe["row"],
                       "phase_seconds": PHASE_SECONDS}))
     PHASE_SECONDS["total"] = round(time.perf_counter() - start, 1)
     log("phase_seconds: " + json.dumps(PHASE_SECONDS) + f" ({smi})")

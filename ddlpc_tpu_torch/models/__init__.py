@@ -13,8 +13,8 @@ import torch
 from torch import nn
 
 from ddlpc_tpu_torch.config import ExperimentConfig, ModelConfig
-from ddlpc_tpu_torch.models.deeplabv3p import DeepLabV3Plus
-from ddlpc_tpu_torch.models.layers import BatchNorm, Conv, GroupNorm, UpBlock
+from ddlpc_tpu_torch.models.deeplabv3p import ASPP, DeepLabV3Plus
+from ddlpc_tpu_torch.models.layers import BatchNorm, Conv, GroupNorm, UpBlock, space_halo
 from ddlpc_tpu_torch.models.unet import UNet
 from ddlpc_tpu_torch.models.unetpp import UNetPP
 
@@ -122,27 +122,35 @@ def build_model(
     return model
 
 
-SPACE_ROADMAP = (
-    "ROADMAP A6.3 queues DeepLabV3+ (its dilated and stride-2 convs, image "
-    "pooling and ×4/×8 resizes) under the space axis"
-)
+SPACE_ROADMAP = "ROADMAP A6.4 queues uneven H shards under the space axis"
 
 
 def space_pools(cfg: ModelConfig) -> int:
-    """The 2×2 pools behind the stem, which set the model's row unit
+    """The halvings of H behind the stem, which set the model's row unit
     (:func:`check_space_rows`): the U-Net pools once a level before its
     bottleneck, U-Net++ ``depth − 1`` times (its deepest node is not
-    pooled)."""
+    pooled), DeepLabV3+ ``log2(output_stride)`` times (its stride-2 stem,
+    pool and stages, so that each of them sees an even local grid)."""
+    if cfg.name == "deeplabv3p":
+        return cfg.output_stride.bit_length() - 1
     return len(cfg.features) - (cfg.name == "unetpp")
+
+
+def space_stem_factor(cfg: ModelConfig) -> int:
+    """The space-to-depth factor in front of the pools (1 for DeepLabV3+,
+    which has no such stem)."""
+    return cfg.stem_factor if cfg.stem == "s2d" and cfg.name != "deeplabv3p" else 1
 
 
 def check_space_rows(height: int, space: int, stem_factor: int, pools: int) -> None:
     """Refuse an image height whose shards are not row-local: each of the
     ``space`` shards must hold a multiple of ``stem_factor · 2**pools``
-    rows, so that space-to-depth, every 2×2 pool and transposed conv, and
-    depth-to-space stay inside a shard (``pools`` is the caller's model's,
-    :func:`space_pools`).  The JAX package's GSPMD path pads uneven shards
-    instead: refusing them is a deviation of the port (ROADMAP C17)."""
+    rows, so that space-to-depth, every 2×2 pool, stride-2 window and
+    transposed conv, and depth-to-space stay on the global grid's phase
+    inside a shard (``stem_factor`` and ``pools`` are the caller's
+    model's, :func:`space_stem_factor` and :func:`space_pools`).  The JAX
+    package's GSPMD path pads uneven shards instead: refusing them is a
+    deviation of the port (ROADMAP C17)."""
     unit = stem_factor * 2 ** pools
     if height % space or (height // space) % unit:
         raise ValueError(
@@ -150,41 +158,42 @@ def check_space_rows(height: int, space: int, stem_factor: int, pools: int) -> N
             f"{height / space:g} rows a shard, not a multiple of stem_factor·2**pools "
             f"= {stem_factor}·2**{pools} = {unit}; the port shards only evenly "
             f"(the JAX package's GSPMD pads uneven shards — a documented "
-            f"deviation, ROADMAP C17): pick a tile height divisible by {unit * space}"
+            f"deviation, ROADMAP C17; {SPACE_ROADMAP}): pick a tile height "
+            f"divisible by {unit * space}"
         )
+
+
+_SPACED = (GroupNorm, UpBlock, UNet, UNetPP, DeepLabV3Plus, ASPP)
 
 
 def shard_space(model: nn.Module, data_size: int, space_size: int) -> nn.Module:
-    """Shard ``model``'s H over the space axis, in place: every conv of a
-    kernel wider than 1 exchanges ``dilation · (k // 2)`` rows with its
-    neighbours, a bilinear ``UpBlock`` one clamped row (``UpBlock.space``),
-    BatchNorm reduces over the stage's (data, space) group of
+    """Shard ``model``'s H over the space axis, in place: every conv with a
+    window or a stride takes the rows its window reads beyond the shard
+    from its neighbours (``Conv.halo``, :func:`layers.space_halo`:
+    ``dilation · (k // 2)`` a side at stride 1, across several shards
+    where that passes a shard's rows; one row from below for a 3×3
+    stride-2 conv; none for a strided 1×1 conv, which keeps its own even
+    rows), BatchNorm reduces over the stage's (data, space) group of
     ``data_size · space_size`` ranks (the JAX GSPMD step's statistics over
     the logical global batch, which it takes with or without
-    ``sync_batch_norm``), GroupNorm over the space group.  The U-Net and
-    U-Net++, with either up-sampling, are row-local otherwise; DeepLabV3+
-    and any strided conv raise ``NotImplementedError``."""
+    ``sync_batch_norm``), GroupNorm over the space group, and the models,
+    a bilinear ``UpBlock`` and DeepLabV3+'s ASPP learn the group's size
+    (``space``: the row check, the clamped resizes, DeepLabV3+'s pool and
+    image pool).  The U-Net, U-Net++ and DeepLabV3+ shard; another module
+    raises ``NotImplementedError``."""
     if space_size <= 1:
         return model
-    if not isinstance(model, (UNet, UNetPP)):
+    if not isinstance(model, (UNet, UNetPP, DeepLabV3Plus)):
         raise NotImplementedError(
             f"{type(model).__name__} under parallel.space_axis_size={space_size}: "
-            f"its dilated ASPP convs need halos up to 18 rows, its stride-2 convs and "
-            f"pool a strided halo and its image pooling a space all-reduce, none of "
-            f"which is ported; {SPACE_ROADMAP}"
+            f"the space axis shards the U-Net, U-Net++ and DeepLabV3+"
         )
-    model.space = space_size
     for m in model.modules():
-        if isinstance(m, Conv) and m.kernel > 1:
-            if m.stride != 1:
-                raise NotImplementedError(
-                    f"a stride-{m.stride} {m.kernel}×{m.kernel} conv under the "
-                    f"space axis; {SPACE_ROADMAP}"
-                )
-            m.halo = m.dilation * (m.kernel // 2)
+        if isinstance(m, Conv) and (m.kernel > 1 or m.stride > 1):
+            m.halo = space_halo(m.kernel, m.stride, m.dilation)
         elif isinstance(m, BatchNorm):
             m.axis_size, m.axis = data_size * space_size, "stage"
-        elif isinstance(m, (GroupNorm, UpBlock)):
+        elif isinstance(m, _SPACED):
             m.space = space_size
     return model
 
@@ -195,8 +204,7 @@ def space_off(model: nn.Module):
     rank, no halo and no statistics over the space axis (an eval-mode
     forward then needs no collective).  Restores the sharding after."""
     saved = [(m, m.halo) for m in model.modules() if isinstance(m, Conv)]
-    saved += [(m, m.space) for m in model.modules()
-              if isinstance(m, (GroupNorm, UpBlock, UNet, UNetPP))]
+    saved += [(m, m.space) for m in model.modules() if isinstance(m, _SPACED)]
     for m, _ in saved:
         if isinstance(m, Conv):
             m.halo = 0

@@ -8,6 +8,16 @@ dilates instead of striding, ASPP with an image-pool branch, and a decoder
 that up-samples bilinearly to the stride-4 features and the logits to the
 input.  Names are flax's (``ConvNormAct_0``, ``stage{s}_block{b}``,
 ``ASPP_0``, …; inside a block ``Conv_0``/``Norm_0`` … in creation order).
+
+H sharded over the space axis (``models.shard_space`` sets ``space`` here
+and in ``ASPP``): every 3×3 conv takes its halo (one-sided for the
+stride-2 ones, up to ``dilation`` rows and several shards for the dilated
+ones, ``layers.Conv``), the stem's pool one ``-inf``-filled row from below
+(``layers.max_pool_same``), the image pool a sum over the space group,
+and both decoder resizes one clamped row a side (``layers.upsample``);
+each shard then holds a multiple of ``output_stride`` rows
+(``models.check_space_rows``), so that every stride-2 layer sees an even
+local grid and the strided 1×1 shortcuts stay row-local.
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ from ddlpc_tpu_torch.models.layers import (
     Conv,
     ConvNormAct,
     Norm,
+    _AllReduceSum,
     max_pool_same,
     resize_bilinear,
     stat_dtype,
+    upsample,
 )
 
 
@@ -56,7 +68,8 @@ class ResidualBlock(nn.Module):
 class ASPP(nn.Module):
     """1×1 and dilated 3×3 branches and an image-pool branch (a mean over
     the grid, a 1×1 ConvNormAct on the 1×1 grid, broadcast back), fused by
-    a 1×1 ConvNormAct."""
+    a 1×1 ConvNormAct.  ``space > 1``: H is sharded over a space group of
+    that size, and the mean takes every shard's rows."""
 
     def __init__(self, in_features, features, rates: Sequence[int], dtype, norm="batch",
                  norm_groups=8, generator=None):
@@ -73,11 +86,27 @@ class ASPP(nn.Module):
                         ConvNormAct(features * (len(rates) + 2), features, dtype,
                                     kernel_size=1, **common))
         self.dtype = dtype
+        self.space = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [getattr(self, f"ConvNormAct_{k}")(x) for k in range(self.n_rates + 1)]
         # jnp.mean of bf16 sums in float32 and rounds once.
-        pooled = x.mean(dim=(2, 3), keepdim=True, dtype=stat_dtype(x)).to(x.dtype)
+        if self.space > 1:
+            # The shard's rows summed in float32, the sum over the space
+            # group, divided by the whole grid.  Every rank then holds the
+            # same pooled value, and the 1×1 ConvNormAct runs on it
+            # replicated.  The gradient is summed over the group exactly
+            # once, by this all-reduce's backward: each rank's cotangent
+            # of the pooled value carries only its own rows' loss, and the
+            # branch's stage-wide BatchNorm (``BatchNorm.axis``) does not
+            # add the others' — its statistics' backward hands each rank
+            # 1/(data·space) of the group's cotangent of the shared mean,
+            # which summed over the space group is that cotangent once.
+            total = _AllReduceSum.apply(
+                x.sum(dim=(2, 3), keepdim=True, dtype=stat_dtype(x)), "space")
+            pooled = (total / (x.shape[2] * self.space * x.shape[3])).to(x.dtype)
+        else:
+            pooled = x.mean(dim=(2, 3), keepdim=True, dtype=stat_dtype(x)).to(x.dtype)
         pooled = getattr(self, f"ConvNormAct_{self.n_rates + 1}")(pooled)
         branches.append(pooled.expand(-1, -1, *x.shape[2:]).to(self.dtype))
         return getattr(self, f"ConvNormAct_{self.n_rates + 2}")(torch.cat(branches, dim=1))
@@ -113,6 +142,8 @@ class DeepLabV3Plus(nn.Module):
         common = dict(norm=norm, generator=g, norm_groups=norm_groups)
         self.dtype = dtype
         self.head_dtype = head_dtype
+        self.output_stride = output_stride
+        self.space = 1  # models.shard_space sets the space axis's size
         self.ConvNormAct_0 = ConvNormAct(in_channels, w(stem_features), dtype, stride=2, **common)
         # Stage strides: 1, 2, 2 until the output stride is reached, then
         # dilation doubling instead (16: the last stage; 8: the last two).
@@ -150,15 +181,31 @@ class DeepLabV3Plus(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images [N,H,W,C] float, H and W divisible by the output stride →
         logits [N,H,W,num_classes] in the head dtype."""
+        if self.space > 1:
+            from ddlpc_tpu_torch.models import check_space_rows
+
+            check_space_rows(images.shape[1] * self.space, self.space, 1,
+                             pools=self.output_stride.bit_length() - 1)
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        y = max_pool_same(self.ConvNormAct_0(x), 3, 2)
+        y = max_pool_same(self.ConvNormAct_0(x), 3, 2, self.space)
         low_level = None
         for s, name in self.blocks:
             y = getattr(self, name)(y)
             if s == 0:
                 low_level = y  # stride-4 features for the decoder
-        y = resize_bilinear(self.ASPP_0(y), low_level.shape[2:])
+        y = self._resize(self.ASPP_0(y), low_level.shape[2:])
         y = torch.cat([y, self.ConvNormAct_1(low_level)], dim=1)
         y = self.ConvNormAct_3(self.ConvNormAct_2(y))
         logits = self.Conv_0(y.to(self.head_dtype))
-        return resize_bilinear(logits, x.shape[2:]).permute(0, 2, 3, 1)
+        return self._resize(logits, x.shape[2:]).permute(0, 2, 3, 1)
+
+    def _resize(self, x: torch.Tensor, size) -> torch.Tensor:
+        """Bilinear up-sampling to ``size``; sharded, a whole factor of the
+        local rows (×4 at output stride 16 both times, ×2 then ×4 at 8)."""
+        if self.space <= 1:
+            return resize_bilinear(x, size)
+        r = size[0] // x.shape[2]
+        if (r * x.shape[2], r * x.shape[3]) != tuple(size):
+            raise ValueError(f"a sharded resize from {tuple(x.shape[2:])} to {tuple(size)} "
+                             f"is not a whole factor")
+        return upsample(x, r, self.space)

@@ -14,16 +14,21 @@ columns), so a 3×3 stride-2 conv on an even grid pads the bottom and the
 right only.  :func:`same_pads` computes it; :class:`Conv` and
 :func:`max_pool_same` pad with it explicitly.
 
-H sharded over the ``space`` axis (``models.shard_space``): a stride-1
-conv with ``Conv.halo`` rows takes them from its neighbours
-(``parallel/halo.py``) and pads only W; the bilinear 2× up-sampling of an
-``UpBlock`` with ``UpBlock.space > 1`` takes one clamped halo row a side
-(:func:`upsample_2x`); BatchNorm reduces its statistics over the stage's
-whole (data, space) group (``BatchNorm.axis``), GroupNorm over the space
-group (``GroupNorm.space``).  Every other op of the U-Net and U-Net++
-(space-to-depth, the 2×2 pool, the 2×2 transposed conv, the 1×1 heads,
-depth-to-space, ``group_labels``) is row-local once the local H divides
-by the stem factor times 2 to the number of pools.
+H sharded over the ``space`` axis (``models.shard_space``): a conv with
+``Conv.halo = (top, bottom)`` takes those rows from its neighbours
+(``parallel/halo.py``, across several shards where a dilated conv reads
+further than a shard's rows) and pads only W — ``(d, d)`` for a stride-1
+conv of dilation ``d``, ``(0, 1)`` for a 3×3 stride-2 conv on an even
+grid, ``(0, 0)`` for a strided 1×1 conv, which subsamples its own rows;
+the 3×3/2 'SAME' max pool takes one row from below, ``-inf`` past the
+global bottom (:func:`max_pool_same`); a bilinear ×r up-sampling takes
+one clamped halo row a side (:func:`upsample`); BatchNorm reduces its
+statistics over the stage's whole (data, space) group
+(``BatchNorm.axis``), GroupNorm over the space group
+(``GroupNorm.space``).  Every other op of the zoo (space-to-depth, the
+2×2 pool, the 2×2 transposed conv, the 1×1 heads, depth-to-space,
+``group_labels``) is row-local once the local H divides by the model's
+row unit (``models.check_space_rows``).
 """
 
 from __future__ import annotations
@@ -232,10 +237,12 @@ def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1):
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with 'SAME' padding (:func:`same_pads`), any stride
-    and dilation: weight OIHW float32, computed in ``dtype``.  ``halo > 0``
-    (stride 1, H sharded over the space axis): the input takes ``halo``
-    rows of each neighbour (``parallel/halo.py``) and is padded along W
-    only."""
+    and dilation: weight OIHW float32, computed in ``dtype``.  ``halo =
+    (top, bottom)`` (H sharded over the space axis, :func:`space_halo`):
+    the input takes those rows of its neighbours (``parallel/halo.py``,
+    multi-hop) in place of 'SAME''s padding of H and is padded along W
+    only; ``(0, 0)`` marks a sharded strided 1×1 conv, whose rows must
+    stay even."""
 
     def __init__(
         self,
@@ -262,17 +269,22 @@ class Conv(nn.Module):
         k, s, d = self.kernel, self.stride, self.dilation
         x = x.to(self.dtype)
         if self.halo:
-            y = F.conv2d(halo_exchange(x, self.halo), self.weight.to(self.dtype),
-                         padding=(0, self.halo), dilation=d)
-            if self.bias is not None:
-                y = y + self.bias.to(self.dtype).view(1, -1, 1, 1)
-            return y
+            # A shard's output rows are the global ones only if every shard
+            # starts on the stride's phase.
+            if x.shape[2] % s:
+                raise ValueError(
+                    f"a stride-{s} conv under the space axis on {x.shape[2]} rows a "
+                    f"shard: the rows must divide by the stride (models.check_space_rows)"
+                )
+            x = halo_exchange(x, self.halo, multi_hop=True)
         if k == 1 and s > 1:
             # The same conv on the subsampled grid ('SAME' pads a 1×1 conv
             # nowhere).  PyTorch's CPU (oneDNN) backward of a strided 1×1
             # conv on a channels-last input corrupts the heap (torch 2.13).
             x, s = x[:, :, ::s, ::s], 1
         (top, bottom), (left, right) = (same_pads(n, k, s, d) for n in x.shape[2:])
+        if self.halo:
+            top = bottom = 0  # the halo is H's padding
         if top == bottom and left == right:
             pad = (top, left)
         else:  # stride 2 on an even grid: flax pads the bottom and right only
@@ -345,11 +357,35 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 
 
-def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
+def space_halo(kernel: int, stride: int = 1, dilation: int = 1) -> tuple:
+    """The ``(top, bottom)`` rows a shard of an H-sharded 'SAME' window
+    reads from its neighbours, for local rows that divide by the stride:
+    flax's pads of the whole H (:func:`same_pads`, which then depend on
+    nothing but the window), so ``(d·(k//2),) * 2`` at stride 1 and
+    ``(0, 1)`` for 3×3/2."""
+    return same_pads(stride, kernel, stride, dilation)
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2,
+                  space: int = 1) -> torch.Tensor:
     """flax ``nn.max_pool(x, (k, k), strides=(s, s), padding='SAME')``: the
     'SAME' pads filled with −inf (:func:`same_pads`; bottom and right only
-    for 3×3/2 on an even grid)."""
-    (top, bottom), (left, right) = (same_pads(n, kernel, stride) for n in x.shape[2:])
+    for 3×3/2 on an even grid).  ``space > 1``: H is sharded over a space
+    group of that size; the shard takes its window's rows from its
+    neighbours (:func:`space_halo`), ``-inf`` past the global edges, as
+    the unsharded pad (zeros would give the same forward on post-ReLU
+    input, but route a tie's gradient otherwise)."""
+    if space > 1:
+        if x.shape[2] % stride:
+            raise ValueError(
+                f"a stride-{stride} max pool under the space axis on {x.shape[2]} rows a "
+                f"shard: the rows must divide by the stride (models.check_space_rows)"
+            )
+        x = halo_exchange(x, space_halo(kernel, stride), edge="-inf", multi_hop=True)
+        top = bottom = 0
+        left, right = same_pads(x.shape[3], kernel, stride)
+    else:
+        (top, bottom), (left, right) = (same_pads(n, kernel, stride) for n in x.shape[2:])
     x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
     return F.max_pool2d(x, kernel, stride)
 
@@ -387,22 +423,30 @@ def resize_bilinear(x: torch.Tensor, size, rows: bool | None = None) -> torch.Te
     return x
 
 
-def upsample_2x(x: torch.Tensor, space: int = 1) -> torch.Tensor:
-    """2× bilinear up-sampling of NCHW.  ``space > 1``: H is sharded over
-    a space group of that size, and each rank holds its rows.  The shard
-    takes one halo row a side, clamped at the global edges
-    (``halo_exchange(edge="clamp")``), resizes its ``h + 2`` rows in the
-    whole array's pass order and drops 2 output rows at each end: under
-    ``align_corners=False`` at scale 2 output row ``2k`` reads input rows
-    ``k − 1`` and ``k``, row ``2k + 1`` rows ``k`` and ``k + 1``, so the
-    rows kept are the unsharded resize's rows of this shard, and at the
-    global edges the clamped row weighs what the edge clamp gives it."""
+def upsample(x: torch.Tensor, r: int, space: int = 1) -> torch.Tensor:
+    """×``r`` bilinear up-sampling of NCHW (:func:`resize_bilinear`).
+    ``space > 1``: H is sharded over a space group of that size, and each
+    rank holds its rows.  The shard takes one halo row a side, clamped at
+    the global edges (``halo_exchange(edge="clamp")``), resizes its
+    ``h + 2`` rows in the whole array's pass order and drops ``r`` output
+    rows at each end: under ``align_corners=False`` output row ``r·k + j``
+    sits at input coordinate ``k + (j + 0.5)/r − 0.5``, between rows
+    ``k − 1`` and ``k + 1``, so the rows kept are the unsharded resize's
+    rows of this shard, each from the same two rows with the same weights,
+    and at the global edges the clamped row weighs what the edge clamp
+    gives it."""
     h, w = x.shape[2:]
     if space <= 1:
-        return resize_bilinear(x, (2 * h, 2 * w))
-    rows = rows_first(h * space, w, 2 * h * space, 2 * w)
-    y = resize_bilinear(halo_exchange(x, 1, edge="clamp"), (2 * h + 4, 2 * w), rows)
-    return y[:, :, 2 : 2 * h + 2]
+        return resize_bilinear(x, (r * h, r * w))
+    rows = rows_first(h * space, w, r * h * space, r * w)
+    y = resize_bilinear(halo_exchange(x, 1, edge="clamp"), (r * (h + 2), r * w), rows)
+    return y[:, :, r : r * (h + 1)]
+
+
+def upsample_2x(x: torch.Tensor, space: int = 1) -> torch.Tensor:
+    """2× bilinear up-sampling of NCHW, sharded over H where ``space > 1``
+    (:func:`upsample`)."""
+    return upsample(x, 2, space)
 
 
 class DownBlock(nn.Module):

@@ -85,8 +85,9 @@ Observability, as in the JAX trainer:
 The space axis (``parallel.space_axis_size > 1``), as the JAX trainer's
 GSPMD path: the world is a ``data × space`` grid (``mesh.init_grid``), the
 model is sharded over H (``models.shard_space``: the U-Net and U-Net++,
-either up-sampling; a shard holds a whole number of the model's row unit,
-``models.space_pools``), each rank loads its data shard's rows, and the spatial train and eval steps
+either up-sampling, and DeepLabV3+; a shard holds a whole number of the
+model's row unit, ``models.space_stem_factor`` · 2 ** ``models.space_pools``),
+each rank loads its data shard's rows, and the spatial train and eval steps
 (``parallel/train_step.py``) take the global batch's loss, gradient,
 BatchNorm statistics and confusion.  Perf accounting divides the FLOPs a
 step by the space axis, and the comm record prices the ``gspmd`` variant,
@@ -127,6 +128,7 @@ from ddlpc_tpu_torch.models import (
     check_space_rows,
     space_off,
     space_pools,
+    space_stem_factor,
 )
 from ddlpc_tpu_torch.obs import comm as obs_comm
 from ddlpc_tpu_torch.obs import flops as obs_flops
@@ -296,8 +298,7 @@ class Trainer:
         self.space = (mesh.space_index(), space)
         if self.spatial:
             check_spatial_compression(cfg.compression)
-            check_space_rows(cfg.data.image_size[0], space,
-                             cfg.model.stem_factor if cfg.model.stem == "s2d" else 1,
+            check_space_rows(cfg.data.image_size[0], space, space_stem_factor(cfg.model),
                              space_pools(cfg.model))
         self.shard_update = resolve_shard_update(
             cfg.parallel.shard_update, cfg.compression, self.world, spatial=self.spatial,

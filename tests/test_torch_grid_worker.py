@@ -16,14 +16,23 @@ Tasks:
   with ``conv``, ``sharded_same_conv`` of them and its gradients against
   the cotangent ``w``; with ``carry``, stage 0 exchanges, sends its rows
   to stage 1, which exchanges again;
-- ``halo`` with ``upsample``: ``layers.upsample_2x`` of this rank's rows
-  of ``x`` in ``dtype`` (its clamped halo) and its gradient against the
-  cotangent ``w``;
+- ``halo`` with ``upsample``: ``layers.upsample_2x`` (or, with ``factor``,
+  ``layers.upsample`` at that factor) of this rank's rows of ``x`` in
+  ``dtype`` (its clamped halo) and its gradient against the cotangent
+  ``w``;
+- ``halo`` with ``rows = [top, bottom]``: ``halo_exchange(..., edge,
+  multi_hop=True)`` of this rank's rows of ``x`` and its gradient against
+  this rank's block of the cotangent ``w``;
+- ``halo`` with ``pool``: ``layers.max_pool_same`` (3×3/2) of this rank's
+  rows of ``x`` and its gradient against the cotangent ``w``;
 - ``spatial``: the model of ``task["model"]`` from the canonical weights
   in ``in.npz`` trains ``images`` with the spatial step on this rank's
   columns and rows, at each of ``runs``' ZeRO levels, recording the
   metrics and at the end the canonical state; a run with a ``model`` of
   its own takes that model and its ``in.npz`` arrays under its ``prefix``;
+  with ``every_step``, the canonical state after each earlier step too
+  (``<run>:after<t>:``); ``cases``, if the task has them, run first as
+  the ``halo`` task's;
 - ``cli``: the CLI's ``main`` with the arguments in ``task.json``;
 - ``trainer``: a ``Trainer`` of the CLI's arguments in ``task.json``
   fits, and records its canonical state, epochs and spatial layout;
@@ -78,15 +87,28 @@ def _halo_case(case: dict, inputs: dict) -> dict:
 
     x = torch.from_numpy(_rows(inputs["x"], 1).copy())
     out = {"x": x.numpy().copy()}
-    if case.get("upsample"):
-        from ddlpc_tpu_torch.models.layers import upsample_2x
+    if case.get("upsample") or case.get("pool"):
+        from ddlpc_tpu_torch.models.layers import max_pool_same, upsample, upsample_2x
 
         xl = x.permute(0, 3, 1, 2).to(getattr(torch, case["dtype"])).requires_grad_(True)
-        y = upsample_2x(xl, mesh.space_size())
+        if case.get("pool"):
+            y = max_pool_same(xl, 3, 2, mesh.space_size())
+        elif "factor" in case:
+            y = upsample(xl, case["factor"], mesh.space_size())
+        else:
+            y = upsample_2x(xl, mesh.space_size())
         w = torch.from_numpy(_rows(inputs["w"], 1).copy()).permute(0, 3, 1, 2).to(y.dtype)
         y.backward(w)
         out["y"] = y.detach().permute(0, 2, 3, 1).float().numpy()
         out["gx"] = xl.grad.permute(0, 2, 3, 1).float().numpy()
+        return out
+    if "rows" in case:
+        xl = x.clone().requires_grad_(True)
+        y = halo_exchange(xl, tuple(case["rows"]), spatial_axis=1, edge=case["edge"],
+                          multi_hop=True)
+        y.backward(torch.from_numpy(_rows(inputs["w"], 1).copy()))
+        out["y"] = y.detach().numpy()
+        out["gx"] = xl.grad.numpy()
         return out
     if case.get("dtype"):
         y = halo_exchange(x.to(getattr(torch, case["dtype"])), case["halo"], spatial_axis=1)
@@ -134,7 +156,7 @@ def _weights(inputs, prefix: str = "") -> dict:
 def _spatial(task: dict, inputs, rank: int) -> dict:
     g = mesh.grid()
     _, d, _ = g.coords
-    out = {}
+    out = _halo(task, inputs, rank) if task.get("cases") else {}
     for i, run in enumerate(task["runs"]):
         level, prefix = run["level"], run.get("prefix", "")
         images, labels = inputs[f"{prefix}images"], inputs[f"{prefix}labels"]
@@ -152,6 +174,8 @@ def _spatial(task: dict, inputs, rank: int) -> dict:
             m = step(state, torch.from_numpy(xs.copy()), torch.from_numpy(ys.astype(np.int64)))
             for key, v in m.items():
                 out[f"{i}:{key}{t}"] = np.float32(v)
+            if task.get("every_step") and t + 1 < len(images):
+                out.update(_canonical(state, f"{i}:after{t}:"))
         out.update(_canonical(state, f"{i}:"))
         out[f"{i}:flat"] = state.params.data.to("cpu", copy=True).numpy() if state.params.resident \
             else np.zeros(0, np.float32)

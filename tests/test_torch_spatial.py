@@ -198,18 +198,16 @@ def test_refusals_in_the_jax_words():
         with pytest.raises(ValueError) as got:
             make_train_step_spatial(tx, CompressionConfig(**kw), 2, 2)
         assert str(got.value) == str(want.value)
-    deeplab = build_model(ModelConfig(name="deeplabv3p", features=(64, 128, 256, 512),
-                                      width_divisor=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
-        shard_space(deeplab, 1, 2)
-    # U-Net++ and bilinear up-sampling shard since they were ported.
+    # U-Net++, bilinear up-sampling and DeepLabV3+ shard since they were
+    # ported; uneven shards stay refused (ROADMAP C17), naming A6.4.
     for kw in (dict(name="unetpp", features=(8, 16)),
                dict(name="unetpp", features=(8, 16), up_sample_mode="bilinear"),
-               dict(features=(8, 16), up_sample_mode="bilinear")):
+               dict(features=(8, 16), up_sample_mode="bilinear"),
+               dict(name="deeplabv3p", features=(64, 128, 256, 512), width_divisor=16)):
         model = shard_space(build_model(ModelConfig(**kw)), 1, 2)
         assert model.space == 2
     sharded = shard_space(build_model(ModelConfig(**TINY)), 1, 2)
-    with pytest.raises(ValueError, match="deviation"):
+    with pytest.raises(ValueError, match="deviation.*ROADMAP A6.4"):
         sharded(torch.zeros(1, 12, 32, 3))  # 24 rows over 2: 12 a shard, not a multiple of 8
 
 

@@ -248,14 +248,24 @@ def test_unetpp_accepts_a_height_the_unet_refuses():
 
 @pytest.mark.parametrize("kind", ["deeplabv3p", "strided_conv"])
 def test_shard_space_refuses_deeplab_and_strided_convs_naming_a6_3(kind):
+    """Both were refused until ROADMAP A6.3 ported them: DeepLabV3+ now
+    shards, and a 3×3 stride-2 conv takes the one row from below that
+    flax's (0, 1) pad reads; what stays refused is a shard whose rows are
+    off the model's row unit, naming A6.4 (uneven shards)."""
     if kind == "deeplabv3p":
-        model = build_model(ModelConfig(name="deeplabv3p", features=(64, 128, 256, 512),
-                                        width_divisor=16))
+        model = shard_space(build_model(ModelConfig(
+            name="deeplabv3p", features=(64, 128, 256, 512), width_divisor=16)), 1, 2)
+        assert model.space == 2 and model.ConvNormAct_0.Conv_0.halo == (0, 1)
+        with pytest.raises(ValueError, match="ROADMAP A6.4"):
+            model(torch.zeros(1, 8, 32, 3))  # 8 rows a shard, not a multiple of 16
     else:
         model = build_model(ModelConfig(name="unetpp", features=(8, 16)))
-        next(m for m in model.modules() if isinstance(m, Conv) and m.kernel > 1).stride = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
+        conv = next(m for m in model.modules() if isinstance(m, Conv) and m.kernel > 1)
+        conv.stride = 2
         shard_space(model, 1, 2)
+        assert conv.halo == (0, 1)
+        with pytest.raises(ValueError, match="ROADMAP A6.4"):
+            check_space_rows(24, 2, 1, space_pools(ModelConfig(features=(8, 16, 32))))
 
 
 def test_space_off_resets_unetpp_and_the_upsampling():
