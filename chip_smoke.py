@@ -267,6 +267,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    step.  The timed hop is the rate-18 conv's input, 8 × 512 × 16 × 32
    bf16 (``spatial_deeplabv3p row``);
 
+4g'''. ``spatial_uneven``: ``configs/cityscapes_unet_v5e64.json`` as
+   written with ``parallel.data_axis_size=-1, space_axis_size=8``: eight
+   gloo processes (``--spatial-rank``, a world of their own after the
+   two-rank one) on ``cuda:0``, each holding 64 of the 512 rows, half
+   the U-Net's row unit of 128, so that the 8-row level is resharded to
+   even boundaries before the fifth pool and four of the eight ranks hold
+   none of the bottleneck's 4 rows (``parallel.halo.reshard``).  The
+   synthetic run of ``spatial_cityscapes`` (three steps, its batches and
+   seed), with its gates: losses within ``SPATIAL_LOSS_RTOL`` of that
+   phase's unsharded run, every rank's state the same bits, one
+   ``absmax`` and one ``fake_quantize_fused`` a step a rank, each perf
+   record an eighth of the unsharded step's FLOPs, the checkpoint
+   restored unsharded bit for bit, and four reshards a step a rank (the
+   space-2 phases, whose levels split evenly, none).  It prints the step
+   times, each rank's peak, the gradient all-reduce's ms, and what the
+   reshards moved a step: calls, bytes sent and seconds, each rank's
+   (``spatial_uneven row``);
+
 4h. ``pipe2_flagship``: ``parallel/pipeline.PipelineTrainStep`` on the
    flagship at full width, pipe 2 × data 1, the same two gloo processes
    after the space phases (``--spatial-rank``: one start-up of the
@@ -3959,6 +3977,19 @@ SPATIAL_PHASES = {
                            "halo": (8, 512, 16, 32, 18), "twice": False,
                            "reference": ("zoo", "deeplabv3p"), "space": SPATIAL_WORLD},
 }
+# The Cityscapes config at space 8, in a world of its own: 64 of 512 rows
+# a rank, half the U-Net's row unit of 128 (s2d ×4, five pools).  The
+# 8-row level is resharded to even boundaries before the fifth pool, whose
+# 4 rows lie on four of the eight ranks (the other four hold none), and
+# the transposed conv's 8 rows are resharded back.  Its synthetic run's
+# batches and seed are ``spatial_cityscapes``'s, whose unsharded run is
+# its reference.
+UNEVEN_LABEL, UNEVEN_SPACE = "spatial_uneven", 8
+SPATIAL_PHASES[UNEVEN_LABEL] = {"config": CITYSCAPES, "steps": {"synthetic": 3},
+                                "flops": CITYSCAPES_FLOPS,
+                                "codec": ("fake_quantize_fused", "absmax"), "halo": None,
+                                "twice": False, "space": UNEVEN_SPACE,
+                                "unsharded": "spatial_cityscapes", "reshards": 4}
 # pipe2_flagship's stages are the space world's two ranks.
 PIPE_LABEL = "pipe2_flagship"
 PIPE_STAGES, PIPE_M, PIPE_MICRO, PIPE_STEPS = SPATIAL_WORLD, 4, 128, 3
@@ -4042,20 +4073,24 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
+    from ddlpc_tpu_torch.parallel import halo
+
     workdir = os.path.join(WORKDIR, label)
     rank = mesh.world_rank()
     start = time.perf_counter()
     result = {"rank": rank, "runs": {}}
     spec = SPATIAL_PHASES[label]
+    space = spec.get("space", SPATIAL_WORLD)
     first = next(iter(spec["steps"]))
     for run in spec["steps"]:
         cfg, _, dev, backend = parse_args(
-            ["--no-resume"] + spatial_argv(label, workdir, run, 2, RANK_DEVICE, data_dir))
+            ["--no-resume"] + spatial_argv(label, workdir, run, space, RANK_DEVICE, data_dir))
         trainer = Trainer(cfg, resume=False, device=dev, dist_backend=backend)
         if run == first:
             loader_equal(f"{label} rank {rank}", trainer, trainer.loader, 1)
         steps = {}
         record_steps(trainer, steps)
+        moved = reshards_in_steps(trainer, halo.RESHARD_STATS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cq.reset_launch_counts()
@@ -4068,12 +4103,13 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
         if run == spec.get("reference", (None,))[0]:
             steps["batch_digests"] = batch_digests(trainer.loader, 1)
         digest = _canonical_digest(trainer.state)
-        hashes = [None] * SPATIAL_WORLD
+        hashes = [None] * space
         dist.all_gather_object(hashes, digest)
         row = {"launches": launches, "peak_bytes": peak, "fit_s": fit_s, "hashes": hashes,
                "last": last, "spatial": trainer.spatial, "space": list(trainer.space),
-               "level": trainer.shard_update, "n_params": trainer.state.params.numel, **steps}
-        if run == first:
+               "level": trainer.shard_update, "n_params": trainer.state.params.numel,
+               "reshard": moved, **steps}
+        if run == first and spec["halo"]:
             # A halo hop of the phase's conv input (bf16 rows each way;
             # more rows than the neighbour holds come from it whole, the
             # rest are past the global edge), and the step's fp32 gradient
@@ -4083,9 +4119,12 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
             row["halo_ms"] = _timed_ms(lambda: halo_exchange(x, rows, multi_hop=True), reps=9)
             row["halo_bytes"] = 2 * min(rows, h) * b * c * w * 2
             grad = trainer.state.params.grad
+            del x
+        if run == first:
+            grad = trainer.state.params.grad
             row["allreduce_ms"] = _timed_ms(lambda: mesh.all_reduce_(grad, "sum", "stage"))
             row["allreduce_bytes"] = grad.numel() * 4
-            del x, grad
+            del grad
         result["runs"][run] = row
         trainer.close()
         del trainer
@@ -4096,15 +4135,34 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
         json.dump(result, f)
 
 
-def spatial_world(data_dir: str) -> None:
-    """The two ranks (``--spatial-rank``) of every phase of
-    ``SPATIAL_PHASES`` and then of ``pipe2_flagship``: one start-up of the
-    processes for all of them."""
+def reshards_in_steps(trainer, stats: dict) -> dict:
+    """Wrap ``trainer.train_step`` so that the returned dict sums what
+    ``parallel.halo``'s reshards moved (``stats``: calls, bytes sent,
+    seconds) inside the training steps only, not in evaluation."""
+    step, moved = trainer.train_step, {k: 0 for k in stats}
+
+    def counted(*args, **kwargs):
+        before = dict(stats)
+        out = step(*args, **kwargs)
+        for k in moved:
+            moved[k] += stats[k] - before[k]
+        return out
+
+    trainer.train_step = counted
+    return moved
+
+
+def spatial_world(data_dir: str, space: int = SPATIAL_WORLD) -> None:
+    """The ranks (``--spatial-rank``) of every phase of ``SPATIAL_PHASES``
+    at ``space`` (two: then of ``pipe2_flagship`` too): one start-up of
+    the processes for all of them."""
     import shutil
 
     from ddlpc_tpu_torch.parallel import mesh
 
-    labels = [*SPATIAL_PHASES, PIPE_LABEL]
+    labels = [label for label, spec in SPATIAL_PHASES.items()
+              if spec.get("space", SPATIAL_WORLD) == space]
+    labels += [PIPE_LABEL] * (space == SPATIAL_WORLD)
     for label in labels:
         shutil.rmtree(os.path.join(WORKDIR, label), ignore_errors=True)
         os.makedirs(os.path.join(WORKDIR, label))
@@ -4112,7 +4170,7 @@ def spatial_world(data_dir: str) -> None:
         os.remove(os.path.join(WORKDIR, "spatial_rendezvous"))
     torch.cuda.empty_cache()
     mesh.spawn_world([sys.executable, os.path.abspath(__file__), "--spatial-rank",
-                      ",".join(labels), data_dir], SPATIAL_WORLD, SPATIAL_DEADLINE_S, cwd=REPO)
+                      ",".join(labels), data_dir], space, SPATIAL_DEADLINE_S, cwd=REPO)
 
 
 def _run_records(path: str) -> tuple:
@@ -4148,7 +4206,8 @@ def _max_rel(got: list, want: list) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
+def spatial_phase(label: str, data_dir: str, reference: dict = None,
+                  unsharded: dict = None) -> dict:
     """A space-axis phase (``SPATIAL_PHASES``): the config as written with
     ``parallel.data_axis_size=-1`` and ``space_axis_size=2``, run by the
     two gloo ranks of :func:`spatial_world` on ``cuda:0``, each holding
@@ -4173,23 +4232,30 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
     where that is larger); a reference run's batches split into the
     ranks' row blocks the ranks' batches, digest for digest (its losses
     against the reference's are reported); and the first run's
-    checkpoint restored into an unsharded trainer bit for bit."""
+    checkpoint restored into an unsharded trainer bit for bit.
+    ``spatial_uneven``: the Cityscapes config at space 8 (``UNEVEN_SPACE``,
+    a world of its own), the synthetic run, gated as
+    ``spatial_cityscapes`` against that phase's unsharded run
+    (``unsharded``, its output: same config, batches and seed), each
+    epoch's FLOPs an eighth of the unsharded step's, and printing what its
+    reshards moved a step."""
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
     spec = SPATIAL_PHASES[label]
+    space = spec.get("space", SPATIAL_WORLD)
     workdir = os.path.join(WORKDIR, label)
     t0 = time.perf_counter()
     ranks = []
-    for r in range(SPATIAL_WORLD):
+    for r in range(space):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    out = {"world": SPATIAL_WORLD, "runs": {}}
+    out = {"world": space, "runs": {}}
     first = next(iter(spec["steps"]))
     for run, steps in spec["steps"].items():
         epochs = spec.get("epochs", {}).get(run, steps)
         lines, records = _run_records(os.path.join(workdir, run))
-        perf = perf_checks(f"{label}:{run}", lines, spec["flops"] // 2, len(records))
+        perf = perf_checks(f"{label}:{run}", lines, spec["flops"] // space, len(records))
         want = {name: 0 for name in ranks[0]["runs"][run]["launches"]}
         want.update({name: steps for name in spec["codec"]})
         for rr in ranks:
@@ -4202,6 +4268,12 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
                      f"{row['launches']}, expected {want} ({steps} steps)")
             if len(set(row["hashes"])) != 1:
                 fail(f"[{label}:{run}] the ranks' states differ: {row['hashes']}")
+            # Even layouts reshard nothing; the uneven phase's four a step
+            # (the fifth pool's input and the transposed conv's output,
+            # forward and backward), every rank sending or receiving.
+            if row["reshard"]["calls"] != spec.get("reshards", 0) * steps:
+                fail(f"[{label}:{run}] rank {rr['rank']}: {row['reshard']['calls']} reshards in "
+                     f"{steps} steps, expected {spec.get('reshards', 0)} a step")
         for rec in records:
             log(f"[{label}:{run}] epoch {rec['epoch']}: loss {rec['loss']} step_time_s "
                 f"{rec['step_time_s']} grad_norm {rec['grad_norm']} val_miou {rec.get('val_miou')}")
@@ -4229,19 +4301,31 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
                      f"blocks of the {ref_label} run's {blocks}")
         got, want = out["runs"][ref_run]["losses"], reference["step_losses"]
         if len(got) != len(want):
-            fail(f"[{label}:{ref_run}] {len(got)} losses at space 2 against {len(want)} unsharded")
+            fail(f"[{label}:{ref_run}] {len(got)} losses at space {space} against {len(want)} "
+                 f"unsharded")
         drift = {"losses": got, "unsharded_losses": want, "max_rel": _max_rel(got, want),
                  "first_rel": _max_rel(got[:1], want[:1])}
         log(f"[{label}:{ref_run}] the ranks' batches are the row blocks of the {ref_label} run's, "
-            f"{len(reference['batch_digests'])} batches, digest for digest; losses at space 2 {got} "
+            f"{len(reference['batch_digests'])} batches, digest for digest; losses at space {space} "
+            f"{got} "
             f"against the {ref_label} run's {want}: max rel {drift['max_rel']:.3e}, first step "
             f"{drift['first_rel']:.3e}")
-    # The gate run unsharded in one process (twice under ``twice``).
+    # The gate run unsharded in one process (twice under ``twice``), or
+    # the unsharded run of the phase ``spec["unsharded"]`` names.
     gate = spec.get("gate", first)
-    want, ref_records, gate_peak = _unsharded(label, workdir, data_dir, gate, "unsharded")
+    if spec.get("unsharded"):
+        if unsharded is None or unsharded["row"]["gate_run"] != gate:
+            fail(f"[{label}] no {spec['unsharded']} {gate} run to hold the ranks against")
+        want = unsharded["row"]["unsharded_losses"]
+        ref_records = [{"step_time_s": s} for s in unsharded["row"]["unsharded_step_time_s"]]
+        gate_peak = unsharded["row"]["unsharded_peak_gib"] * 2**30
+        log(f"[{label}:{gate}] unsharded reference: {spec['unsharded']}'s {gate} run, the same "
+            f"config, batches and seed")
+    else:
+        want, ref_records, gate_peak = _unsharded(label, workdir, data_dir, gate, "unsharded")
     got = out["runs"][gate]["losses"]
     if len(got) != len(want):
-        fail(f"[{label}:{gate}] {len(got)} losses at space 2 against {len(want)} unsharded")
+        fail(f"[{label}:{gate}] {len(got)} losses at space {space} against {len(want)} unsharded")
     self_rel, rtol = None, SPATIAL_LOSS_RTOL
     if spec["twice"]:
         again = _unsharded(label, workdir, data_dir, gate, "unsharded_again")[0]
@@ -4250,8 +4334,8 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
         log(f"[{label}:{gate}] unsharded twice: {want} and {again}, max rel {self_rel:.3e}; the "
             f"gate past the first step {rtol:.3e}")
     first_rel, rel = _max_rel(got[:1], want[:1]), _max_rel(got, want)
-    log(f"[{label}:{gate}] losses at space 2 {got} against unsharded {want}: max rel {rel:.3e}, "
-        f"first step {first_rel:.3e} (tolerance {SPATIAL_LOSS_RTOL}, then {rtol:.3e})")
+    log(f"[{label}:{gate}] losses at space {space} {got} against unsharded {want}: max rel "
+        f"{rel:.3e}, first step {first_rel:.3e} (tolerance {SPATIAL_LOSS_RTOL}, then {rtol:.3e})")
     if first_rel > SPATIAL_LOSS_RTOL or _max_rel(got[1:], want[1:]) > rtol:
         fail(f"[{label}:{gate}] losses {got} not within rtol {SPATIAL_LOSS_RTOL} (first step) and "
              f"{rtol:.3e} of unsharded {want}")
@@ -4266,7 +4350,7 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
     equal = _canonical_digest(restored.state) == ranks[0]["runs"][first]["hashes"][0]
     epochs = spec.get("epochs", {}).get(first, spec["steps"][first])
     if restored.spatial or restored.start_epoch != epochs or not equal:
-        fail(f"[{label}] the space-2 checkpoint restored into one unsharded process: spatial "
+        fail(f"[{label}] the space-{space} checkpoint restored into one unsharded process: spatial "
              f"{restored.spatial}, start_epoch {restored.start_epoch}, bits equal {equal}")
     restored.close()
     del restored
@@ -4280,8 +4364,11 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None) -> dict:
            "reference_drift": drift,
            "peak_gib": [rr["runs"][first]["peak_bytes"] / 2**30 for rr in ranks],
            "unsharded_peak_gib": ref_peak / 2**30,
-           "halo_ms": [rr["runs"][first]["halo_ms"] for rr in ranks],
-           "halo_bytes": syn["halo_bytes"], "halo_shape": list(spec["halo"]),
+           "halo_ms": [rr["runs"][first].get("halo_ms") for rr in ranks],
+           "halo_bytes": syn.get("halo_bytes"), "halo_shape": spec["halo"] and list(spec["halo"]),
+           "reshard_per_step": [{k: v / spec["steps"][first]
+                                 for k, v in rr["runs"][first]["reshard"].items()}
+                                for rr in ranks],
            "allreduce_ms": [rr["runs"][first]["allreduce_ms"] for rr in ranks],
            "allreduce_bytes": syn["allreduce_bytes"], "restored_unsharded": equal,
            "ranks_s": ranks[0]["wall_s"], "wall_s": ranks[0]["wall_s"] + time.perf_counter() - t0}
@@ -4630,6 +4717,11 @@ def main() -> int:
                            ("spatial_deeplabv3p", spatial_dl)):
             row["launches_by_path"][label] = sum(
                 r["launches"][row["name"]] for r in run["runs"].values())
+    timed("uneven_ranks", spatial_world, cs_tiles, UNEVEN_SPACE)
+    uneven = timed(UNEVEN_LABEL, spatial_phase, UNEVEN_LABEL, cs_tiles, unsharded=spatial)
+    for row in cs_rows:
+        row["launches_by_path"][UNEVEN_LABEL] = sum(
+            r["launches"][row["name"]] for r in uneven["runs"].values())
     pipe = timed("pipe2_flagship", pipe_phase)
     dp = {label: timed(label, dp_phase, label) for label in DP_PHASES}
     traced_dp = traced_dp_checks(dp)
@@ -4682,7 +4774,8 @@ def main() -> int:
                                                         "codec_in_capture")},
                       "traced_dp": traced_dp, "spatial": spatial["row"],
                       "spatial_unetpp": spatial_pp["row"],
-                      "spatial_deeplabv3p": spatial_dl["row"], "pipeline": pipe["row"],
+                      "spatial_deeplabv3p": spatial_dl["row"], UNEVEN_LABEL: uneven["row"],
+                      "pipeline": pipe["row"],
                       "phase_seconds": PHASE_SECONDS}))
     PHASE_SECONDS["total"] = round(time.perf_counter() - start, 1)
     log("phase_seconds: " + json.dumps(PHASE_SECONDS) + f" ({smi})")

@@ -122,15 +122,12 @@ def build_model(
     return model
 
 
-SPACE_ROADMAP = "ROADMAP A6.4 queues uneven H shards under the space axis"
-
-
 def space_pools(cfg: ModelConfig) -> int:
-    """The halvings of H behind the stem, which set the model's row unit
-    (:func:`check_space_rows`): the U-Net pools once a level before its
-    bottleneck, U-Net++ ``depth − 1`` times (its deepest node is not
+    """The halvings of H behind the stem, which set the heights the model
+    takes (:func:`check_space_rows`): the U-Net pools once a level before
+    its bottleneck, U-Net++ ``depth − 1`` times (its deepest node is not
     pooled), DeepLabV3+ ``log2(output_stride)`` times (its stride-2 stem,
-    pool and stages, so that each of them sees an even local grid)."""
+    pool and stages)."""
     if cfg.name == "deeplabv3p":
         return cfg.output_stride.bit_length() - 1
     return len(cfg.features) - (cfg.name == "unetpp")
@@ -142,24 +139,29 @@ def space_stem_factor(cfg: ModelConfig) -> int:
     return cfg.stem_factor if cfg.stem == "s2d" and cfg.name != "deeplabv3p" else 1
 
 
-def check_space_rows(height: int, space: int, stem_factor: int, pools: int) -> None:
-    """Refuse an image height whose shards are not row-local: each of the
-    ``space`` shards must hold a multiple of ``stem_factor · 2**pools``
-    rows, so that space-to-depth, every 2×2 pool, stride-2 window and
-    transposed conv, and depth-to-space stay on the global grid's phase
-    inside a shard (``stem_factor`` and ``pools`` are the caller's
-    model's, :func:`space_stem_factor` and :func:`space_pools`).  The JAX
-    package's GSPMD path pads uneven shards instead: refusing them is a
-    deviation of the port (ROADMAP C17)."""
-    unit = stem_factor * 2 ** pools
-    if height % space or (height // space) % unit:
+def check_space_rows(height: int, space: int, stem_factor: int, pools: int,
+                     shape: tuple | None = None) -> None:
+    """Refuse what the JAX package's GSPMD step refuses, and nothing else:
+    a height the ``space`` ranks cannot split evenly, in the words of
+    JAX's ``device_put`` of the batch (``shape``, the global batch's, for
+    the message), and a height the unsharded model does not take, a
+    multiple of ``stem_factor · 2**pools`` (the caller's model's,
+    :func:`space_stem_factor` and :func:`space_pools`).  Every other
+    height shards: a level whose rows the space axis does not divide is
+    laid out unevenly (``parallel.halo.row_layout``)."""
+    if height % space:
+        full = "" if shape is None else f" (full shape: {tuple(shape)})"
         raise ValueError(
-            f"image height {height} over space_axis_size={space} gives "
-            f"{height / space:g} rows a shard, not a multiple of stem_factor·2**pools "
-            f"= {stem_factor}·2**{pools} = {unit}; the port shards only evenly "
-            f"(the JAX package's GSPMD pads uneven shards — a documented "
-            f"deviation, ROADMAP C17; {SPACE_ROADMAP}): pick a tile height "
-            f"divisible by {unit * space}"
+            f"image height {height} over parallel.space_axis_size={space}: the batch was "
+            f"given the sharding P(None, 'data', 'space'), which implies that the global "
+            f"size of its dimension 2 should be divisible by {space}, but it is equal to "
+            f"{height}{full}"
+        )
+    unit = stem_factor * 2 ** pools
+    if height % unit:
+        raise ValueError(
+            f"image height {height} does not divide by stem_factor·2**pools = "
+            f"{stem_factor}·2**{pools} = {unit}, which the model needs unsharded too"
         )
 
 
@@ -178,9 +180,12 @@ def shard_space(model: nn.Module, data_size: int, space_size: int) -> nn.Module:
     the logical global batch, which it takes with or without
     ``sync_batch_norm``), GroupNorm over the space group, and the models,
     a bilinear ``UpBlock`` and DeepLabV3+'s ASPP learn the group's size
-    (``space``: the row check, the clamped resizes, DeepLabV3+'s pool and
-    image pool).  The U-Net, U-Net++ and DeepLabV3+ shard; another module
-    raises ``NotImplementedError``."""
+    (``space``: the height check, the clamped resizes, DeepLabV3+'s pool
+    and image pool).  Any height :func:`check_space_rows` takes shards:
+    the models pass every op its input's global rows, and a level the
+    group does not divide evenly is resharded around its strided ops and
+    up-samplings (``models/layers.py``).  The U-Net, U-Net++ and
+    DeepLabV3+ shard; another module raises ``NotImplementedError``."""
     if space_size <= 1:
         return model
     if not isinstance(model, (UNet, UNetPP, DeepLabV3Plus)):

@@ -14,10 +14,13 @@ and in ``ASPP``): every 3×3 conv takes its halo (one-sided for the
 stride-2 ones, up to ``dilation`` rows and several shards for the dilated
 ones, ``layers.Conv``), the stem's pool one ``-inf``-filled row from below
 (``layers.max_pool_same``), the image pool a sum over the space group,
-and both decoder resizes one clamped row a side (``layers.upsample``);
-each shard then holds a multiple of ``output_stride`` rows
-(``models.check_space_rows``), so that every stride-2 layer sees an even
-local grid and the strided 1×1 shortcuts stay row-local.
+and both decoder resizes one clamped row a side (``layers.upsample``).
+The forward passes each layer its input's global rows: where the space
+axis does not divide a level's rows, a stride-2 layer reshards its input
+to even boundaries and a resize its output to the next level's layout
+(``models/layers.py``), and the image pool divides by the global rows.
+The height must be a multiple of the output stride
+(``models.check_space_rows``).
 """
 
 from __future__ import annotations
@@ -58,10 +61,12 @@ class ResidualBlock(nn.Module):
             self.Conv_2 = Conv(in_features, features, 1, dtype, stride=stride, **conv)
             self.Norm_2 = Norm(features, norm, norm_groups)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.Norm_0(self.Conv_0(x)))
-        y = self.Norm_1(self.Conv_1(y))
-        shortcut = self.Norm_2(self.Conv_2(x)) if self.project else x
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        """``rows``: the input's global rows under the space axis."""
+        out = None if rows is None else rows // self.Conv_0.stride
+        y = F.relu(self.Norm_0(self.Conv_0(x, rows), out))
+        y = self.Norm_1(self.Conv_1(y, out), out)
+        shortcut = self.Norm_2(self.Conv_2(x, rows), out) if self.project else x
         return F.relu(y + shortcut)
 
 
@@ -88,8 +93,10 @@ class ASPP(nn.Module):
         self.dtype = dtype
         self.space = 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branches = [getattr(self, f"ConvNormAct_{k}")(x) for k in range(self.n_rates + 1)]
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        """``rows``: the input's global rows under the space axis (None:
+        ``space`` equal shards)."""
+        branches = [getattr(self, f"ConvNormAct_{k}")(x, rows) for k in range(self.n_rates + 1)]
         # jnp.mean of bf16 sums in float32 and rounds once.
         if self.space > 1:
             # The shard's rows summed in float32, the sum over the space
@@ -104,12 +111,13 @@ class ASPP(nn.Module):
             # which summed over the space group is that cotangent once.
             total = _AllReduceSum.apply(
                 x.sum(dim=(2, 3), keepdim=True, dtype=stat_dtype(x)), "space")
-            pooled = (total / (x.shape[2] * self.space * x.shape[3])).to(x.dtype)
+            grid = x.shape[2] * self.space if rows is None else rows
+            pooled = (total / (grid * x.shape[3])).to(x.dtype)
         else:
             pooled = x.mean(dim=(2, 3), keepdim=True, dtype=stat_dtype(x)).to(x.dtype)
         pooled = getattr(self, f"ConvNormAct_{self.n_rates + 1}")(pooled)
         branches.append(pooled.expand(-1, -1, *x.shape[2:]).to(self.dtype))
-        return getattr(self, f"ConvNormAct_{self.n_rates + 2}")(torch.cat(branches, dim=1))
+        return getattr(self, f"ConvNormAct_{self.n_rates + 2}")(torch.cat(branches, dim=1), rows)
 
 
 class DeepLabV3Plus(nn.Module):
@@ -181,31 +189,40 @@ class DeepLabV3Plus(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images [N,H,W,C] float, H and W divisible by the output stride →
         logits [N,H,W,num_classes] in the head dtype."""
+        rows = None  # the input's global rows under the space axis
         if self.space > 1:
             from ddlpc_tpu_torch.models import check_space_rows
 
-            check_space_rows(images.shape[1] * self.space, self.space, 1,
-                             pools=self.output_stride.bit_length() - 1)
+            rows = images.shape[1] * self.space
+            check_space_rows(rows, self.space, 1, pools=self.output_stride.bit_length() - 1)
+
+        def over(k: int):
+            return None if rows is None else rows // k
+
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        y = max_pool_same(self.ConvNormAct_0(x), 3, 2, self.space)
-        low_level = None
+        y = max_pool_same(self.ConvNormAct_0(x, rows), 3, 2, self.space, over(2))
+        low_level, stride = None, 4
         for s, name in self.blocks:
-            y = getattr(self, name)(y)
+            block = getattr(self, name)
+            y = block(y, over(stride))
+            stride *= block.Conv_0.stride
             if s == 0:
                 low_level = y  # stride-4 features for the decoder
-        y = self._resize(self.ASPP_0(y), low_level.shape[2:])
-        y = torch.cat([y, self.ConvNormAct_1(low_level)], dim=1)
-        y = self.ConvNormAct_3(self.ConvNormAct_2(y))
-        logits = self.Conv_0(y.to(self.head_dtype))
-        return self._resize(logits, x.shape[2:]).permute(0, 2, 3, 1)
+        y = self._resize(self.ASPP_0(y, over(stride)), low_level.shape[2:], over(stride),
+                         over(4))
+        y = torch.cat([y, self.ConvNormAct_1(low_level, over(4))], dim=1)
+        y = self.ConvNormAct_3(self.ConvNormAct_2(y, over(4)), over(4))
+        logits = self.Conv_0(y.to(self.head_dtype), over(4))
+        return self._resize(logits, x.shape[2:], over(4), rows).permute(0, 2, 3, 1)
 
-    def _resize(self, x: torch.Tensor, size) -> torch.Tensor:
+    def _resize(self, x: torch.Tensor, size, rows=None, to_rows=None) -> torch.Tensor:
         """Bilinear up-sampling to ``size``; sharded, a whole factor of the
-        local rows (×4 at output stride 16 both times, ×2 then ×4 at 8)."""
+        global rows ``rows`` to ``to_rows`` (×4 at output stride 16 both
+        times, ×2 then ×4 at 8)."""
         if self.space <= 1:
             return resize_bilinear(x, size)
-        r = size[0] // x.shape[2]
-        if (r * x.shape[2], r * x.shape[3]) != tuple(size):
-            raise ValueError(f"a sharded resize from {tuple(x.shape[2:])} to {tuple(size)} "
-                             f"is not a whole factor")
-        return upsample(x, r, self.space)
+        r = to_rows // rows
+        if (r * rows, r * x.shape[3]) != (to_rows, size[1]):
+            raise ValueError(f"a sharded resize from {rows} × {x.shape[3]} to {to_rows} × "
+                             f"{size[1]} is not a whole factor")
+        return upsample(x, r, self.space, rows)

@@ -27,8 +27,22 @@ statistics over the stage's whole (data, space) group
 (``BatchNorm.axis``), GroupNorm over the space group
 (``GroupNorm.space``).  Every other op of the zoo (space-to-depth, the
 2×2 pool, the 2×2 transposed conv, the 1×1 heads, depth-to-space,
-``group_labels``) is row-local once the local H divides by the model's
-row unit (``models.check_space_rows``).
+``group_labels``) is row-local.
+
+Uneven shards: the model's forward passes each op ``rows``, the global
+rows of its input, whose layout over the space group is
+``halo.row_layout(rows, S)``.  A stride-``n`` op (:class:`Conv`,
+:func:`max_pool_2x2`, :func:`max_pool_same`, :func:`space_to_depth`) first
+reshards its input to the boundaries rounded down to multiples of ``n``
+(``halo.aligned``), so that it runs locally and leaves the layout of
+``rows/n``; an up-sampling (:class:`UpBlock`, :func:`upsample`,
+:func:`depth_to_space`) reshards its output to the layout of ``r·rows``,
+which its skip or the labels hold.  Where ``S`` divides the rows both are
+the identity.  BatchNorm and GroupNorm then sum their statistics over the
+group and divide by the group's element count (equal shards keep the mean
+of the ranks' means), and a rank with no rows of a level computes nothing
+there (:func:`_rowless`) but joins every collective of it.  ``rows=None``
+(the default) is the equal-shard layout.
 """
 
 from __future__ import annotations
@@ -42,7 +56,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddlpc_tpu_torch.parallel import mesh
-from ddlpc_tpu_torch.parallel.halo import halo_exchange
+from ddlpc_tpu_torch.parallel.halo import (
+    aligned,
+    halo_exchange,
+    reshard,
+    row_layout,
+    scaled,
+)
 
 BN_MOMENTUM = 0.9  # flax convention: running = m·running + (1−m)·batch
 BN_EPSILON = 1e-5
@@ -52,6 +72,24 @@ GN_EPSILON = 1e-6  # flax nn.GroupNorm's default
 def stat_dtype(x: torch.Tensor) -> torch.dtype:
     """The dtype flax takes statistics in: at least float32."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def _layout(rows):
+    """The layout of ``rows`` global rows over this rank's space group, or
+    None when the caller gave no rows or there is no space group."""
+    return row_layout(rows, mesh.space_size()) if rows is not None and mesh.space_size() > 1 \
+        else None
+
+
+def _rowless(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``fn`` of a shard that holds no rows of this level (an empty range
+    of an uneven layout), NCHW: ``fn`` runs on a stand-in of ``x`` with no
+    batch and ``rows`` rows (enough for its window), which computes
+    nothing but keeps the graph — so the rank's backward reaches every
+    collective before it and its parameters' gradients are zeros — and
+    the result is ``x``'s batch with no rows."""
+    y = fn(x.reshape(0, x.shape[1], rows, x.shape[3]))
+    return y.reshape(x.shape[0], y.shape[1], 0, y.shape[3])
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -107,6 +145,7 @@ def batch_norm(
     train: bool,
     axis_size: int = 1,
     axis: str = "data",
+    rows: int | None = None,
 ) -> torch.Tensor:
     """flax ``nn.BatchNorm`` semantics over NCHW (statistics per channel).
 
@@ -118,16 +157,25 @@ def batch_norm(
     mean and mean of squares are averaged over the ``axis`` group of that
     size in one reduce, as flax's ``axis_name`` does (``stage``, the
     (data, space) group, is the logical global batch of the JAX package's
-    GSPMD step: each rank's own rows, equal counts).  Output in
-    ``x.dtype``."""
+    GSPMD step: each rank's own rows, equal counts).  ``rows``: H is
+    sharded over the space group, ``rows`` global rows laid out by
+    ``halo.row_layout``; where the ranks' rows differ (or some have none)
+    each rank's sums are summed over the group and divided by the group's
+    element count, ``axis_size / S`` data replicas of ``rows`` rows.
+    Output in ``x.dtype``."""
     shape = (1, -1, 1, 1)
     if train:
         xf = x.to(stat_dtype(x))
-        mean = xf.mean(dim=(0, 2, 3))
-        mean2 = (xf * xf).mean(dim=(0, 2, 3))
-        if axis_size > 1:
-            both = _AllReduceSum.apply(torch.cat([mean, mean2]), axis) / axis_size
-            mean, mean2 = both.split(mean.numel())
+        if axis_size > 1 and rows is not None and rows % mesh.space_size():
+            count = axis_size // mesh.space_size() * x.shape[0] * rows * x.shape[3]
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+            mean, mean2 = (_AllReduceSum.apply(sums, axis) / count).split(x.shape[1])
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            if axis_size > 1:
+                both = _AllReduceSum.apply(torch.cat([mean, mean2]), axis) / axis_size
+                mean, mean2 = both.split(mean.numel())
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         if not getattr(_RECOMPUTE, "on", False):
             with torch.no_grad():
@@ -158,29 +206,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
         return batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            self.training, self.axis_size, self.axis,
+            self.training, self.axis_size, self.axis, rows,
         )
 
 
 def group_norm(
     x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor,
-    space: int = 1,
+    space: int = 1, rows: int | None = None,
 ) -> torch.Tensor:
     """flax ``nn.GroupNorm`` over NCHW: float32 statistics per sample and
     group with the fast variance E[x²]−E[x]² clipped at 0, ε = 1e-6, the
     output in ``x.dtype``.  ``space > 1``: H is sharded over a space group
     of that size, and the statistics are averaged over it (equal rows a
-    shard)."""
+    shard); where ``rows`` global rows do not divide by ``space``, the
+    ranks' sums are summed and divided by the group's elements."""
     n, c = x.shape[:2]
     xf = x.to(stat_dtype(x)).reshape(n, groups, -1)
-    mean = xf.mean(dim=-1)
-    mean2 = (xf * xf).mean(dim=-1)
-    if space > 1:
-        both = _AllReduceSum.apply(torch.stack([mean, mean2]), "space") / space
+    if space > 1 and rows is not None and rows % space:
+        sums = torch.stack([xf.sum(dim=-1), (xf * xf).sum(dim=-1)])
+        both = _AllReduceSum.apply(sums, "space") / (c // groups * rows * x.shape[3])
         mean, mean2 = both[0], both[1]
+    else:
+        mean = xf.mean(dim=-1)
+        mean2 = (xf * xf).mean(dim=-1)
+        if space > 1:
+            both = _AllReduceSum.apply(torch.stack([mean, mean2]), "space") / space
+            mean, mean2 = both[0], both[1]
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     per = c // groups
     mean = mean.repeat_interleave(per, dim=1)
@@ -197,8 +251,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.groups, self.weight, self.bias, self.space)
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        return group_norm(x, self.groups, self.weight, self.bias, self.space, rows)
 
 
 class Norm(nn.Module):
@@ -220,11 +274,11 @@ class Norm(nn.Module):
         elif kind != "none":
             raise ValueError(f"unknown norm kind {kind!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
         if self.kind == "batch":
-            return self.BatchNorm_0(x)
+            return self.BatchNorm_0(x, rows)
         if self.kind == "group":
-            return self.GroupNorm_0(x)
+            return self.GroupNorm_0(x, rows)
         return x
 
 
@@ -241,8 +295,10 @@ class Conv(nn.Module):
     (top, bottom)`` (H sharded over the space axis, :func:`space_halo`):
     the input takes those rows of its neighbours (``parallel/halo.py``,
     multi-hop) in place of 'SAME''s padding of H and is padded along W
-    only; ``(0, 0)`` marks a sharded strided 1×1 conv, whose rows must
-    stay even."""
+    only; ``(0, 0)`` marks a sharded strided 1×1 conv.  ``rows`` (the
+    input's global rows): a strided conv first reshards its input to the
+    stride's phase (``halo.aligned``); without them the local rows must
+    divide by the stride."""
 
     def __init__(
         self,
@@ -265,23 +321,34 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         lecun_normal_(self.weight, in_features * kernel * kernel, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
         k, s, d = self.kernel, self.stride, self.dilation
         x = x.to(self.dtype)
+        layout = _layout(rows)
         if self.halo:
             # A shard's output rows are the global ones only if every shard
             # starts on the stride's phase.
-            if x.shape[2] % s:
+            if layout is not None and s > 1:
+                x = reshard(x, layout, aligned(layout, s))
+                layout = aligned(layout, s)
+            elif x.shape[2] % s:
                 raise ValueError(
                     f"a stride-{s} conv under the space axis on {x.shape[2]} rows a "
-                    f"shard: the rows must divide by the stride (models.check_space_rows)"
+                    f"shard: the rows must divide by the stride (pass the input's "
+                    f"global rows)"
                 )
-            x = halo_exchange(x, self.halo, multi_hop=True)
+            x = halo_exchange(x, self.halo, multi_hop=True, layout=layout)
         if k == 1 and s > 1:
             # The same conv on the subsampled grid ('SAME' pads a 1×1 conv
             # nowhere).  PyTorch's CPU (oneDNN) backward of a strided 1×1
             # conv on a channels-last input corrupts the heap (torch 2.13).
             x, s = x[:, :, ::s, ::s], 1
+        if x.shape[2] == 0:
+            return _rowless(lambda t: self._conv(t, s), x, (k - 1) * d + 1)
+        return self._conv(x, s)
+
+    def _conv(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        k, d = self.kernel, self.dilation
         (top, bottom), (left, right) = (same_pads(n, k, s, d) for n in x.shape[2:])
         if self.halo:
             top = bottom = 0  # the halo is H's padding
@@ -318,6 +385,8 @@ class ConvTranspose(nn.Module):
         lecun_normal_(self.weight, in_features * 4, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] == 0:
+            return _rowless(self.forward, x, 1)
         y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), stride=2)
         return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
@@ -334,8 +403,9 @@ class ConvNormAct(nn.Module):
                            stride=stride, dilation=dilation)
         self.Norm_0 = Norm(features, norm, norm_groups)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.Norm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        out = None if rows is None else rows // self.Conv_0.stride
+        return F.relu(self.Norm_0(self.Conv_0(x, rows), out))
 
 
 class DoubleConv(nn.Module):
@@ -349,11 +419,18 @@ class DoubleConv(nn.Module):
         self.ConvNormAct_1 = ConvNormAct(features, features, dtype, norm, generator,
                                          norm_groups)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ConvNormAct_1(self.ConvNormAct_0(x))
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        return self.ConvNormAct_1(self.ConvNormAct_0(x, rows), rows)
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+def max_pool_2x2(x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """The 2×2/2 max pool; ``rows`` (H sharded over the space axis, the
+    input's global rows): first reshard to even boundaries."""
+    layout = _layout(rows)
+    if layout is not None:
+        x = reshard(x, layout, aligned(layout, 2))
+    if x.shape[2] == 0:
+        return _rowless(max_pool_2x2, x, 2)
     return F.max_pool2d(x, 2, 2)
 
 
@@ -367,21 +444,30 @@ def space_halo(kernel: int, stride: int = 1, dilation: int = 1) -> tuple:
 
 
 def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2,
-                  space: int = 1) -> torch.Tensor:
+                  space: int = 1, rows: int | None = None) -> torch.Tensor:
     """flax ``nn.max_pool(x, (k, k), strides=(s, s), padding='SAME')``: the
     'SAME' pads filled with −inf (:func:`same_pads`; bottom and right only
     for 3×3/2 on an even grid).  ``space > 1``: H is sharded over a space
     group of that size; the shard takes its window's rows from its
     neighbours (:func:`space_halo`), ``-inf`` past the global edges, as
     the unsharded pad (zeros would give the same forward on post-ReLU
-    input, but route a tie's gradient otherwise)."""
+    input, but route a tie's gradient otherwise).  ``rows``, the input's
+    global rows: the input is first resharded to the stride's phase; without
+    them the local rows must divide by the stride."""
     if space > 1:
-        if x.shape[2] % stride:
+        layout = _layout(rows)
+        if layout is not None:
+            x = reshard(x, layout, aligned(layout, stride))
+            layout = aligned(layout, stride)
+        elif x.shape[2] % stride:
             raise ValueError(
                 f"a stride-{stride} max pool under the space axis on {x.shape[2]} rows a "
-                f"shard: the rows must divide by the stride (models.check_space_rows)"
+                f"shard: the rows must divide by the stride (pass the input's global rows)"
             )
-        x = halo_exchange(x, space_halo(kernel, stride), edge="-inf", multi_hop=True)
+        x = halo_exchange(x, space_halo(kernel, stride), edge="-inf", multi_hop=True,
+                          layout=layout)
+        if x.shape[2] == 0:
+            return _rowless(lambda t: max_pool_same(t, kernel, stride), x, kernel)
         top = bottom = 0
         left, right = same_pads(x.shape[3], kernel, stride)
     else:
@@ -423,7 +509,7 @@ def resize_bilinear(x: torch.Tensor, size, rows: bool | None = None) -> torch.Te
     return x
 
 
-def upsample(x: torch.Tensor, r: int, space: int = 1) -> torch.Tensor:
+def upsample(x: torch.Tensor, r: int, space: int = 1, rows: int | None = None) -> torch.Tensor:
     """×``r`` bilinear up-sampling of NCHW (:func:`resize_bilinear`).
     ``space > 1``: H is sharded over a space group of that size, and each
     rank holds its rows.  The shard takes one halo row a side, clamped at
@@ -434,19 +520,29 @@ def upsample(x: torch.Tensor, r: int, space: int = 1) -> torch.Tensor:
     ``k − 1`` and ``k + 1``, so the rows kept are the unsharded resize's
     rows of this shard, each from the same two rows with the same weights,
     and at the global edges the clamped row weighs what the edge clamp
-    gives it."""
+    gives it.  ``rows``, the input's global rows (None: ``space`` equal
+    shards): the halo rows come from the ranks that hold them, and the
+    output is resharded to the layout of ``r·rows`` rows."""
     h, w = x.shape[2:]
     if space <= 1:
         return resize_bilinear(x, (r * h, r * w))
-    rows = rows_first(h * space, w, r * h * space, r * w)
-    y = resize_bilinear(halo_exchange(x, 1, edge="clamp"), (r * (h + 2), r * w), rows)
-    return y[:, :, r : r * (h + 1)]
+    total = h * space if rows is None else rows
+    layout = _layout(rows)
+    order = rows_first(total, w, r * total, r * w)
+    x = halo_exchange(x, 1, edge="clamp", layout=layout)
+    if x.shape[2] == 0:
+        y = _rowless(lambda t: resize_bilinear(t, (r, r * w), order), x, 1)
+    else:
+        y = resize_bilinear(x, (r * (h + 2), r * w), order)[:, :, r : r * (h + 1)]
+    if layout is not None:
+        y = reshard(y, scaled(layout, r), row_layout(r * rows, space))
+    return y
 
 
-def upsample_2x(x: torch.Tensor, space: int = 1) -> torch.Tensor:
+def upsample_2x(x: torch.Tensor, space: int = 1, rows: int | None = None) -> torch.Tensor:
     """2× bilinear up-sampling of NCHW, sharded over H where ``space > 1``
     (:func:`upsample`)."""
-    return upsample(x, 2, space)
+    return upsample(x, 2, space, rows)
 
 
 class DownBlock(nn.Module):
@@ -458,9 +554,9 @@ class DownBlock(nn.Module):
         self.DoubleConv_0 = DoubleConv(in_features, features, dtype, norm, generator,
                                        norm_groups)
 
-    def forward(self, x: torch.Tensor):
-        skip = self.DoubleConv_0(x)
-        return max_pool_2x2(skip), skip
+    def forward(self, x: torch.Tensor, rows: int | None = None):
+        skip = self.DoubleConv_0(x, rows)
+        return max_pool_2x2(skip, rows), skip
 
 
 class UpBlock(nn.Module):
@@ -485,27 +581,38 @@ class UpBlock(nn.Module):
             skip_features + up_features, features, dtype, norm, generator, norm_groups
         )
 
-    def forward(self, x: torch.Tensor, skips: list, phase: str = "all") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skips: list, phase: str = "all",
+                rows: int | None = None) -> torch.Tensor:
         """``phase`` is for pipeline stages (``parallel/pipeline.py``):
         ``'up'`` runs the up-sampling and the concat only, ``'conv'`` the
-        DoubleConv only on what ``'up'`` returned, ``'all'`` both."""
+        DoubleConv only on what ``'up'`` returned, ``'all'`` both.
+        ``rows``: the input's global rows (H sharded over the space axis);
+        the up-sampled rows are resharded to the skips' layout."""
         if phase not in ("all", "up", "conv"):
             raise ValueError(f"unknown UpBlock phase {phase!r}")
         if phase in ("all", "up"):
             if self.up_sample_mode == "conv_transpose":
                 x = self.ConvTranspose_0(x)
+                layout = _layout(rows)
+                if layout is not None:
+                    x = reshard(x, scaled(layout, 2), _layout(2 * rows))
             else:
-                x = upsample_2x(x, self.space)
+                x = upsample_2x(x, self.space, rows)
             x = torch.cat([*skips, x], dim=1)
             if phase == "up":
                 return x
-        return self.DoubleConv_0(x)
+        return self.DoubleConv_0(x, None if rows is None else 2 * rows)
 
 
-def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+def space_to_depth(x: torch.Tensor, r: int, rows: int | None = None) -> torch.Tensor:
     """NCHW [B,C,H,W] → [B,C·r²,H/r,W/r] with the reference's channel order:
     channel ``(dy·r + dx)·C + c`` holds pixel ``(r·i + dy, r·j + dx)`` of
-    channel c — the NHWC ``layers.space_to_depth`` seen through NCHW."""
+    channel c — the NHWC ``layers.space_to_depth`` seen through NCHW.
+    ``rows`` (H sharded over the space axis, the input's global rows): the
+    input is first resharded to the factor's phase."""
+    layout = _layout(rows)
+    if layout is not None:
+        x = reshard(x, layout, aligned(layout, r))
     b, c, h, w = x.shape
     if h % r or w % r:
         raise ValueError(f"spatial dims {(h, w)} not divisible by r={r}")
@@ -513,14 +620,20 @@ def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.permute(0, 3, 5, 1, 2, 4).reshape(b, r * r * c, h // r, w // r)
 
 
-def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
-    """Inverse of :func:`space_to_depth` — the subpixel head."""
+def depth_to_space(x: torch.Tensor, r: int, rows: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth` — the subpixel head.  ``rows``
+    (H sharded over the space axis, the input's global rows): the output
+    is resharded to the layout of ``r·rows`` rows."""
     b, cr, h, w = x.shape
     if cr % (r * r):
         raise ValueError(f"channels {cr} not divisible by r²={r * r}")
     c = cr // (r * r)
     x = x.reshape(b, r, r, c, h, w)
-    return x.permute(0, 3, 4, 1, 5, 2).reshape(b, c, h * r, w * r)
+    y = x.permute(0, 3, 4, 1, 5, 2).reshape(b, c, h * r, w * r)
+    layout = _layout(rows)
+    if layout is not None:
+        y = reshard(y, scaled(layout, r), _layout(r * rows))
+    return y
 
 
 class DetailHead(nn.Module):
@@ -537,10 +650,11 @@ class DetailHead(nn.Module):
                            generator=generator)
         self.Conv_1 = Conv(hidden, num_classes, 3, head_dtype, generator=generator)
 
-    def forward(self, logits: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    def forward(self, logits: torch.Tensor, image: torch.Tensor,
+                rows: int | None = None) -> torch.Tensor:
         z = torch.cat([logits.to(self.dtype), image.to(self.dtype)], dim=1)
-        z = F.relu(self.Conv_0(z))
-        return logits + self.Conv_1(z.to(self.head_dtype))
+        z = F.relu(self.Conv_0(z, rows))
+        return logits + self.Conv_1(z.to(self.head_dtype), rows)
 
 
 class StemGridDetailHead(nn.Module):
@@ -560,10 +674,15 @@ class StemGridDetailHead(nn.Module):
                            generator=generator)
         self.Conv_1 = Conv(hidden, num_classes * r * r, 3, head_dtype, generator=generator)
 
-    def forward(self, z: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
-        zin = torch.cat([z.to(self.dtype), space_to_depth(image.to(self.dtype), self.r)], dim=1)
-        y = F.relu(self.Conv_0(zin))
-        return z + self.Conv_1(y.to(self.head_dtype))
+    def forward(self, z: torch.Tensor, image: torch.Tensor,
+                rows: int | None = None) -> torch.Tensor:
+        """``rows``: the stem grid's global rows (the image has ``r`` times
+        as many)."""
+        image_rows = None if rows is None else rows * self.r
+        zin = torch.cat([z.to(self.dtype), space_to_depth(image.to(self.dtype), self.r,
+                                                           image_rows)], dim=1)
+        y = F.relu(self.Conv_0(zin, rows))
+        return z + self.Conv_1(y.to(self.head_dtype), rows)
 
 
 def group_labels(labels: torch.Tensor, r: int) -> torch.Tensor:

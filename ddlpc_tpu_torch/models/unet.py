@@ -14,8 +14,10 @@ carry ``{'x', 'skips'[, 'image']}`` — NCHW tensors in the compute dtype —
 which the next slice resumes from.
 
 H sharded over the space axis (``models.shard_space`` sets ``space``):
-every tensor holds this rank's rows; the forward checks that they are a
-whole number of the network's row unit (``models.check_space_rows``).
+every tensor holds this rank's rows of its level, laid out by
+``parallel.halo.row_layout`` over the level's global rows, which the
+forward passes to each block; the input's height must be one the
+unsharded network takes (``models.check_space_rows``).
 """
 
 from __future__ import annotations
@@ -180,29 +182,38 @@ class UNet(nn.Module):
                     "image: pass carry=None exactly when blocks starts at "
                     f"{names[0]!r}"
                 )
+        # The stem grid's global rows under the space axis (None: unsharded,
+        # or a pipeline stage, which the space axis does not compose with).
+        grid = images.shape[1] * self.space // self.r if self.space > 1 and carry is None \
+            else None
         if carry is None:
             x, image = self._stem(images)
             skips = []
         else:
             x, skips, image = carry["x"], list(carry["skips"]), carry.get("image")
+
+        def at(level: int):
+            return None if grid is None else grid >> level
+
         i = 0
         while i < len(blocks):
             b = blocks[i]
             if b.startswith("DownBlock_"):
-                x, skip = getattr(self, b)(x)
+                x, skip = getattr(self, b)(x, at(int(b.split("_")[1])))
                 skips.append(skip)
             elif b == "DoubleConv_0":
-                x = self.DoubleConv_0(x)
+                x = self.DoubleConv_0(x, at(self.depth))
             elif b.startswith("UpBlock_"):
                 base, phase = b.split(":")
                 up = getattr(self, base)
                 if phase == "up" and i + 1 < len(blocks):
-                    x = up(x, [skips.pop()])  # both halves: the unstaged call
+                    # Both halves: the unstaged call.
+                    x = up(x, [skips.pop()], rows=at(self.depth - int(base.split("_")[1])))
                     i += 2
                     continue
                 x = up(x, [skips.pop()], "up") if phase == "up" else up(x, [], "conv")
             else:  # "head"
-                return self._head(x, image)
+                return self._head(x, image, at(0))
             i += 1
         out = {"x": x, "skips": tuple(skips)}
         if self.carry_has_image():
@@ -214,30 +225,35 @@ class UNet(nn.Module):
         image), NCHW in the compute dtype."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         image = x
+        rows = None
         if self.space > 1:
             from ddlpc_tpu_torch.models import check_space_rows
 
-            check_space_rows(images.shape[1] * self.space, self.space, self.r, pools=self.depth)
+            rows = images.shape[1] * self.space
+            check_space_rows(rows, self.space, self.r, pools=self.depth)
         if self.stem == "s2d":
-            x = space_to_depth(x, self.r)
+            x = space_to_depth(x, self.r, rows)
+        grid = (x.shape[2] if rows is None else rows // self.r, x.shape[3])
         min_px = 2 ** self.depth
-        if x.shape[2] < min_px or x.shape[3] < min_px:
+        if min(grid) < min_px:
             raise ValueError(
                 f"input {tuple(images.shape[1:3])} too small for a "
                 f"{self.depth}-level pyramid behind the {self.stem!r} stem "
-                f"(grid {tuple(x.shape[2:])} after the stem; the deepest pool "
+                f"(grid {grid} after the stem; the deepest pool "
                 f"needs ≥ {min_px} px)"
             )
         return x, image
 
-    def _head(self, x: torch.Tensor, image: Optional[torch.Tensor]) -> torch.Tensor:
-        """The 1×1 logit conv and the optional detail refinement."""
-        z = self.Conv_0(x.to(self.head_dtype))
+    def _head(self, x: torch.Tensor, image: Optional[torch.Tensor],
+              rows: Optional[int] = None) -> torch.Tensor:
+        """The 1×1 logit conv and the optional detail refinement; ``rows``,
+        the stem grid's global rows under the space axis."""
+        z = self.Conv_0(x.to(self.head_dtype), rows)
         if self.refine == "s2d":
-            z = self.StemGridDetailHead_0(z, image)
+            z = self.StemGridDetailHead_0(z, image, rows)
         if self.training and self.grouped:
             return z.permute(0, 2, 3, 1)
-        logits = depth_to_space(z, self.r) if self.stem == "s2d" else z
+        logits = depth_to_space(z, self.r, rows) if self.stem == "s2d" else z
         if self.refine == "fullres":
-            logits = self.DetailHead_0(logits, image)
+            logits = self.DetailHead_0(logits, image, None if rows is None else rows * self.r)
         return logits.permute(0, 2, 3, 1)

@@ -14,10 +14,12 @@ ensemble mean, which then joins the train stack (``ensemble``).  Names
 are flax's, so ``convert.py`` maps the param trees by path.
 
 H sharded over the space axis (``models.shard_space`` sets ``space``):
-every tensor holds this rank's rows, which must be a whole number of the
-row unit of the ``depth − 1`` pools behind the stem
-(``models.check_space_rows``); the heads, their mean and the detail heads
-are row-local, their 3×3 convs taking halos (``layers.Conv.halo``).
+every tensor holds this rank's rows of its level, laid out by
+``parallel.halo.row_layout`` over the level's global rows, which the
+forward passes to each node (the height must be one the unsharded
+network takes, ``models.check_space_rows``); the heads, their mean and
+the detail heads are row-local, their 3×3 convs taking halos
+(``layers.Conv.halo``).
 """
 
 from __future__ import annotations
@@ -114,13 +116,16 @@ class UNetPP(nn.Module):
                 num_classes, in_channels, detail_head_hidden, dtype, head_dtype, g
             )
 
-    def _restore(self, z: torch.Tensor) -> torch.Tensor:
-        return depth_to_space(z, self.r) if self.stem == "s2d" else z
+    def _restore(self, z: torch.Tensor, rows=None) -> torch.Tensor:
+        """Depth-to-space of the stem grid's logits (``rows``: its global
+        rows under the space axis)."""
+        return depth_to_space(z, self.r, rows) if self.stem == "s2d" else z
 
-    def _to_pixel(self, z: torch.Tensor, image: torch.Tensor, refine: bool) -> torch.Tensor:
-        logits = self._restore(z)
+    def _to_pixel(self, z: torch.Tensor, image: torch.Tensor, refine: bool,
+                  rows=None) -> torch.Tensor:
+        logits = self._restore(z, rows)
         if refine and self.refine == "fullres":
-            logits = self.detail_head(logits, image)
+            logits = self.detail_head(logits, image, None if rows is None else rows * self.r)
         return logits
 
     def _mean(self, zs) -> torch.Tensor:
@@ -135,66 +140,72 @@ class UNetPP(nn.Module):
         float32 where there is more than one head)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         image = x
+        rows = None  # the input's global rows under the space axis
         if self.space > 1:
             from ddlpc_tpu_torch.models import check_space_rows
 
-            check_space_rows(images.shape[1] * self.space, self.space, self.r,
-                             pools=self.depth - 1)
+            rows = images.shape[1] * self.space
+            check_space_rows(rows, self.space, self.r, pools=self.depth - 1)
         if self.stem == "s2d":
-            x = space_to_depth(x, self.r)
+            x = space_to_depth(x, self.r, rows)
+        size = (x.shape[2] if rows is None else rows // self.r, x.shape[3])
         min_px = 2 ** (self.depth - 1)
-        if x.shape[2] < min_px or x.shape[3] < min_px:
+        if min(size) < min_px:
             raise ValueError(
                 f"input {tuple(images.shape[1:3])} too small for a {self.depth}-level "
-                f"U-Net++ grid behind the {self.stem!r} stem (grid {tuple(x.shape[2:])} "
+                f"U-Net++ grid behind the {self.stem!r} stem (grid {size} "
                 f"after the stem; the deepest pool needs ≥ {min_px} px)"
             )
+
+        def at(level: int):
+            return None if rows is None else rows // self.r >> level
+
         grid = {}
         h = x
         for i in range(self.depth):
-            grid[i, 0] = getattr(self, f"x{i}_0")(h)
+            grid[i, 0] = getattr(self, f"x{i}_0")(h, at(i))
             if i < self.depth - 1:
-                h = max_pool_2x2(grid[i, 0])
+                h = max_pool_2x2(grid[i, 0], at(i))
         for j in range(1, self.depth):
             for i in range(self.depth - j):
                 grid[i, j] = getattr(self, f"x{i}_{j}")(
-                    grid[i + 1, j - 1], [grid[i, k] for k in range(j)]
+                    grid[i + 1, j - 1], [grid[i, k] for k in range(j)], rows=at(i + 1)
                 )
         cols = range(1, self.depth) if self.deep_supervision else [self.depth - 1]
-        zs = [getattr(self, name)(grid[0, j].to(self.head_dtype))
+        zs = [getattr(self, name)(grid[0, j].to(self.head_dtype), at(0))
               for name, j in zip(self.head_names, cols)]
         if self.refine == "s2d" and not self.ensemble_scope:
-            zs = [self.detail_head(z, image) for z in zs]
+            zs = [self.detail_head(z, image, at(0)) for z in zs]
         # scope='ensemble': one refinement of the ensemble mean, which
         # joins the train stack as one more supervised output.
         ens_z = ens_px = None
         if self.ensemble_scope:
             ens = self._mean(zs).to(self.head_dtype) if len(zs) > 1 else zs[0]
             if self.refine == "s2d":
-                ens_z = self.detail_head(ens, image)
+                ens_z = self.detail_head(ens, image, at(0))
             else:
-                ens_px = self.detail_head(self._restore(ens), image)
+                ens_px = self.detail_head(self._restore(ens, at(0)), image, rows)
         if self.training:
             if self.grouped:
                 outs = zs + ([ens_z] if ens_z is not None else [])
             else:
-                outs = [self._to_pixel(z, image, not self.ensemble_scope) for z in zs]
+                outs = [self._to_pixel(z, image, not self.ensemble_scope, at(0)) for z in zs]
                 if ens_z is not None:
-                    outs.append(self._restore(ens_z))
+                    outs.append(self._restore(ens_z, at(0)))
                 elif ens_px is not None:
                     outs.append(ens_px)
             if self.deep_supervision:
                 return torch.stack(outs).permute(0, 1, 3, 4, 2)
             return outs[0].permute(0, 2, 3, 1)
         if ens_z is not None:
-            out = self._restore(ens_z)
+            out = self._restore(ens_z, at(0))
         elif ens_px is not None:
             out = ens_px
         elif self.refine != "fullres":
             # depth_to_space is a permutation: average at the stem grid and
             # restore once.
-            out = self._restore(zs[0] if len(zs) == 1 else self._mean(zs))
+            out = self._restore(zs[0] if len(zs) == 1 else self._mean(zs), at(0))
         else:
-            logits = [self._to_pixel(z, image, True) for z in zs]
+            logits = [self._to_pixel(z, image, True, at(0)) for z in zs]
             out = logits[0] if len(logits) == 1 else self._mean(logits)
         return out.permute(0, 2, 3, 1)

@@ -329,8 +329,12 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[to
     global rank)`` together and wait for all of them, so that no order of
     ranks can deadlock.  gloo takes CPU tensors only: a card's tensors go
     through host copies (the receive buffers are filled in place either
-    way); bfloat16 travels as its int16 bits.  ``axis`` names the group
-    the peers share (None: the world)."""
+    way); bfloat16 travels as its int16 bits.  Buffers may differ in
+    size; an empty one posts nothing (its peer, which sizes the same
+    message alike, posts nothing either).  ``axis`` names the group the
+    peers share (None: the world)."""
+    sends = [(t, peer) for t, peer in sends if t.numel()]
+    recvs = [(t, peer) for t, peer in recvs if t.numel()]
     if not sends and not recvs:
         return
     host = dist.get_backend() == "gloo" and any(t.is_cuda for t, _ in (*sends, *recvs))

@@ -72,6 +72,7 @@ from ddlpc_tpu_torch.ops.metrics import confusion_from_logits
 from ddlpc_tpu_torch.ops import philox
 from ddlpc_tpu_torch.ops.philox import step_key
 from ddlpc_tpu_torch.parallel import mesh
+from ddlpc_tpu_torch.parallel.halo import aligned, reshard, row_layout
 from ddlpc_tpu_torch.parallel.grad_sync import (
     check_supported,
     resolve_codec_backend,
@@ -268,7 +269,7 @@ def _nll_terms(logits: torch.Tensor, labels: torch.Tensor, train_head_layout: st
                 f"train_head_layout={train_head_layout!r} — refusing to "
                 "reinterpret as grouped logits"
             )
-        r = labels.shape[-2] // logits.shape[-3]
+        r = labels.shape[-1] // logits.shape[-2]
         if (labels.shape[-2] != r * logits.shape[-3]
                 or labels.shape[-1] != r * logits.shape[-2]):
             raise ValueError(
@@ -306,7 +307,17 @@ def spatial_loss_from_logits(
     """This rank's share of the global batch's loss and accuracy on a
     ``data × space`` grid: its NLL and correct sums over the valid-pixel
     count of the whole (data, space) group, all-reduced.  The shares sum
-    over the group to :func:`loss_from_logits` of the global batch."""
+    over the group to :func:`loss_from_logits` of the global batch.
+    Grouped logits hold the stem grid's rows, laid out over the space
+    group as ``halo.row_layout`` lays out that grid: the labels, in the
+    input's even layout, are resharded to the same rows first (the
+    identity where the space axis divides the stem grid)."""
+    if train_head_layout == "grouped" and logits.shape[-2] != labels.shape[-1]:
+        space = mesh.space_size()
+        rows = labels.shape[-2] * space
+        r = labels.shape[-1] // logits.shape[-2]
+        labels = reshard(labels, row_layout(rows, space),
+                         aligned(row_layout(rows, space), r), axis=-2)
     nll, correct, valid = _nll_terms(logits, labels, train_head_layout)
     count = mesh.all_reduce_(valid.sum().detach().reshape(1), "sum", "stage")[0]
     denom = torch.clamp_min(count, 1.0)

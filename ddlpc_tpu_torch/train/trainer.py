@@ -85,8 +85,9 @@ Observability, as in the JAX trainer:
 The space axis (``parallel.space_axis_size > 1``), as the JAX trainer's
 GSPMD path: the world is a ``data × space`` grid (``mesh.init_grid``), the
 model is sharded over H (``models.shard_space``: the U-Net and U-Net++,
-either up-sampling, and DeepLabV3+; a shard holds a whole number of the
-model's row unit, ``models.space_stem_factor`` · 2 ** ``models.space_pools``),
+either up-sampling, and DeepLabV3+, at any height the JAX GSPMD step
+takes, ``models.check_space_rows``; a level the space axis does not
+divide is laid out unevenly, ``parallel.halo.row_layout``),
 each rank loads its data shard's rows, and the spatial train and eval steps
 (``parallel/train_step.py``) take the global batch's loss, gradient,
 BatchNorm statistics and confusion.  Perf accounting divides the FLOPs a
@@ -298,8 +299,10 @@ class Trainer:
         self.space = (mesh.space_index(), space)
         if self.spatial:
             check_spatial_compression(cfg.compression)
-            check_space_rows(cfg.data.image_size[0], space, space_stem_factor(cfg.model),
-                             space_pools(cfg.model))
+            h, w = cfg.data.image_size
+            batch = (cfg.train.sync_period, cfg.train.micro_batch_size * self.world, h, w, 3)
+            check_space_rows(h, space, space_stem_factor(cfg.model), space_pools(cfg.model),
+                             shape=batch)
         self.shard_update = resolve_shard_update(
             cfg.parallel.shard_update, cfg.compression, self.world, spatial=self.spatial,
             grad_clip_norm=cfg.train.grad_clip_norm,

@@ -25,6 +25,16 @@ Tasks:
   this rank's block of the cotangent ``w``;
 - ``halo`` with ``pool``: ``layers.max_pool_same`` (3×3/2) of this rank's
   rows of ``x`` and its gradient against the cotangent ``w``;
+- ``halo`` with ``layout`` (the boundaries of ``x``'s rows over the space
+  group, uneven): with ``dst``, ``halo.reshard`` of this rank's rows to
+  that layout; with ``rows = [top, bottom]``, ``halo_exchange(...,
+  layout=)``; with ``up``, ``layers.upsample`` by that factor in
+  ``dtype`` given the global rows; with ``norm`` (``batch``, ``group`` or
+  ``aspp``, NCHW float64), ``layers.batch_norm`` over the space group,
+  ``group_norm`` or a sharded ``ASPP`` given the global rows; each with
+  its gradient against this rank's block of ``w`` (the blocks in rank
+  order) and, for the norms, the parameters' gradients summed over the
+  group;
 - ``spatial``: the model of ``task["model"]`` from the canonical weights
   in ``in.npz`` trains ``images`` with the spatial step on this rank's
   columns and rows, at each of ``runs``' ZeRO levels, recording the
@@ -85,6 +95,8 @@ def _halo(task: dict, inputs, rank: int) -> dict:
 def _halo_case(case: dict, inputs: dict) -> dict:
     from ddlpc_tpu_torch.parallel.halo import halo_exchange, sharded_same_conv
 
+    if "layout" in case:
+        return _layout_case(case, inputs)
     x = torch.from_numpy(_rows(inputs["x"], 1).copy())
     out = {"x": x.numpy().copy()}
     if case.get("upsample") or case.get("pool"):
@@ -136,6 +148,68 @@ def _halo_case(case: dict, inputs: dict) -> dict:
         out["conv"] = y.permute(0, 2, 3, 1).detach().numpy()
         out["gx"] = xl.grad.permute(0, 2, 3, 1).numpy()
         out["gk"] = gk.permute(2, 3, 1, 0).numpy()
+    return out
+
+
+def _layout_case(case: dict, inputs: dict) -> dict:
+    from ddlpc_tpu_torch.models import layers
+    from ddlpc_tpu_torch.models.deeplabv3p import ASPP
+    from ddlpc_tpu_torch.models.layers import space_halo
+    from ddlpc_tpu_torch.parallel.halo import halo_exchange, reshard, row_layout
+
+    lay, s, space = tuple(case["layout"]), mesh.space_index(), mesh.space_size()
+    axis = 2 if "norm" in case else 1
+    x = torch.from_numpy(np.take(inputs["x"], np.arange(lay[s], lay[s + 1]), axis=axis).copy())
+    leaf = x.requires_grad_(True)
+    params, out_lay = [], lay
+    if "dst" in case:
+        out_lay = tuple(case["dst"])
+        y = reshard(x, lay, out_lay, axis=1)
+    elif "rows" in case:
+        top, bottom = case["rows"]
+        y = halo_exchange(x, (top, bottom), spatial_axis=1, edge=case["edge"], multi_hop=True,
+                          layout=lay)
+        out_lay = None
+        sizes = [b - a + top + bottom if b > a else 0 for a, b in zip(lay, lay[1:])]
+    elif "up" in case:
+        leaf = x.detach().permute(0, 3, 1, 2).to(getattr(torch, case["dtype"]))
+        leaf.requires_grad_(True)
+        y = layers.upsample(leaf, case["up"], space, rows=lay[-1]).permute(0, 2, 3, 1)
+        out_lay = row_layout(case["up"] * lay[-1], space)
+    elif case["norm"] == "aspp":
+        mod = ASPP(x.shape[1], 4, tuple(case["rates"]), torch.float64, norm_groups=2,
+                   generator=torch.Generator().manual_seed(3))
+        for m in mod.modules():
+            if isinstance(m, layers.Conv) and m.kernel > 1:
+                m.halo = space_halo(m.kernel, m.stride, m.dilation)
+            elif isinstance(m, layers.BatchNorm):
+                m.axis_size, m.axis = space, "stage"
+        mod.space = space
+        y = mod(x, rows=lay[-1])
+        params = list(mod.parameters())
+    else:
+        c = x.shape[1]
+        w_ = torch.linspace(0.5, 1.5, c, dtype=torch.float64).requires_grad_(True)
+        b_ = torch.linspace(-0.2, 0.3, c, dtype=torch.float64).requires_grad_(True)
+        params = [w_, b_]
+        if case["norm"] == "batch":
+            rm, rv = torch.zeros(c, dtype=torch.float64), torch.ones(c, dtype=torch.float64)
+            y = layers.batch_norm(x, w_, b_, rm, rv, True, space, "stage", rows=lay[-1])
+        else:
+            y = layers.group_norm(x, case["groups"], w_, b_, space, rows=lay[-1])
+    if out_lay is not None:
+        sizes = [b - a for a, b in zip(out_lay, out_lay[1:])]
+    start = sum(sizes[:s])
+    w = torch.from_numpy(np.take(inputs["w"], np.arange(start, start + sizes[s]),
+                                 axis=axis).copy())
+    y.backward(w.to(y.dtype))
+    out = {"y": y.detach().float().numpy() if "up" in case else y.detach().numpy()}
+    gx = leaf.grad.permute(0, 2, 3, 1).float() if "up" in case else leaf.grad
+    out["gx"] = gx.numpy()
+    for i, p in enumerate(params):
+        out[f"gp{i}"] = mesh.all_reduce_(p.grad.clone(), "sum", "space").numpy()
+    if case.get("norm") == "batch":
+        out.update(mean=rm.numpy(), var=rv.numpy())
     return out
 
 

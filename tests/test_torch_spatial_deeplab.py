@@ -17,7 +17,13 @@ shard only; JAX runs ``make_train_step_gspmd`` on a (1, S) slice of the
   the global edges it is zeros;
 - ``os8``: output stride 8 with rates (2, 4, 6) on 64 × 64 at space 4
   (×2 then ×4 resizes);
-- ``group``: ``norm="group"`` at output stride 16 on 64 × 64 at space 2.
+- ``group``: ``norm="group"`` at output stride 16 on 64 × 64 at space 2;
+- each of the three at two heights the space axis splits unevenly
+  (ROADMAP A6.4), 32 columns: ``os16_h80`` (20 rows a shard at space 4,
+  1.25 output strides), ``os8_h40`` (10 a shard at space 4),
+  ``group_h48`` (24 a shard at space 2), and half an output stride a
+  shard, so that ranks of the deepest levels hold no row:
+  ``os16_h32`` and ``os8_h16`` at space 4, ``group_h16`` at space 2.
 
 They compute in float64 (JAX in x64 mode; params, gradients and Adam in
 float32 on both sides).  In float32 the tiny DeepLabV3+'s second step is
@@ -52,6 +58,7 @@ trainer bit for bit.
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -100,8 +107,17 @@ MODELS = {  # name: (model, tile rows and columns)
     "os16": (dict(DL, output_stride=16, aspp_rates=(6, 12, 18)), (512, 32)),
     "os8": (dict(DL, output_stride=8, aspp_rates=(2, 4, 6)), (64, 64)),
     "group": (dict(DL, norm="group"), (64, 64)),
+    "os16_h80": (dict(DL, output_stride=16, aspp_rates=(6, 12, 18)), (80, 32)),
+    "os16_h32": (dict(DL, output_stride=16, aspp_rates=(6, 12, 18)), (32, 32)),
+    "os8_h40": (dict(DL, output_stride=8, aspp_rates=(2, 4, 6)), (40, 32)),
+    "os8_h16": (dict(DL, output_stride=8, aspp_rates=(2, 4, 6)), (16, 32)),
+    "group_h48": (dict(DL, norm="group"), (48, 32)),
+    "group_h16": (dict(DL, norm="group"), (16, 32)),
 }
-WORLDS = {2: ("os16", "group"), 4: ("os16", "os8")}  # space: the models trained there
+WORLDS = {  # space: the models trained there
+    2: ("os16", "group", "group_h48", "group_h16"),
+    4: ("os16", "os8", "os16_h80", "os16_h32", "os8_h40", "os8_h16"),
+}
 RUNS = [(space, name) for space, names in WORLDS.items() for name in names]
 CODEC = {"mode": "none"}
 
@@ -266,6 +282,63 @@ def test_params_match_jax_gspmd_and_every_rank_agrees(space, name, worlds):
                 np.testing.assert_array_equal(out[k], outs[0][k], err_msg=k)
 
 
+def test_the_first_bits_to_differ_from_jax_are_the_stem_batch_norms_sums():
+    """ROADMAP C20, the first tensor of step one whose bits differ from
+    JAX's, unsharded, in this file's float64 setting (``os16``, the first
+    micro-batch of its first step).  The stem conv's output is bit for bit
+    JAX's; the next op, the stem's BatchNorm, differs, because its batch
+    sum over 4 × 256 × 16 rows in float64 is summed in another order than
+    XLA's: each side's sum is within the float64 bound of a sum of its
+    terms (``n·ε·Σ|x|`` of the exact sum) and they differ in some channels.
+    The float32 loss adds a second difference of its own: on the same
+    float64 logits the port's per-pixel NLL (``exp``, ``log`` and the
+    class sum in float32) is within four float32 ulps of its largest term
+    of JAX's.  Any new
+    difference earlier in the chain fails the first assertion."""
+    from ddlpc_tpu.ops.losses import nll_correct_valid as jnll
+    from ddlpc_tpu_torch.ops.losses import nll_correct_valid
+
+    kw, (h, w) = MODELS["os16"]
+    images, labels = _batches(h, w, seed=7)
+    x, y = images[0, 0], labels[0, 0]
+    jmodel = jbuild_model(JModelConfig(**kw))
+    variables = flax_like_variables(jmodel)
+    with jax.enable_x64(True):
+        stats = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables["batch_stats"])
+        (jlogits, state) = jmodel.apply(
+            {"params": variables["params"], "batch_stats": stats}, x, train=True,
+            mutable=["batch_stats", "intermediates"], capture_intermediates=True)
+        inter = jax.device_get(state["intermediates"])
+        jconv = np.asarray(inter["ConvNormAct_0"]["Conv_0"]["__call__"][0])
+        jbn = np.asarray(inter["ConvNormAct_0"]["Norm_0"]["BatchNorm_0"]["__call__"][0])
+        jsum = np.asarray(jnp.sum(jnp.asarray(jconv), axis=(0, 1, 2)))
+        jlogits = np.asarray(jlogits)
+        jn = np.asarray(jnll(jnp.asarray(jlogits), y, ignore_index=-1)[0])
+    model = build_model(ModelConfig(**kw))
+    model.load_state_dict(torch_state_from_flax(variables["params"], variables["batch_stats"])[0])
+    model.train()
+    seen = {}
+    stem = model.ConvNormAct_0
+    stem.Conv_0.register_forward_hook(lambda m, i, o: seen.update(conv=o.detach()))
+    stem.Norm_0.register_forward_hook(lambda m, i, o: seen.update(bn=o.detach()))
+    model(torch.from_numpy(x))
+    conv = seen["conv"].permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(conv, jconv)
+    assert (seen["bn"].permute(0, 2, 3, 1).numpy() != jbn).any()
+    psum = seen["conv"].sum(dim=(0, 2, 3)).numpy()
+    terms = conv.reshape(-1, conv.shape[-1])
+    exact = np.array([math.fsum(terms[:, c]) for c in range(terms.shape[1])])
+    bound = terms.shape[0] * np.finfo(np.float64).eps * np.abs(terms).sum(axis=0)
+    assert (np.abs(jsum - exact) <= bound).all() and (np.abs(psum - exact) <= bound).all()
+    assert (psum != jsum).any()
+    pn = nll_correct_valid(torch.from_numpy(jlogits), torch.from_numpy(y.astype(np.int64)),
+                           -1)[0].numpy()
+    # nll = lse − m − (l − m): a rounding of lse or of the row max m is an
+    # ulp of the larger of them, not of the difference.
+    scale = np.float32(np.abs(jlogits).max(axis=-1)) + np.abs(jn)
+    assert (np.abs(pn - jn) <= 4 * np.spacing(scale)).all()
+
+
 @pytest.mark.parametrize("space", list(WORLDS))
 def test_the_rate_18_halo_spans_more_than_a_shard(space):
     """At 512 rows and output stride 16 the ASPP sees 512 / 16 / space rows
@@ -402,17 +475,20 @@ def test_a_count_past_the_local_rows_needs_multi_hop_and_no_clamp():
 
 def test_deeplab_row_unit_is_its_output_stride():
     """DeepLabV3+ halves H ``log2(output_stride)`` times (stem conv, pool,
-    stages) and has no space-to-depth stem: a shard must hold a multiple
-    of the output stride, and uneven shards are refused naming A6.4."""
+    stages) and has no space-to-depth stem: the height must be a multiple
+    of the output stride, as unsharded; since uneven shards (ROADMAP A6.4)
+    a shard may hold any part of it (48 over 2: 24 rows a shard, 1.5
+    output strides)."""
     for stride, pools in ((16, 4), (8, 3)):
         cfg = ModelConfig(name="deeplabv3p", output_stride=stride, stem="s2d", stem_factor=4)
         assert (space_pools(cfg), space_stem_factor(cfg)) == (pools, 1)
     check_space_rows(512, 2, 1, 4)
-    with pytest.raises(ValueError, match="ROADMAP A6.4"):
-        check_space_rows(48, 2, 1, 4)  # 24 rows a shard, not a multiple of 16
+    check_space_rows(48, 2, 1, 4)
+    with pytest.raises(ValueError, match=r"1·2\*\*4 = 16"):
+        check_space_rows(40, 2, 1, 4)
     model = shard_space(build_model(ModelConfig(**MODELS["os16"][0])), 1, 2)
     with pytest.raises(ValueError, match=r"1·2\*\*4 = 16"):
-        model(torch.zeros(1, 24, 32, 3))
+        model(torch.zeros(1, 20, 32, 3))
 
 
 def test_a_strided_conv_on_odd_local_rows_raises():
