@@ -83,7 +83,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    a fresh Trainer on a copy of the workdir whose newest checkpoint is
    epoch 1 resumes and runs epoch 2, whose loss must equal the
    uninterrupted epoch 2's bits; a blob with one flipped byte is
-   quarantined and the restore falls back to the one before; then the
+   quarantined and the restore falls back to the one before.  Then the
+   same resume from epoch 1's state rewritten as a legacy monolithic blob
+   (``ckpt_2.msgpack.z``, the port's flax msgpack codec; its ``.dwc``
+   dropped) in another copy: it must verify with JAX's summary, resume to
+   epoch 2's loss and canonical state bit for bit with one fp16 step's
+   launches (``encode_to_wire``, ``decode_from_wire``,
+   ``fake_quantize_fused`` one each, ``absmax`` two), and a copy with one
+   flipped byte must be quarantined and fall back to ``ckpt_1.dwc``; the
+   synchronous save and the restore of both formats on that tree, and
+   their disk bytes, go into the row.  Then the
    save's cost on the live trainer: the training thread's stall (the
    snapshot into reusable pinned host buffers, and, for comparison, into
    new pageable ones), the background write, its GB/s, the restore, the
@@ -179,6 +188,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    predictions (U-Net++'s ensemble readout), and the host loader's
    batches equal to ``DeviceLoader``'s.  Each prints its epochs' step
    time, MFU and goodput and its peak memory beside the card;
+
+4c'. ``unetpp_remat``: ``configs/vaihingen_unetpp.json`` as written with
+   ``train.remat=true``, ``REMAT_STEPS`` = 2 optimizer steps of the
+   trainer's own step on its loader's first batches, from the ``unetpp``
+   run's initial weights (held by digest): the first loss must be that
+   run's bits, the second loss and every BatchNorm statistic within
+   ``REMAT_RTOL`` (1e-4) relative of its, no codec launch; it prints its
+   peak memory beside the ``unetpp`` run's through the same steps
+   (``unetpp_remat row``);
 
 4d. the data paths, each through the CLI's entry for ``DATA_EPOCHS`` (1)
    epoch, their fixtures written meanwhile by a process of this script
@@ -314,7 +332,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``--dp-rank``, started by ``mesh.spawn_world`` under a deadline that
    kills the world) through the CLI's entry on
    ``configs/vaihingen_unet_v5e8.json`` at full width, 512² tiles,
-   micro-batch 128 a replica and three optimizer steps:
+   micro-batch 128 a replica and ``DP_EPOCHS`` = 2 optimizer steps (3
+   until the script needed the time):
    ``dp4_zero2_fp16`` (4 replicas, ZeRO-2, the f16 wire) and
    ``dp2_off_int8_sr`` (2 replicas, the replicated fused all-reduce on the
    int8 wire with stochastic rounding), the config as written: the host
@@ -333,7 +352,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    each rank's peak memory and the card's use, the step times, and the
    sync's wall time a step beside its collectives alone and its codec
    kernels alone.  The W ranks time-share one card here: their step time
-   is no scaling number.  ``dp4_zero2_fp16`` also checkpoints its ZeRO-2
+   is no scaling number.  Every rank prints (rank 0) and gates its state's
+   placement: its ``StateLayout``'s decisions per kind (the rules and
+   reasons, which kinds persist chunked: the level's rung), the
+   ``obs/hbm.py`` breakdown, and the trainer's
+   ``ddlpc_hbm_replicated_by_rule_bytes`` gauge, which must equal the
+   bytes of the leaves whose decision reads ``replicated-by-rule``,
+   counted here from the decision trees, and the layout's
+   ``replicated_by_rule_bytes()``; beside them the padding each
+   layout adds to ``n``, the port's flat regions and JAX's per-leaf
+   chunks.  ``dp4_zero2_fp16`` also checkpoints its ZeRO-2
    state (the moments gathered, rank 0 writing), and then every rank
    builds a fresh Trainer that restores it: every rank's params and its
    own chunk of the moments must be bit-identical to the ones saved.
@@ -352,8 +380,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    buffers (the param buffer freed between steps), then trains a zero2
    twin at the same ranks, buckets and steps in the same processes, whose
    params must equal zero3's bit for bit and which must hold at least the
-   full param buffer less a chunk more memory, and one process at
-   ``shard_update='off'`` restores the zero3 checkpoint bit for bit.
+   full param buffer less a chunk more memory, and exactly as much more
+   as the caching allocator's blocks of the two buffers say (the twin's
+   param buffer and zero3's own chunk, read in ``torch.cuda.memory_snapshot``:
+   what it saves beyond the buffer less a chunk is the blocks' rounding,
+   printed beside the priced padding), and one
+   process at ``shard_update='off'`` restores the zero3 checkpoint bit
+   for bit.
    ``dp2_off_int8_sr_traced`` is ``dp2_off_int8_sr`` under
    ``train.trace`` with a sampled sync every step: every rank then runs
    the fenced comm probe once an epoch (``PROBE_SYNCS`` more syncs, whose
@@ -442,10 +475,11 @@ STOCHASTIC = (
 # step, the telemetry endpoint on an ephemeral port and the last epoch
 # under the profiler.  Traced, each replica of a world also runs the fenced
 # comm probe once an epoch, its first call warming up with one more sync:
-# EPOCHS + 1 syncs of the step's own, the codec's launches with them.
+# DP_EPOCHS + 1 syncs of the step's own, the codec's launches with them.
 TRACED = ("train.trace=True", "train.trace_sync_every_steps=1", "train.telemetry_port=0",
           "train.profile_epoch=2")
-PROBE_SYNCS = EPOCHS + 1
+DP_EPOCHS = 2  # the data-parallel phases' steps (one an epoch); 3 until the script needed the time
+PROBE_SYNCS = DP_EPOCHS + 1
 # The probe times one sync of the step's own; the phase also times that
 # sync (the median of 5, ``sync_ms``).  One probe sample must lie within
 # this factor of it either way: a probe that timed a step (≈ 30 syncs)
@@ -497,6 +531,10 @@ FLAGSHIP_OPTIONS = ("train.optimizer=adamw", "train.weight_decay=1e-4", "train.l
 # config, the conv FLOPs a step (the JAX package's integer) and the
 # optimizer steps an epoch (97 tiles over the super-batch, rounded up).
 ZOO_EPOCHS = 1  # one epoch each, to keep the script well inside its time limit
+# unetpp_remat: the zoo run it is held against, its steps and tolerance.
+REMAT_REFERENCE = "unetpp"
+REMAT_STEPS = 2
+REMAT_RTOL = 1e-4
 ZOO_PATHS = {
     "unetpp": ("vaihingen_unetpp.json", 12_480_638_091_264, 7),
     "unetpp_s2d": ("vaihingen_unetpp_s2d.json", 3_246_995_275_776, 2),
@@ -1466,7 +1504,7 @@ def traced_dp_checks(dp: dict) -> dict:
     # comm_fraction is clamped to 1; the unclamped readings are gated.
     lo = min(twin["sync_ms"]) / 1e3 / PROBE_SYNC_MARGIN
     hi = max(twin["sync_ms"]) / 1e3 * PROBE_SYNC_MARGIN
-    if len(probes) != EPOCHS or not all(
+    if len(probes) != DP_EPOCHS or not all(
             p["comm_s_per_step"] is not None and lo <= p["comm_s_per_step"] <= hi
             and p["step_time_s"] is not None and p["comm_s_per_step"] < p["step_time_s"]
             and p["comm_fraction"] is not None and 0 <= p["comm_fraction"] <= 1 for p in probes):
@@ -1538,13 +1576,19 @@ def zoo_phase(label: str, profile: bool) -> dict:
     # its steps' losses and the row blocks of its batches.
     blocks = max((s["space"] for s in SPATIAL_PHASES.values()
                   if s.get("reference", (None, None))[1] == label), default=0)
+    prepare = None
+    if blocks:
+        prepare = lambda t: record_steps(t, recorded)  # noqa: E731
+    elif label == REMAT_REFERENCE:
+        prepare = lambda t: record_remat_reference(t, recorded)  # noqa: E731
     run = main_path_phase(label, (), {}, warns=False, config=os.path.join(REPO, "configs", config),
                           epochs=ZOO_EPOCHS, micro_batch=None, flops=flops,
-                          loader="ShardedLoader",
-                          prepare=(lambda t: record_steps(t, recorded)) if blocks else None)
+                          loader="ShardedLoader", prepare=prepare)
     trainer = run["trainer"]
     if blocks:
         run.update(recorded, batch_digests=batch_digests(trainer.loader, blocks))
+    elif label == REMAT_REFERENCE:
+        run["remat_reference"] = recorded
     if trainer.state.step != ZOO_EPOCHS * steps:
         fail(f"[{label}] {trainer.state.step} optimizer steps, expected {ZOO_EPOCHS} x {steps}")
     log(f"[{label}] {trainer.state.step} optimizer steps; peak memory {run['peak_bytes']} bytes "
@@ -1569,6 +1613,98 @@ def record_steps(trainer, into: dict) -> None:
         return m
 
     trainer.train_step = recorded
+
+
+def bn_stats(model) -> dict:
+    """A copy of the BatchNorm running statistics, on the card."""
+    return {name: b.detach().clone() for name, b in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))}
+
+
+def record_remat_reference(trainer, into: dict) -> None:
+    """The ``unetpp`` zoo run as ``unetpp_remat``'s reference: its initial
+    params' digest, its first ``REMAT_STEPS`` steps' losses and, after
+    them, its BatchNorm statistics and peak memory (no host sync added)."""
+    into["init_digest"] = _digest(trainer.state.params.data)
+    step = trainer.train_step
+    into["step_losses"] = []
+
+    def recorded(state, images, labels):
+        m = step(state, images, labels)
+        into["step_losses"].append(m["loss"].detach().clone())
+        if len(into["step_losses"]) == REMAT_STEPS:
+            into["stats"] = bn_stats(state.model)
+            into["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return m
+
+    trainer.train_step = recorded
+
+
+def unetpp_remat_phase(reference: dict) -> dict:
+    """``unetpp_remat``: ``configs/vaihingen_unetpp.json`` as written with
+    ``train.remat=true``, ``REMAT_STEPS`` optimizer steps of the trainer's
+    own step on its loader's first batches, from the ``unetpp`` zoo run's
+    initial weights (the same seed; held by digest).  The first loss must
+    be that run's bits (the same forward); the later losses and the
+    BatchNorm statistics within ``REMAT_RTOL`` relative (a leaf's largest
+    difference over its largest magnitude: cuDNN's backward is not
+    bitwise deterministic).  Prints the peak memory beside the ``unetpp``
+    run's through the same steps."""
+    import shutil
+
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    workdir = os.path.join(WORKDIR, "unetpp_remat")
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["--config", UNETPP, "--device", "cuda", "--no-resume", "--workdir", workdir,
+            "--set", "train.remat=true"]
+    log("unetpp_remat: python -m ddlpc_tpu_torch.train " + " ".join(argv))
+    cfg, resume, device, backend = parse_args(argv)
+    trainer = Trainer(cfg, resume=resume, device=device, dist_backend=backend)
+    if not cfg.train.remat or _digest(trainer.state.params.data) != reference["init_digest"]:
+        fail("[unetpp_remat] the initial params differ from the unetpp run's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cq.reset_launch_counts()
+    trainer.loader.set_epoch(0)
+    it = iter(trainer.loader)
+    losses, step_s = [], []
+    for _ in range(REMAT_STEPS):
+        images, labels = next(it)
+        t0 = time.perf_counter()
+        m = trainer.train_step(trainer.state, images, labels)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    it.close()
+    want = [float(x) for x in reference["step_losses"][:REMAT_STEPS]]
+    rel_loss = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    stats = bn_stats(trainer.state.model)
+    rel_stats = {k: float((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                 for k, v in reference["stats"].items()}
+    worst = max(rel_stats, key=rel_stats.get)
+    row = {"card": smi_line(), "losses": losses, "unetpp_losses": want, "loss_rel": rel_loss,
+           "bn_stats_max_rel": rel_stats[worst], "bn_stats_worst": worst, "bn_leaves": len(stats),
+           "step_s": step_s, "peak_bytes": peak, "unetpp_peak_bytes": reference["peak_bytes"],
+           "launches": {k: v for k, v in cq.LAUNCHES.items() if v}}
+    log("unetpp_remat row: " + json.dumps(row))
+    if losses[0] != want[0]:
+        fail(f"[unetpp_remat] first loss {losses[0]} != the unetpp run's {want[0]} (bit for bit)")
+    if max(rel_loss) > REMAT_RTOL or rel_stats[worst] > REMAT_RTOL or row["launches"]:
+        fail(f"[unetpp_remat] losses {losses} against {want} (rel {rel_loss}), BatchNorm statistics "
+             f"{rel_stats[worst]} at {worst}, codec launches {row['launches']}: expected within "
+             f"{REMAT_RTOL} and none")
+    log(f"[unetpp_remat] first loss == the unetpp run's bit for bit, step {REMAT_STEPS} within "
+        f"{max(rel_loss):.3g}, BatchNorm statistics within {rel_stats[worst]:.3g} ({worst}); peak "
+        f"{peak / 2**30:.2f} GiB against the unetpp run's {reference['peak_bytes'] / 2**30:.2f} GiB "
+        f"through the same steps ({smi_line()})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def batch_digests(loader, blocks: int, epoch: int = 0) -> list:
@@ -2043,14 +2179,16 @@ def sqrt_phase() -> dict:
 def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
     """The fp16 main path's checkpoints (``EPOCHS`` of them, one an epoch):
     verified, resumed from epoch 1 to the uninterrupted epoch 2's bits,
-    one corrupted and fallen back from; then a save's cost on the live
-    trainer (module docstring, phase 4b)."""
+    one corrupted and fallen back from; the same resume from epoch 1's
+    state rewritten as a legacy monolithic blob (:func:`monolithic_resume`);
+    then a save's cost on the live trainer (module docstring, phase 4b)."""
     import shutil
 
     from ddlpc_tpu_torch.train import checkpoint as ckpt
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
+    final = _canonical_digest(trainer.state)
     steps = ckpt._steps(trainer.ckpt_dir)
     if steps != list(range(1, EPOCHS + 1)):
         fail(f"checkpoint steps {steps}, expected one an epoch")
@@ -2105,6 +2243,7 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
             or not os.path.exists(bad + ".bad") or not caught):
         fail(f"corrupt blob: restored step {meta['step']}, {meta.get('quarantined_steps')}")
     log(f"[checkpoint] a flipped byte in ckpt_{EPOCHS}.dwc: quarantined, restored step {meta['step']}")
+    row["monolithic"] = monolithic_resume(trainer, argv, losses, final)
 
     # The save's cost on the live trainer, three times: a step with no save
     # in flight, a save (the stall), a step while it writes, the write.
@@ -2163,6 +2302,111 @@ def checkpoint_phase(trainer, argv: list, losses: list) -> dict:
     wire.set_native(True)
     row["wire_ab"] = wires
     log("checkpoint row: " + json.dumps(row))
+    return row
+
+
+def monolithic_resume(trainer, argv: list, losses: list, final: str) -> dict:
+    """The fp16 flagship's epoch-1 state (``ckpt_{EPOCHS-1}``) rewritten as a
+    legacy monolithic blob (``ckpt_<step>.msgpack.z``: the port's flax
+    msgpack codec, one DWZ1 frame) in a copy of the workdir, its ``.dwc``
+    dropped: verified (JAX's summary), resumed by a fresh ``Trainer`` to
+    the uninterrupted epoch 2's loss and canonical state bit for bit, with
+    one fp16 step's kernel launches; a corrupted copy quarantined and
+    fallen back from.  Times the save and the restore of each format on
+    the same tree and prints them beside the card."""
+    import shutil
+
+    from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.train import checkpoint as ckpt
+    from ddlpc_tpu_torch.train.__main__ import parse_args
+    from ddlpc_tpu_torch.train.trainer import Trainer
+
+    step = EPOCHS - 1
+    work = os.path.join(WORKDIR, "checkpoint_monolithic")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(trainer.workdir, work)
+    ckpt_dir = os.path.join(work, "checkpoints")
+    for suffix in (".dwc", ".json"):
+        os.remove(os.path.join(ckpt_dir, f"ckpt_{EPOCHS}{suffix}"))
+    os.remove(os.path.join(work, "metrics.jsonl"))
+    tree, meta = ckpt.restore_checkpoint(ckpt_dir, step=step)
+    flat = ckpt.flatten_tree(tree)
+    os.remove(os.path.join(ckpt_dir, f"ckpt_{step}.dwc"))
+    row = {"card": smi_line()}
+    # Each format's synchronous save (the tree in, the durable blob out)
+    # and restore of the same tree, in turns: chunked, monolithic, twice.
+    timing = os.path.join(WORKDIR, "checkpoint_formats")
+    times = {"chunked": [], "monolithic": []}
+    for fmt in ("chunked", "monolithic", "monolithic", "chunked"):
+        d = os.path.join(timing, fmt)
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        path = ckpt.save_snapshot(d, flat, step, metadata=meta, format=fmt)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(d)
+        times[fmt].append({"save_ms": save_ms, "restore_ms": (time.perf_counter() - t0) * 1e3,
+                           "disk_bytes": os.path.getsize(path)})
+    for fmt, runs in times.items():
+        row[fmt] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    path = ckpt.save_snapshot(ckpt_dir, flat, step, metadata=meta, format="monolithic")
+    summary = ckpt.verify_checkpoint(path)
+    row["raw_bytes"] = summary["bytes"]
+    if summary != {"format": "monolithic", "bytes": summary["bytes"], "verified_chunks": 0} or (
+            ckpt.checkpoint_path(ckpt_dir, step) != (path, "monolithic")):
+        fail(f"[checkpoint] the monolithic blob {path} verifies as {summary}")
+    bad_dir = os.path.join(WORKDIR, "checkpoint_monolithic_bad")
+    shutil.rmtree(bad_dir, ignore_errors=True)
+    shutil.copytree(ckpt_dir, bad_dir)
+
+    at = argv.index("--workdir")
+    cfg, _, device, backend = parse_args(
+        [a for a in argv[:at] + ["--workdir", work] + argv[at + 2:] if a != "--no-resume"])
+    fresh = Trainer(cfg, resume=False, device=device, dist_backend=backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh._restore_synchronized()
+    torch.cuda.synchronize()
+    row["trainer_restore_ms"] = (time.perf_counter() - t0) * 1e3
+    if (fresh.start_epoch, fresh.state.step) != (step, step):
+        fail(f"[checkpoint] monolithic resume: start epoch {fresh.start_epoch}, step {fresh.state.step}")
+    cq.reset_launch_counts()
+    fresh.fit()
+    torch.cuda.synchronize()
+    launches = dict(cq.LAUNCHES)
+    want = {name: 0 for name in launches}
+    want.update(encode_to_wire=1, decode_from_wire=1, fake_quantize_fused=1, absmax=2)
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        resumed = [r for r in map(json.loads, f) if "kind" not in r]
+    got = _canonical_digest(fresh.state)
+    if [r["epoch"] for r in resumed] != [step] or resumed[0]["loss"] != losses[-1] or got != final:
+        fail(f"[checkpoint] the monolithic resume's epoch {resumed} / state {got[:16]} != the "
+             f"uninterrupted epoch {step}'s loss {losses[-1]} / state {final[:16]}")
+    if launches != want:
+        fail(f"[checkpoint] the monolithic resume's kernel launches {launches}, expected {want}")
+    row["launches"] = launches
+    log(f"[checkpoint] resumed from ckpt_{step}.msgpack.z (monolithic): epoch {step} loss "
+        f"{resumed[0]['loss']} == uninterrupted {losses[-1]}, canonical state {got[:16]} == "
+        f"uninterrupted (bit for bit); kernels {json.dumps(launches)}")
+    del fresh
+
+    bad = os.path.join(bad_dir, f"ckpt_{step}.msgpack.z")
+    with open(bad, "r+b") as f:
+        f.seek(12)
+        b = f.read(1)
+        f.seek(12)
+        f.write(bytes([b[0] ^ 0xFF]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, meta = ckpt.restore_checkpoint(bad_dir)
+    if (meta["step"] != step - 1 or meta.get("quarantined_steps") != [step]
+            or not os.path.exists(bad + ".bad") or not caught):
+        fail(f"[checkpoint] corrupt monolithic blob: restored step {meta['step']}, "
+             f"{meta.get('quarantined_steps')}")
+    log(f"[checkpoint] a flipped byte in ckpt_{step}.msgpack.z: quarantined, restored step "
+        f"{meta['step']} (ckpt_{step - 1}.dwc)")
+    log("checkpoint row (monolithic against chunked: a synchronous save and a restore of "
+        "epoch 1's tree): " + json.dumps(row))
     return row
 
 
@@ -2555,16 +2799,18 @@ def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
 
 def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
     """One rank's run of a data-parallel phase: the CLI's entry on v5e8 for
-    ``EPOCHS`` steps with the launch counts set to 0 just before and read
-    just after, the params' hash all-gathered, the sync-level check, and
-    the sync's cost; writes ``rank<r>.json`` into ``workdir`` for the
+    ``DP_EPOCHS`` steps with the launch counts set to 0 just before and
+    read just after, the params' hash all-gathered, the state's placement
+    (its ``StateLayout``'s decisions by kind, the HBM breakdown and the
+    ``ddlpc_hbm_replicated_by_rule_bytes`` gauge), the sync-level check,
+    and the sync's cost; writes ``rank<r>.json`` into ``workdir`` for the
     parent."""
     import torch.distributed as dist
 
     from ddlpc_tpu_torch.obs import hbm
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops.philox import step_key
-    from ddlpc_tpu_torch.parallel import grad_sync, mesh
+    from ddlpc_tpu_torch.parallel import grad_sync, mesh, partition
     from ddlpc_tpu_torch.train.__main__ import parse_args
     from ddlpc_tpu_torch.train.trainer import Trainer
 
@@ -2574,7 +2820,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
 
     def argv_for(run: str, extra: tuple) -> list:
         argv = ["--config", V5E8, "--device", device, "--dist-backend", backend, "--no-resume",
-                "--workdir", os.path.join(workdir, run), "--set", f"train.epochs={EPOCHS}",
+                "--workdir", os.path.join(workdir, run), "--set", f"train.epochs={DP_EPOCHS}",
                 "--set", f"train.micro_batch_size={MICRO_BATCH}",
                 "--set", f"parallel.data_axis_size={world}"]
         for o in extra:
@@ -2596,6 +2842,26 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
     launches = dict(cq.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     free, total = torch.cuda.mem_get_info()
+    placement = trainer.state.placement
+    sizes = [size for _, size in flat.segments()]
+    state_layout = {
+        "level": placement.level, "decisions": placement.summary(),
+        "hbm": hbm.state_hbm_bytes(trainer.state),
+        "gauge": trainer.registry.snapshot()["ddlpc_hbm_replicated_by_rule_bytes"],
+        "replicated_by_rule_bytes": placement.replicated_by_rule_bytes(),
+        # The gauge's count made here from the decisions themselves: every
+        # leaf the engine kept whole by rule, 4 bytes an element (the
+        # state's leaves are fp32, optax's count int32).
+        "by_rule_from_decisions": sum(
+            4 * math.prod(d.shape)
+            for tree in (placement.param_decisions, placement.opt_decisions)
+            for _, d in partition.leaves_with_path(tree)
+            if d.reason == partition.REASON_REPLICATED_BY_RULE),
+        # What each layout adds to the n params: the port's regions padded
+        # to N·rows_b, JAX's leaves to N·ceil(n_leaf / N).
+        "padding_bytes": {"port": 4 * (flat.data.numel() - flat.numel),
+                          "jax": 4 * (world * sum(-(-k // world) for k in sizes) - flat.numel)},
+    }
     trainer.state.gather_params()
     digest = _digest(flat.data)
     hashes = [None] * world
@@ -2607,7 +2873,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
 
     if not isinstance(trainer.loader, ShardedLoader) or trainer.loader._native is None:
         fail(f"[{label}] v5e8 (device_cache=false, native_gather) ran {type(trainer.loader).__name__}")
-    loader_equal(label, trainer, trainer.loader, EPOCHS)
+    loader_equal(label, trainer, trainer.loader, DP_EPOCHS)
     ring = ShardedLoader(trainer.train_ds, micro_batch=4, sync_period=1, device=trainer.device,
                          shuffle=cfg.data.shuffle, seed=cfg.data.seed, replica=rank, world=world)
     ring_batches = loader_equal(label, trainer, ring, 1)
@@ -2707,7 +2973,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
         "peak_bytes": peak, "card_used_bytes": total - free, "fit_s": fit_s,
         "last": last, "n_params": n, "padded": flat.data.numel(), "shard": flat.shard,
         "n_buckets": len(flat.regions), **cost,
-        "ring_batches": ring_batches, "comm_wire": comm_wire,
+        "ring_batches": ring_batches, "comm_wire": comm_wire, "state_layout": state_layout,
     }
     del buf
     if label == "dp4_zero2_fp16":
@@ -2746,6 +3012,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
         live = {"params": state.owned.numel() * 4 + flat.data.untyped_storage().nbytes(),
                 "opt_state": sum(v.numel() * 4 for v in state.opt_state.buffers().values())}
         allocated = torch.cuda.memory_allocated()
+        chunk_block = allocator_block(state.owned)
         del trainer, state, flat
         gc.collect()
         torch.cuda.empty_cache()
@@ -2764,6 +3031,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
             "twin_allocated": torch.cuda.memory_allocated(), "twin_level": twin.shard_update,
             "twin_hashes": twin_hashes, "twin_launches": twin_launches,
             "twin_hbm": hbm.state_hbm_bytes(twin.state, "zero2"),
+            "chunk_block": chunk_block, "twin_block": allocator_block(twin.state.params.data),
         }
     result["wall_s"] = time.perf_counter() - start
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -2778,7 +3046,7 @@ def zero3_restore_into_off(label: str, workdir: str, want: str) -> dict:
     from ddlpc_tpu_torch.train.trainer import Trainer
 
     argv = ["--config", V5E8, "--device", "cuda", "--workdir", os.path.join(workdir, "run"),
-            "--set", f"train.epochs={EPOCHS}", "--set", f"train.micro_batch_size={MICRO_BATCH}",
+            "--set", f"train.epochs={DP_EPOCHS}", "--set", f"train.micro_batch_size={MICRO_BATCH}",
             "--set", "parallel.data_axis_size=1", "--set", "parallel.shard_update=off"]
     for o in DP_PHASES[label][1]:
         if not o.startswith("parallel.shard_update"):
@@ -2790,7 +3058,7 @@ def zero3_restore_into_off(label: str, workdir: str, want: str) -> dict:
     row = {"level": trainer.shard_update, "start_epoch": trainer.start_epoch,
            "trainer_with_restore_s": time.perf_counter() - t0, "equal": got == want}
     log(f"[{label}] the zero3 checkpoint restored into one process at off: " + json.dumps(row))
-    if not row["equal"] or row["level"] != "off" or row["start_epoch"] != EPOCHS:
+    if not row["equal"] or row["level"] != "off" or row["start_epoch"] != DP_EPOCHS:
         fail(f"[{label}] the zero3 checkpoint did not restore into off bit for bit: {row}")
     del trainer
     gc.collect()
@@ -2837,7 +3105,7 @@ def dp_phase(label: str) -> dict:
         lines = [json.loads(line) for line in f]
     records = [r for r in lines if "kind" not in r]
     n_buckets = ranks[0]["n_buckets"]
-    syncs = EPOCHS + (PROBE_SYNCS if "train.trace=True" in DP_PHASES[label][1] else 0)
+    syncs = DP_EPOCHS + (PROBE_SYNCS if "train.trace=True" in DP_PHASES[label][1] else 0)
     want = {name: syncs * n_buckets * per_bucket.get(name, 0) for name in ranks[0]["launches"]}
     fmt = lambda v: "n/a" if v is None else f"{v:.3f}"  # noqa: E731
     for rr in ranks:
@@ -2850,16 +3118,17 @@ def dp_phase(label: str) -> dict:
         if rr["level"] != level:
             fail(f"[{label}] rank {rr['rank']} resolved shard_update to {rr['level']}, expected {level}")
         if rr["launches"] != want:
-            fail(f"[{label}] rank {rr['rank']} kernel launches in {EPOCHS} steps ({syncs} syncs): "
+            fail(f"[{label}] rank {rr['rank']} kernel launches in {DP_EPOCHS} steps ({syncs} syncs): "
                  f"{rr['launches']}, expected {want} ({n_buckets} bucket(s))")
         if rr["warned"] != warns:
             fail(f"[{label}] large-batch stochastic-rounding warning: expected {warns}, got {rr['warned']}")
     if len(set(ranks[0]["params_hashes"])) != 1:
         fail(f"[{label}] the replicas' params differ: {ranks[0]['params_hashes']}")
+    layout = state_layout_checks(label, ranks, level)
     restored = [rr.get("zero2_restore") for rr in ranks]
     if label == "dp4_zero2_fp16":
         for rr, z in zip(ranks, restored):
-            if not z["equal"] or z["start_epoch"] != EPOCHS:
+            if not z["equal"] or z["start_epoch"] != DP_EPOCHS:
                 fail(f"[{label}] rank {rr['rank']}: the restored zero2 checkpoint differs from the "
                      f"state saved ({z})")
         log(f"[{label}] zero2 checkpoint {restored[0]['ckpt_steps']}: every rank's params and moment "
@@ -2873,9 +3142,9 @@ def dp_phase(label: str) -> dict:
             f"grad_norm {rec['grad_norm']} val_miou {rec.get('val_miou')}")
         if not math.isfinite(rec["loss"]) or not math.isfinite(rec["grad_norm"]):
             fail(f"[{label}] non-finite training metrics {rec}")
-    if len(records) != EPOCHS:
-        fail(f"[{label}] expected {EPOCHS} epoch records, got {len(records)}")
-    perf = perf_checks(label, lines, V5E8_FLOPS)
+    if len(records) != DP_EPOCHS:
+        fail(f"[{label}] expected {DP_EPOCHS} epoch records, got {len(records)}")
+    perf = perf_checks(label, lines, V5E8_FLOPS, DP_EPOCHS)
     comm_checks(label, lines, ranks, level)
     log(f"[{label}] replicas bit-identical ({ranks[0]['params_hashes'][0][:16]}), synced gradient "
         f"== plain simulation bit for bit; the ranks' run {wall_s:.1f} s, the world's wall "
@@ -2893,7 +3162,8 @@ def dp_phase(label: str) -> dict:
         "codec_ms": [rr["codec_ms"] for rr in ranks],
         "hop_ms": [rr.get("hop_ms") for rr in ranks], "hop_bytes": ranks[0].get("hop_bytes"),
         "n_params": ranks[0]["n_params"], "padded": ranks[0]["padded"], "shard": ranks[0]["shard"],
-        "zero2_restore": restored[0], "zero3": zero3, "epochs": path_row(label, records, perf),
+        "zero2_restore": restored[0], "zero3": zero3, "state_layout": layout,
+        "epochs": path_row(label, records, perf),
         "rank_last_losses": [rr["last"]["loss"] for rr in ranks],
         "params_hash": ranks[0]["params_hashes"][0],
         "comm_probe": [{k: r.get(k) for k in ("comm_s_per_step", "comm_fraction", "overlap_headroom_s",
@@ -2903,13 +3173,60 @@ def dp_phase(label: str) -> dict:
     }
 
 
+def allocator_block(t: torch.Tensor) -> dict:
+    """The caching allocator's block that holds ``t``'s storage, from
+    ``torch.cuda.memory_snapshot``: the bytes it counts in
+    ``memory_allocated``, the bytes asked for, and its segment's size."""
+    ptr = t.untyped_storage().data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if addr == ptr:
+                return {"size": b["size"], "requested": b.get("requested_size"),
+                        "segment": seg["total_size"]}
+            addr += b["size"]
+    fail(f"no allocator block starts at the storage of a tensor of {t.numel()} elements")
+
+
+def state_layout_checks(label: str, ranks: list, level: str) -> dict:
+    """Every rank's placement as its ``StateLayout`` decided it: the kinds
+    it chunks are the level's rung (``shard_update.LEVEL_CHUNKS``), and its
+    ``ddlpc_hbm_replicated_by_rule_bytes`` gauge, as the trainer published
+    it, equals the bytes of the leaves whose decision reads
+    ``replicated-by-rule``, counted by the rank from the decision trees,
+    and ``replicated_by_rule_bytes()``.  Prints rank 0's decisions per
+    kind, the breakdown and the gauge beside the card."""
+    from ddlpc_tpu_torch.parallel.shard_update import LEVEL_CHUNKS
+
+    for rr in ranks:
+        sl = rr["state_layout"]
+        chunked = {k: sl["decisions"][k]["chunked"] for k in ("params", "grads", "opt_state")}
+        if not sl["gauge"] == sl["by_rule_from_decisions"] == sl["replicated_by_rule_bytes"]:
+            fail(f"[{label}] rank {rr['rank']}: ddlpc_hbm_replicated_by_rule_bytes {sl['gauge']}, "
+                 f"the replicated-by-rule leaves' bytes {sl['by_rule_from_decisions']}, the layout's "
+                 f"replicated_by_rule_bytes() {sl['replicated_by_rule_bytes']}: not all equal")
+        if sl["level"] != level or chunked != LEVEL_CHUNKS[level]:
+            fail(f"[{label}] rank {rr['rank']}: the state layout places {level} as {sl['level']}, "
+                 f"chunked (params, grads, moments) {chunked}")
+    sl = ranks[0]["state_layout"]
+    log(f"[{label}] state layout (rank 0), level {sl['level']}: "
+        + json.dumps({k: v for k, v in sl["decisions"].items()})
+        + f"; hbm bytes {json.dumps(sl['hbm'])}; ddlpc_hbm_replicated_by_rule_bytes {sl['gauge']} "
+        f"== the replicated-by-rule leaves' bytes == replicated_by_rule_bytes() on every rank; "
+        f"padding over n: port "
+        f"{sl['padding_bytes']['port']} B, JAX's chunks {sl['padding_bytes']['jax']} B ({smi_line()})")
+    return sl
+
+
 def zero3_checks(label: str, ranks: list, workdir: str) -> dict:
     """The zero3 phase's own checks: every rank's state bytes as
     ``obs/hbm.py`` counts them, and its live buffers the same (the param
     buffer freed, the chunks and the moments ``K`` elements); the zero2
     twin's params equal to zero3's bit for bit, its launches the same,
     its memory larger by at least the full param buffer less a chunk (1
-    MiB of slack); and the checkpoint restored into one process at off."""
+    MiB of slack), and by exactly that plus the rounding of the allocator's
+    blocks of the twin's param buffer and zero3's chunk; and the
+    checkpoint restored into one process at off."""
     first = ranks[0]
     k, padded = first["shard"], first["padded"]
     want = {"params": 4 * k, "grads": 4 * k, "grads_accum": 4 * padded, "opt_state": 8 * k}
@@ -2921,6 +3238,20 @@ def zero3_checks(label: str, ranks: list, workdir: str) -> dict:
         log(f"[{label}] rank {rr['rank']} state bytes (obs/hbm.py) zero3 {json.dumps(got)}, zero2 twin "
             f"{json.dumps(twin)}; live zero3 {json.dumps(z['live'])}; memory_allocated zero3 "
             f"{z['allocated']}, twin {z['twin_allocated']} (zero3 holds {saved} bytes less)")
+        pad = rr["state_layout"]["padding_bytes"]
+        full, chunk = z["twin_block"], z["chunk_block"]
+        residual = saved - 4 * (padded - k)
+        rounding = (full["size"] - 4 * padded) - (chunk["size"] - 4 * k)
+        log(f"[{label}] rank {rr['rank']} zero3's saving priced: the param buffer less a chunk "
+            f"{4 * (padded - k)} bytes, so {residual} bytes beyond it; the allocator's blocks: the "
+            f"twin's param buffer of {4 * padded} bytes in a block of {full['size']} (segment "
+            f"{full['segment']}), zero3's chunk of {4 * k} in one of {chunk['size']} (segment "
+            f"{chunk['segment']}), {rounding} bytes of rounding between them; "
+            f"the padding over n is the port's {pad['port']} bytes (Σ N·rows_b − n) against JAX's "
+            f"{pad['jax']} (Σ N·ceil(n_leaf/N) − n)")
+        if residual != rounding:
+            fail(f"[{label}] rank {rr['rank']}: zero3 saves {residual} bytes beyond the param buffer "
+                 f"less a chunk, the allocator's blocks of the two buffers round by {rounding}")
         if got != want or z["live"] != {"params": want["params"], "opt_state": want["opt_state"]}:
             fail(f"[{label}] rank {rr['rank']}: zero3 state bytes {got} / live {z['live']}, expected {want}")
         if twin["params"] != 4 * padded or saved < 4 * (padded - k) - (1 << 20):
@@ -2932,7 +3263,7 @@ def zero3_checks(label: str, ranks: list, workdir: str) -> dict:
     twin_hashes = first["zero3"]["twin_hashes"]
     if twin_hashes != first["params_hashes"]:
         fail(f"[{label}] the zero2 twin's params {twin_hashes} != zero3's {first['params_hashes']}")
-    log(f"[{label}] after {EPOCHS} steps the zero2 twin (same ranks, buckets, steps) holds zero3's "
+    log(f"[{label}] after {DP_EPOCHS} steps the zero2 twin (same ranks, buckets, steps) holds zero3's "
         f"params bit for bit ({twin_hashes[0][:16]})")
     restore = zero3_restore_into_off(label, workdir, first["zero3"]["canonical"])
     return {"hbm": first["zero3"]["hbm"], "twin_hbm": first["zero3"]["twin_hbm"],
@@ -2971,19 +3302,19 @@ def comm_checks(label: str, lines: list, ranks: list, level: str) -> None:
     want = comm_rows(label, first["n_params"], first["padded"], level, first["world"],
                      first["n_buckets"])
     recs = [r for r in lines if r.get("kind") == "comm"]
-    if len(recs) != EPOCHS:
-        fail(f"[{label}] expected {EPOCHS} comm records, got {len(recs)}")
+    if len(recs) != DP_EPOCHS:
+        fail(f"[{label}] expected {DP_EPOCHS} comm records, got {len(recs)}")
     for e, r in enumerate(recs):
         for name, row in want.items():
             got = {k: r[f"{name}_{k}_per_step"] for k in row}
             if got != row or r["steps"] != e + 1:
                 fail(f"[{label}] comm record {r}: {name} {got} != closed form {row}")
     for rr in ranks:
-        total = {name: EPOCHS * row["bytes_wire"] for name, row in want.items()}
+        total = {name: DP_EPOCHS * row["bytes_wire"] for name, row in want.items()}
         if rr["comm_wire"] != total:
             fail(f"[{label}] rank {rr['rank']} ddlpc_comm_bytes_total wire {rr['comm_wire']} != {total}")
     log(f"[{label}] comm records == closed form a step " + json.dumps(want)
-        + f"; every rank's wire counter == {EPOCHS} steps of it")
+        + f"; every rank's wire counter == {DP_EPOCHS} steps of it")
 
 
 SERVE_CONFIG = os.path.join(REPO, "configs", "serve_vaihingen.json")
@@ -4014,11 +4345,12 @@ def stagewise_codec(flat, stage_names: list):
     stage_buckets = [(sum(sizes[:s]), n) for s, n in enumerate(sizes)]
     real = train_step.sync_for_level
 
-    def per_stage(grad, compression, axis_size, level, key=None, buckets=None, n_elements=None):
-        if level != "off" or axis_size != 1:
+    def per_stage(grad, compression, axis_size, chunked_grads, key=None, buckets=None,
+                  n_elements=None):
+        if chunked_grads or axis_size != 1:
             raise ValueError("the stage-wise codec reference is one replica at 'off'")
         buf = torch.cat([grad[i] for i in index])
-        real(buf, compression, axis_size, level, key=key, buckets=stage_buckets,
+        real(buf, compression, axis_size, chunked_grads, key=key, buckets=stage_buckets,
              n_elements=buf.numel())
         for i, part in zip(index, buf.split(sizes)):
             grad[i] = part
@@ -4438,7 +4770,7 @@ def pipe_rank(workdir: str) -> None:
     p = drv.init_state(full)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() - before
-    priced = hbm.pipeline_stage_hbm_bytes(p.stages, drv._level)[0]
+    priced = hbm.pipeline_stage_hbm_bytes(p.stages)[0]
     torch.cuda.reset_peak_memory_stats()
     cq.reset_launch_counts()
     metrics, times = [], []
@@ -4689,6 +5021,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     opts = timed("flagship_options", options_phase, main)
     zoo = {label: timed(label, zoo_phase, label, profile) for label in ZOO_PATHS}
+    remat = timed("unetpp_remat", unetpp_remat_phase, zoo[REMAT_REFERENCE].pop("remat_reference"))
     timed("fixtures_wait", wait_fixtures, fixtures)
     data = {}
     for name, phase in (("flagship_tiles_dir", tiles_dir_phase), ("flagship_scenes", scenes_phase),
@@ -4767,6 +5100,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "cityscapes_kernels": cs_rows, "floor": floor,
                       "chunk_rows": chunk_rows, "data_parallel": dp, "data_paths": data["rows"],
                       "checkpoint": ckpt_row, "sqrt": sqrt_row, "host": host_rows,
+                      "unetpp_remat": remat,
                       "stall": stall_row, "paths": paths, "serve": serve, "fleet": fleet,
                       "supervised": supervised,
                       "traced": {k: traced[k] for k in ("step_time_s", "untraced_step_time_s", "sizes",

@@ -198,6 +198,14 @@ def flax_param_path(name: str, ndim: int) -> Tuple[str, ...]:
     raise KeyError(f"unknown torch parameter {name}")
 
 
+def flax_param_shape(path: Tuple[str, ...], shape) -> Tuple[int, ...]:
+    """The flax shape of a parameter of torch ``shape`` at flax ``path``
+    (a kernel in flax's HWIO layout), with no data moved."""
+    if path[-1] != "kernel":
+        return tuple(int(d) for d in shape)
+    return _kernel_to_flax(path, np.broadcast_to(np.float32(0), tuple(shape))).shape
+
+
 def _params_to_flax(named: Mapping[str, torch.Tensor]) -> dict:
     flat = {}
     for name, t in named.items():
@@ -239,17 +247,13 @@ def _full_buffer(flat, named: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return buf
 
 
-def _chunked(state) -> bool:
-    return state.level in ("zero1", "zero2", "zero3")
-
-
 def load_canonical(state, state_dict: Mapping[str, torch.Tensor], opt: Optional[Mapping] = None) -> None:
     """Carry a canonical (full, unsharded) state — as
     :func:`torch_state_from_flax` gives it — into a train state
-    (``parallel.train_step.TrainState``) in place: the model's params and
-    BatchNorm statistics whole (and, under zero3, this replica's chunks of
-    the params), and the optimizer's moments whole under ``off`` or as
-    this replica's chunks under the chunked levels."""
+    (``parallel.train_step.TrainState``) in place, as its placement has
+    it: the model's params and BatchNorm statistics whole (and, where the
+    params persist chunked, this replica's chunks of them), and the
+    optimizer's moments whole or as this replica's chunks."""
     from ddlpc_tpu_torch.parallel.mesh import replica_index
 
     flat = state.params
@@ -266,7 +270,7 @@ def load_canonical(state, state_dict: Mapping[str, torch.Tensor], opt: Optional[
         state.opt_state.count = int(opt["count"])
     for key, mine in state.opt_state.buffers().items():
         full = _full_buffer(flat, opt[key])
-        mine.copy_(flat.gather_owned(full, index) if _chunked(state) else full)
+        mine.copy_(flat.gather_owned(full, index) if state.placement.chunked["opt_state"] else full)
 
 
 def _host_copy(t: torch.Tensor, host: Optional[dict], key: str) -> torch.Tensor:
@@ -287,9 +291,9 @@ def gather_canonical(
     state, host: Optional[dict] = None, to_host: bool = True
 ) -> Tuple[Optional[Dict[str, torch.Tensor]], Optional[dict]]:
     """The canonical state of a train state: ``(state_dict, opt)`` on the
-    CPU, the moments all-gathered from the replicas' chunks under the
-    chunked levels and the params under zero3 (every replica must call
-    it).  ``opt`` holds the count, each moment by parameter name and the
+    CPU, the moments (and the params) all-gathered from the replicas'
+    chunks where the state's placement chunks them (every replica must
+    call it).  ``opt`` holds the count, each moment by parameter name and the
     optax ``layout``.  Each flat buffer (params and each moment) is copied
     to the host once, and the leaves are views of that copy; ``host``
     holds reusable buffers for the copies (see :func:`_host_copy`).
@@ -300,7 +304,7 @@ def gather_canonical(
     state.gather_params()
     full = {"data": flat.data}
     for key, mine in opt.buffers().items():
-        if _chunked(state):
+        if state.placement.chunked["opt_state"]:
             buf = torch.zeros_like(flat.grad)
             flat.put_owned(mine, buf, replica_index())
             mine = flat.all_gather_(buf)

@@ -246,12 +246,13 @@ def _dummy_gradient(buffer_elements: int, segments, device) -> torch.Tensor:
     return buf
 
 
-def make_comm_probe(compression, flat, axis_size: int, level: str = "off",
+def make_comm_probe(compression, flat, axis_size: int, chunked_grads: bool = False,
                     seed: int = 0) -> Callable[[], float]:
     """A callable that times the gradient sync alone, fenced.
 
     It runs the step's exact sync — ``parallel/grad_sync.sync_for_level``
-    at the run's ZeRO level, with the buckets of ``flat`` (the run's
+    as the run's placement has it (``chunked_grads``: its gradients
+    persist chunked, a reduce-scatter), with the buckets of ``flat`` (the run's
     ``FlatParams``) and the run's transport — over a dummy of ``flat``'s
     gradient buffer (:func:`_dummy_gradient`), after a device synchronize
     and a barrier of the world, and returns the wall seconds until the
@@ -303,7 +304,7 @@ def make_comm_probe(compression, flat, axis_size: int, level: str = "off",
         return buf
 
     def sync(buf: torch.Tensor) -> None:
-        sync_for_level(buf, compression, axis_size, level, key=key, buckets=buckets,
+        sync_for_level(buf, compression, axis_size, chunked_grads, key=key, buckets=buckets,
                        n_elements=n_elements)
 
     def probe() -> float:

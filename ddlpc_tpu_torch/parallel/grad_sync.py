@@ -364,18 +364,19 @@ def sync_for_level(
     flat: torch.Tensor,
     compression: CompressionConfig,
     axis_size: int,
-    level: str,
+    chunked_grads: bool,
     key: Optional[int] = None,
     buckets: Optional[Sequence[Tuple[int, int]]] = None,
     n_elements: Optional[int] = None,
 ) -> Optional[List[torch.Tensor]]:
-    """The train step's gradient sync at ZeRO ``level`` (the step's own,
-    ``off`` for one replica): under ``zero2``/``zero3`` the reduce-scatter,
-    returning this replica's chunks (:func:`sync_gradients_scatter`), else
-    the in-place all-reduce, returning None (:func:`sync_gradients`).  The
+    """The train step's gradient sync at the state's ZeRO level: where its
+    placement keeps the gradients chunked (``chunked_grads``, the
+    ``StateLayout``'s ``chunked["grads"]``) the reduce-scatter, returning
+    this replica's chunks (:func:`sync_gradients_scatter`), else the
+    in-place all-reduce, returning None (:func:`sync_gradients`).  The
     step and the comm probe (``obs/comm.make_comm_probe``) both sync
     through it, so that the probe times what the step runs."""
-    if level in ("zero2", "zero3"):
+    if chunked_grads:
         return sync_gradients_scatter(flat, compression, axis_size, key=key, buckets=buckets)
     sync_gradients(flat, compression, axis_size=axis_size, key=key, buckets=buckets,
                    n_elements=n_elements)

@@ -532,8 +532,7 @@ class PipelineTrainStep:
         flat.grad.div_(M)
         # The stage update: the unstaged step's sync, update and publish
         # over this stage's data group, then its statistics' mean.
-        sq = sync_and_update(state, self.tx, self.compression, self._n_data, self._level,
-                             self.seed)
+        sq = sync_and_update(state, self.tx, self.compression, self._n_data, self.seed)
         mean_batch_stats(state.model, self._n_data)
         if sq is None:
             sq = flat.grad.square().sum() if self.replica == 0 else flat.grad.new_zeros(())

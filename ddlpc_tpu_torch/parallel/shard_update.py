@@ -24,16 +24,39 @@ and the collectives read and write the buffers with no copy.  The zero
 tail stays zero: its max-abs is 0, its lattice point is 0 under either
 rounding, and every optimizer's update of a zero gradient from zero
 state at a zero param is 0.
+
+Which kinds persist chunked is not decided here by level: one rule table
+decides it (:class:`StateLayout`, over ``partition.state_partition_rules``
+as the JAX package's ``StateLayout``), and the state, the steps, the
+checkpoint's gather and the HBM gauges read the layout.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from ddlpc_tpu_torch.config import CompressionConfig
+from ddlpc_tpu_torch.parallel import partition
 
 CHUNK_LAYOUTS = ("zero1", "zero2", "zero3")
 _ALIGN_ELEMENTS = 32  # 128 bytes of fp32
+# The rule table of each level (``off`` is JAX's ``replicated`` layout).
+LAYOUT_LEVEL = {"off": "replicated", "zero1": "zero1", "zero2": "zero2", "zero3": "zero3"}
+# Which kinds each level's rule table chunks on the flat layout, and back:
+# the flat layout chunks the params only with the gradients, and those only
+# with the moments.
+LEVEL_CHUNKS = {
+    "off": {"params": False, "grads": False, "opt_state": False},
+    "zero1": {"params": False, "grads": False, "opt_state": True},
+    "zero2": {"params": False, "grads": True, "opt_state": True},
+    "zero3": {"params": True, "grads": True, "opt_state": True},
+}
+_RUNGS = {tuple(c[k] for k in ("opt_state", "grads", "params")): level
+          for level, c in LEVEL_CHUNKS.items()}
 
 
 def normalize_shard_update(value) -> str:
@@ -167,3 +190,145 @@ def resolve_shard_update(
             )
         return level if data_size > 1 else "off"
     return level if data_size > 1 and incompatible is None else "off"
+
+
+# ---------------------------------------------------------------------------
+# the rule table's placement of the state
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    """A leaf's shape and dtype with no data (JAX's ``ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: Any = np.float32
+
+
+def _decisions(tree) -> List[partition.Decision]:
+    return [d for _, d in partition.leaves_with_path(tree)]
+
+
+def _one_placement(kind: str, decisions: Sequence[partition.Decision]) -> bool:
+    """Whether every leaf of ``kind`` is sharded (True) or whole (False).
+    The flat buffers hold a kind one way or the other: a table that splits
+    it raises, naming a leaf of each side and its rule."""
+    sharded = [d for d in decisions if d.sharded]
+    whole = [d for d in decisions if not d.sharded]
+    if sharded and whole:
+        a, b = sharded[0], whole[0]
+        raise ValueError(
+            f"the flat layout holds the {kind} all chunked or all whole, but the rule "
+            f"table splits them: {a.name} is sharded by rule {a.rule!r} and {b.name} "
+            f"is whole by rule {b.rule!r} ({b.reason})"
+        )
+    return bool(sharded)
+
+
+class StateLayout:
+    """Where each kind of a train state persists on the ``n_shards``
+    replicas of the data axis, decided by one ordered rule table
+    (``partition.state_partition_rules`` of the level, or ``rules``) in
+    the rule engine's ``chunk`` mode — the JAX package's ``StateLayout``
+    for its shard_map layouts.  The port's flat buffer is a chunk layout
+    on a data mesh and on a ``data × space`` grid alike.
+
+    ``params`` is the model's named leaves in the flax layout (their flax
+    paths, ``convert.flax_param_path``, each with its flax shape):
+    ``param_decisions``, ``grad_decisions`` (the optimizer-boundary
+    gradient, ``grads/...``) and ``opt_decisions`` (optax's state tree of
+    ``opt_layout``, ``Optimizer.layout``) are trees of
+    ``partition.Decision`` as JAX's.  ``chunked[kind]`` (``params``,
+    ``grads``, ``opt_state``: the moments) is what the state, the steps,
+    the checkpoint's gather and ``obs/hbm.py`` read, and ``level`` the ZeRO
+    level that placement amounts to.
+
+    Refusals: the flat buffers cannot hold a kind split between chunked
+    and whole leaves, nor chunked params without chunked gradients, nor
+    those without chunked moments, nor a chunked optax count (a host int
+    here); such a table raises, naming the leaf and the rule.  A table
+    that shards no params at zero3 therefore keeps them whole: it never
+    chunks a kind the rules do not shard."""
+
+    KINDS = ("params", "grads", "opt_state")
+
+    def __init__(self, params: dict, opt_layout, level: str, n_shards: int,
+                 data_axis: str = "data", rules: Optional[Sequence[partition.Rule]] = None):
+        from ddlpc_tpu_torch.convert import MOMENTS, optax_tree
+
+        level = normalize_shard_update(level)
+        self.n = int(n_shards)
+        if self.n == 1:
+            level = "off"
+        self.rules = tuple(rules) if rules is not None else partition.state_partition_rules(
+            LAYOUT_LEVEL[level], data_axis)
+        self.param_avals = params
+        self.opt_template = optax_tree(opt_layout, 0, {k: params for k in MOMENTS})
+        pshapes = frozenset(tuple(leaf.shape) for _, leaf in partition.leaves_with_path(params))
+        kw = dict(mode="chunk", n_shards=self.n, data_axis=data_axis)
+        self.param_decisions = partition.decide_tree(self.rules, params, "params", **kw)
+        self.grad_decisions = partition.decide_tree(self.rules, params, "grads", **kw)
+        self.opt_decisions = partition.decide_tree(self.rules, self.opt_template, "opt_state",
+                                                   pshapes=pshapes, **kw)
+        moments, other = [], []
+        for path, d in partition.leaves_with_path(self.opt_decisions):
+            (moments if any(k in MOMENTS for k in path) else other).append(d)
+        for d in other:
+            if d.sharded:
+                raise ValueError(
+                    f"{d.name} is sharded by rule {d.rule!r}, but the port keeps optax's "
+                    f"counts whole (host ints)"
+                )
+        kinds = {"params": _decisions(self.param_decisions),
+                 "grads": _decisions(self.grad_decisions), "opt_state": moments}
+        self.chunked: Dict[str, bool] = {
+            k: _one_placement("moments" if k == "opt_state" else k, ds) for k, ds in kinds.items()}
+        rung = (self.chunked["opt_state"], self.chunked["grads"], self.chunked["params"])
+        if rung not in _RUNGS:
+            bad = [k for k in self.KINDS if self.chunked[k]][0]
+            missing = [k for k in self.KINDS[self.KINDS.index(bad) + 1:] if not self.chunked[k]][0]
+            a, b = kinds[bad][0], kinds[missing][0]
+            raise ValueError(
+                f"the flat layout chunks the params only with the gradients, and those only "
+                f"with the moments: {a.name} is sharded by rule {a.rule!r} but {b.name} is "
+                f"whole by rule {b.rule!r}"
+            )
+        self.level = _RUNGS[rung]
+
+    @classmethod
+    def from_flat(cls, flat, opt_layout, level: str, data_axis: str = "data",
+                  rules: Optional[Sequence[partition.Rule]] = None) -> "StateLayout":
+        """The layout of a ``train_step.FlatParams``'s leaves (its torch
+        names and shapes, in flatten order) over its ``n_shards``."""
+        from ddlpc_tpu_torch.convert import flax_param_path, flax_param_shape
+
+        params: dict = {}
+        for name, shape in zip(flat.names, flat.shapes):
+            path = flax_param_path(name, len(shape))
+            node = params
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = LeafSpec(flax_param_shape(path, shape))
+        return cls(params, opt_layout, level, flat.n_shards, data_axis, rules)
+
+    def replicated_by_rule_bytes(self) -> int:
+        """Bytes a replica holds of the leaves the rule engine decided to
+        keep whole (``replicated-by-rule``): the ``ddlpc_hbm`` budget
+        line, as JAX's.  The flat layout pads a leaf the data axis does not
+        divide instead (C21), so in chunk mode this is 0."""
+        return (partition.replicated_by_rule_bytes(self.opt_decisions, self.opt_template)
+                + partition.replicated_by_rule_bytes(self.param_decisions, self.param_avals))
+
+    def summary(self) -> Dict[str, dict]:
+        """Each kind's placement: chunked or whole, its leaves, how many the
+        rules shard, and the leaves each rule pattern decided."""
+        out = {}
+        for kind, tree in (("params", self.param_decisions), ("grads", self.grad_decisions),
+                           ("opt_state", self.opt_decisions)):
+            ds = _decisions(tree)
+            rules: Dict[str, int] = {}
+            for d in ds:
+                key = f"{d.rule} ({d.reason})"
+                rules[key] = rules.get(key, 0) + 1
+            out[kind] = {"chunked": self.chunked[kind], "leaves": len(ds),
+                         "sharded": sum(d.sharded for d in ds), "rules": rules}
+        return out

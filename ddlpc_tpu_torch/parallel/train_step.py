@@ -28,7 +28,10 @@ one replica with its own columns of the batch, at one of four ZeRO levels
   the update has run on the chunks; nothing is published at the end.
 
 Every level gives the same params bit for bit: the update is elementwise
-and sees the same mean gradient, element for element.
+and sees the same mean gradient, element for element.  Which kinds
+persist chunked is the state's ``shard_update.StateLayout``'s to say (one
+rule table, ``partition.state_partition_rules`` of the level): the state,
+the steps and the checkpoint's gather read it, not the level's name.
 
 The spatial step (:func:`make_train_step_spatial`, the JAX package's
 ``make_train_step_gspmd``) runs on a ``data × space`` grid: each rank
@@ -80,7 +83,8 @@ from ddlpc_tpu_torch.parallel.grad_sync import (
     validate_scatter_compression,
 )
 from ddlpc_tpu_torch.parallel.shard_update import (
-    CHUNK_LAYOUTS,
+    LEVEL_CHUNKS,
+    StateLayout,
     flat_layout,
     normalize_shard_update,
 )
@@ -194,20 +198,26 @@ def _numel(shape) -> int:
 @dataclass
 class TrainState:
     """The model (params + BatchNorm statistics), its flat buffers, the
-    optimizer state (over the whole buffer under ``off``, over this
-    replica's chunks under the chunked levels), the step count, the ZeRO
-    ``level``, the nesting of optax's state for the optimizer
-    (``Optimizer.layout``, what a checkpoint writes) and, under ``zero3``,
-    ``owned``: this replica's chunks of the params, their only persistent
-    copy."""
+    optimizer state (over the whole buffer, or over this replica's chunks
+    where ``placement`` chunks the moments), the step count, the
+    ``placement`` (``shard_update.StateLayout``: which kinds persist
+    chunked), the nesting of optax's state for the optimizer
+    (``Optimizer.layout``, what a checkpoint writes) and, where the
+    placement chunks the params, ``owned``: this replica's chunks of the
+    params, their only persistent copy."""
 
     model: nn.Module
     params: FlatParams
     opt_state: OptState
+    placement: StateLayout
     step: int = 0
-    level: str = "off"
     layout: tuple = ("adam", "empty")
     owned: Optional[torch.Tensor] = None
+
+    @property
+    def level(self) -> str:
+        """The ZeRO level the placement amounts to."""
+        return self.placement.level
 
     def owned_params(self) -> List[torch.Tensor]:
         """This replica's chunks of the params the update writes."""
@@ -216,20 +226,21 @@ class TrainState:
         return self.params.owned(self.params.data, mesh.replica_index())
 
     def gather_params(self) -> None:
-        """Under zero3, make the param buffer resident and all-gather the
-        replicas' chunks into it (every replica must call it); a no-op
-        where the buffer is resident, which it stays until the next
-        update."""
+        """Where the params persist chunked, make the param buffer resident
+        and all-gather the replicas' chunks into it (every replica must
+        call it); a no-op where the buffer is resident, which it stays
+        until the next update."""
         flat = self.params
-        if self.owned is None or flat.resident:
+        if not self.placement.chunked["params"] or flat.resident:
             return
         flat.materialize()
         flat.put_owned(self.owned, flat.data, mesh.replica_index())
         flat.all_gather_(flat.data)
 
     def release_params(self) -> None:
-        """Under zero3, free the param buffer (its chunks stay owned)."""
-        if self.owned is not None:
+        """Where the params persist chunked, free the param buffer (its
+        chunks stay owned)."""
+        if self.placement.chunked["params"]:
             self.params.release()
 
 
@@ -240,16 +251,15 @@ def create_train_state(
     """Flatten an initialized model (already on its device, the same
     weights on every replica) into a state for ``axis_size`` replicas at
     ZeRO ``level`` (one replica is ``off``), its buffers cut into the
-    gradient buckets of ``bucket_mb``."""
-    level = normalize_shard_update(level)
-    if axis_size == 1:
-        level = "off"
+    gradient buckets of ``bucket_mb``, placed as the level's rule table
+    decides (``StateLayout``)."""
     flat = FlatParams(model, n_shards=axis_size, bucket_mb=bucket_mb)
-    state = TrainState(model=model, params=flat, opt_state=None, level=level,
+    placement = StateLayout.from_flat(flat, tx.layout(), level)
+    state = TrainState(model=model, params=flat, opt_state=None, placement=placement,
                        layout=tx.layout())
-    if level in CHUNK_LAYOUTS:
-        if level == "zero3":
-            state.owned = flat.gather_owned(flat.data, mesh.replica_index())
+    if placement.chunked["params"]:
+        state.owned = flat.gather_owned(flat.data, mesh.replica_index())
+    if placement.chunked["opt_state"]:
         state.opt_state = tx.init(state.owned_params())
     else:
         state.opt_state = tx.init(flat.data)
@@ -408,11 +418,12 @@ def make_train_step(
     level = normalize_shard_update(level)
     if axis_size == 1:
         level = "off"
-    if level in ("zero2", "zero3"):
+    chunked = LEVEL_CHUNKS[level]
+    if chunked["grads"]:
         validate_scatter_compression(compression)
     else:
         check_supported(compression)
-    if tx.grad_clip_norm and level != "off":
+    if tx.grad_clip_norm and any(chunked.values()):
         raise ValueError(
             f"shard_update={level!r} cannot compose with grad_clip_norm > 0 — a "
             "clip by global norm inside the update would clip each replica's 1/N "
@@ -425,7 +436,7 @@ def make_train_step(
         state.gather_params()
         losses, accs = _accumulate_grads(state, images, labels, remat)
         mean_batch_stats(state.model, axis_size)
-        sq = sync_and_update(state, tx, compression, axis_size, level, seed)
+        sq = sync_and_update(state, tx, compression, axis_size, seed)
         # One reduce for the logged metrics: the replicas' summed loss and
         # accuracy (then their mean) and, under zero2/zero3, the chunks'
         # squared norms (then the root of their sum).
@@ -444,27 +455,29 @@ def make_train_step(
 
 def sync_and_update(
     state: TrainState, tx: Optimizer, compression: CompressionConfig, axis_size: int,
-    level: str, seed: int,
+    seed: int,
 ) -> Optional[torch.Tensor]:
-    """The step's tail after backward: the gradient sync of ``level`` over
-    the data axis (the mean gradient of ``state.params.grad``), the
-    update, the publish, the step count.  Returns the squared norm of this
-    replica's chunks of the mean under zero2/zero3 (to be summed over the
-    replicas), else None (the whole mean is in ``params.grad``).  The
+    """The step's tail after backward, as the state's placement has it:
+    the gradient sync over the data axis (the mean gradient of
+    ``state.params.grad``; a reduce-scatter where the gradients persist
+    chunked), the update, the publish (none where the params persist
+    chunked), the step count.  Returns the squared norm of this replica's
+    chunks of the mean where the gradients are chunked (to be summed over
+    the replicas), else None (the whole mean is in ``params.grad``).  The
     pipeline's stage update runs it on the stage's data group."""
-    flat = state.params
+    flat, placement = state.params, state.placement
     key = _rounding_rng(compression, seed, state.step)
-    grads = sync_for_level(flat.grad, compression, axis_size, level, key=key,
+    grads = sync_for_level(flat.grad, compression, axis_size, placement.chunked["grads"], key=key,
                            buckets=flat.buckets(), n_elements=flat.numel)
     sq = None
     if grads is not None:
         tx.update(grads, state.opt_state, state.owned_params())
-        if level == "zero2":
-            flat.all_gather_(flat.data)
-        else:
+        if placement.chunked["params"]:
             state.release_params()
+        else:
+            flat.all_gather_(flat.data)
         sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
-    elif level == "zero1":
+    elif placement.chunked["opt_state"]:
         index = mesh.replica_index()
         tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())
         flat.all_gather_(flat.data)
@@ -550,14 +563,15 @@ def make_train_step_spatial(
         mesh.all_reduce_(flat.grad, "sum", "stage")
         codec_on_mean(flat, compression, _rounding_rng(compression, seed, state.step))
         norm = grad_norm(flat.grad)
-        if level == "off":
+        placement = state.placement
+        if not placement.chunked["opt_state"]:
             tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
         else:
             clip = tx.global_norm(flat.grad, flat.segments()) if tx.grad_clip_norm else None
             index = mesh.replica_index()
             tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params(),
                       norm=clip)
-            if level == "zero3":
+            if placement.chunked["params"]:
                 state.release_params()
             else:
                 flat.all_gather_(flat.data)

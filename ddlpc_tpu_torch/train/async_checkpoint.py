@@ -6,8 +6,8 @@ The training thread pays only for the host snapshot
 into reusable pinned host buffers).  A copy, never a view: the train step
 updates the params and the Adam moments in place, and would overwrite a
 snapshot that aliased them while the writer compresses it.  Everything
-after it — the flax layout, chunking, compression, fsync, prune — runs on
-one background writer thread.
+after it — the flax layout, chunking or the monolithic msgpack blob,
+compression, fsync, prune — runs on one background writer thread.
 
 Semantics:
 
@@ -50,8 +50,6 @@ class AsyncCheckpointer:
         compression: str = "adaptive",
         background: bool = True,
     ):
-        if format == "monolithic":
-            raise NotImplementedError(ckpt._MONOLITHIC)
         self.keep = keep
         self.format = format
         self.chunk_bytes = chunk_bytes

@@ -1,5 +1,13 @@
-"""Checkpoint/resume — the port's copy of ``ddlpc_tpu/train/checkpoint.py``,
-chunked format (``ckpt_<step>.dwc``, DWC2) only.
+"""Checkpoint/resume — the port's copy of ``ddlpc_tpu/train/checkpoint.py``.
+Two formats, one reader, which dispatches on the file a step has:
+
+- **chunked** (the default, ``ckpt_<step>.dwc``, DWC2), below;
+- **monolithic** (legacy, ``ckpt_<step>.msgpack.z``): the whole state tree
+  as one flax msgpack blob (``utils/flax_msgpack.py``, byte for byte what
+  flax's ``msgpack_serialize`` writes), compressed as one DWZ1 frame
+  (``utils/wire.py``).  Written under ``format="monolithic"`` and always
+  restorable, so a JAX run's legacy blobs resume, serve and predict in
+  the port, and the port's restore in JAX.
 
 A blob holds the state tree that flax's ``to_state_dict(TrainState)``
 gives the JAX package — ``step``, ``params``, ``batch_stats`` and
@@ -17,8 +25,9 @@ carries the manifest's own CRC32::
 
     b"DWCK0001" | frames ... | manifest JSON | <Q offset, I length, I crc32, b"DWC2">
 
-Integrity: a flipped bit anywhere in a blob is detected at restore; the
-blob is then quarantined (renamed ``*.bad``, kept as evidence, never
+Integrity: a flipped bit anywhere in a blob is detected at restore (a
+monolithic blob by its frame's deflate checksums and the strict decoder);
+the blob is then quarantined (renamed ``*.bad``, kept as evidence, never
 counted again) and the restore falls back to the next-newest checkpoint,
 raising only when nothing restorable remains.
 
@@ -38,8 +47,8 @@ is set) acts where the JAX writer calls it: ``disk_full@K`` raises ENOSPC
 before the Kth blob write, ``flip_ckpt@K`` flips a byte of the Kth blob
 after its rename.
 
-Not ported: the monolithic format (a flax msgpack blob; it raises); the
-JAX package's version-1 blobs without CRCs are read but not written.
+The JAX package's version-1 chunked blobs, without CRCs, are read but not
+written.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ import torch
 from ddlpc_tpu_torch import convert
 from ddlpc_tpu_torch.obs import lineage as _lineage
 from ddlpc_tpu_torch.resilience.chaos import active as _chaos_active
-from ddlpc_tpu_torch.utils import wire
+from ddlpc_tpu_torch.utils import flax_msgpack, wire
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.(?:msgpack\.z|dwc)$")
 _META_RE = re.compile(r"^ckpt_(\d+)\.json$")
@@ -88,11 +97,6 @@ CorruptionError = (
     zlib.error,
     EOFError,
     OverflowError,
-)
-
-_MONOLITHIC = (
-    "checkpoint_format='monolithic' (a flax msgpack blob) is not ported to "
-    "ddlpc_tpu_torch (ROADMAP A2); use checkpoint_format='chunked'"
 )
 
 
@@ -465,12 +469,10 @@ def save_snapshot(
     writer runs.  Sidecar first, then the blob, then the
     directory fsync, then the prune: a crash at any point leaves every
     earlier checkpoint restorable and no partial blob under a final name."""
-    if format == "monolithic":
-        raise NotImplementedError(_MONOLITHIC)
-    if format != "chunked":
+    if format not in ("chunked", "monolithic"):
         raise ValueError(f"unknown checkpoint format {format!r}")
     os.makedirs(ckpt_dir, exist_ok=True)
-    name = f"ckpt_{step}.dwc"
+    name = f"ckpt_{step}.dwc" if format == "chunked" else f"ckpt_{step}.msgpack.z"
     # Every save carries a lineage record, its saved_at stamped at the
     # durable write.
     lin = (metadata or {}).get("lineage")
@@ -498,7 +500,10 @@ def save_snapshot(
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            _write_chunked(f, snap, chunk_bytes, compression, lineage=lin)
+            if format == "chunked":
+                _write_chunked(f, snap, chunk_bytes, compression, lineage=lin)
+            else:
+                f.write(wire.compress(flax_msgpack.pack(unflatten(snap))))
             f.flush()
             # fsync before the rename: a rename alone survives a process
             # crash, not a power loss, after which the prune may already
@@ -593,20 +598,31 @@ def peek_metadata(ckpt_dir: str, step: Optional[int] = None) -> dict:
         return json.load(f)
 
 
+def _read_monolithic(path: str) -> dict:
+    """The nested state tree of a ``.msgpack.z`` blob, as
+    :func:`_read_chunked` gives it: numpy arrays (0-d for scalars), torch
+    bfloat16 tensors, empty dicts and plain values."""
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpack(wire.decompress(f.read()))
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: a monolithic checkpoint holds a dict, not {type(tree).__name__}")
+    return unflatten(flatten_tree(tree))
+
+
 def _restore_step(ckpt_dir: str, step: int) -> Tuple[dict, dict]:
     path, fmt = checkpoint_path(ckpt_dir, step)
-    if fmt != "chunked":
-        raise NotImplementedError(f"{path}: {_MONOLITHIC}")
-    tree = _read_chunked(path)
+    tree = _read_chunked(path) if fmt == "chunked" else _read_monolithic(path)
     meta_path = os.path.join(ckpt_dir, f"ckpt_{step}.json")
     meta = {}
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
     # Every restore's metadata carries a lineage: the sidecar's, else the
-    # manifest's, else the explicit unknown marker.
+    # manifest's (a monolithic blob has none), else the explicit unknown
+    # marker.
     if not isinstance(meta.get("lineage"), dict):
-        meta = dict(meta, lineage=read_manifest_lineage(path) or _lineage.unknown_lineage(step))
+        lin = read_manifest_lineage(path) if fmt == "chunked" else None
+        meta = dict(meta, lineage=lin or _lineage.unknown_lineage(step))
     return tree, meta
 
 

@@ -3,7 +3,7 @@ JAX curves in ``docs/flagship_recipe/``.
 
     python -m ddlpc_tpu_torch.train.hard_task --out docs/port_hard_task
 
-Four runs of the trainer's CLI entry point on
+Six runs of the trainer's CLI entry point on
 ``configs/vaihingen_unet_tpu_flagship.json`` (micro 128 × sync 4, Adam
 2e-3, the fp16 codec at 100 levels) with ``data.dataset=synthetic_hard``
 and ``data.seed=1`` (the ``HardTiles`` seed of the JAX recipe,
@@ -13,22 +13,26 @@ cache, checkpoints, the stall watchdog, perf accounting) but no image
 dumps, which the JAX recipe does not write:
 
 - ``fp16_seed0``, ``fp16_seed1``, ``fp16_seed2``: ``train.seed`` 0, 1, 2;
-- ``int8_stochastic_seed0``: ``compression.mode=int8``,
-  ``compression.rounding=stochastic``.
+- ``int8_stochastic_seed0``, ``int8_sr_seed1``, ``int8_sr_seed2``:
+  ``compression.mode=int8``, ``compression.rounding=stochastic``,
+  ``train.seed`` 0, 1, 2.
 
-They run at once, one process each on the one card (``--device cuda:0``;
-``--config``, ``--device`` and ``--set`` exist for a smaller trial run).
-Once ``fp16_seed2`` has logged epoch ``--preempt-at`` it is sent SIGTERM;
-it must exit 43 (``resilience/protocol.py``), and the same command then
-resumes it from its emergency checkpoint.  Each run's epoch records go to
+The runs named by ``--runs`` (all by default) run at once, one process
+each on the one card (``--device cuda:0``; ``--config``, ``--device`` and
+``--set`` exist for a smaller trial run).  Once ``fp16_seed2``, where it
+runs, has logged epoch ``--preempt-at`` it is sent SIGTERM; it must exit
+43 (``resilience/protocol.py``), and the same command then resumes it
+from its emergency checkpoint.  Each run's epoch records go to
 ``<out>/<run>.jsonl`` (the process's metrics stream, with ``kind``
-records left out), and ``<out>/summary.json`` holds the final-epoch row of
-each run, the preemption, the card, and the comparison with JAX's curves
-(:func:`compare`): the fp16 seeds' mean final val mIoU against
-``flagship_b128x4_lr0.002`` within max(0.02, 2 × their standard
-deviation), the stochastic arm against
-``flagship_b128x4_lr0.002_int8_stochastic`` by the same rule, per class,
-and the loss at epochs 0, 50, 100, 200 and 399.
+records left out); the files of runs left out of ``--runs`` are kept, and
+so are their rows of an existing ``<out>/summary.json``.  The summary
+holds the final-epoch row of each run, the preemption, the card, and the
+comparison with JAX's curves (:func:`compare`): the fp16 seeds' mean
+final val mIoU against ``flagship_b128x4_lr0.002`` within max(0.02, 2 ×
+their standard deviation), the stochastic arm against
+``flagship_b128x4_lr0.002_int8_stochastic`` by the same rule, per class
+(each run's, and the small discs' class on its own), and the loss at
+epochs 0, 50, 100, 200 and 399.
 """
 
 from __future__ import annotations
@@ -58,15 +62,18 @@ RUNS = {
     "fp16_seed0": ("train.seed=0",),
     "fp16_seed1": ("train.seed=1",),
     "fp16_seed2": ("train.seed=2",),
-    "int8_stochastic_seed0": ("train.seed=0", "compression.mode=int8",
-                              "compression.rounding=stochastic"),
+    **{name: (f"train.seed={seed}", "compression.mode=int8", "compression.rounding=stochastic")
+       for name, seed in (("int8_stochastic_seed0", 0), ("int8_sr_seed1", 1),
+                          ("int8_sr_seed2", 2))},
 }
 PREEMPTED = "fp16_seed2"
 ARMS = {  # arm: (port runs, the JAX curve it is held against)
     "fp16": (("fp16_seed0", "fp16_seed1", "fp16_seed2"), "flagship_b128x4_lr0.002"),
-    "int8_stochastic": (("int8_stochastic_seed0",), "flagship_b128x4_lr0.002_int8_stochastic"),
+    "int8_stochastic": (("int8_stochastic_seed0", "int8_sr_seed1", "int8_sr_seed2"),
+                        "flagship_b128x4_lr0.002_int8_stochastic"),
 }
 LOSS_EPOCHS = (0, 50, 100, 200, 399)
+SMALL_DISC_CLASS = 4  # HardTiles' small discs, radius 2-6 px (data/datasets.py)
 
 
 def command(name: str, workdir: str, args: argparse.Namespace) -> List[str]:
@@ -108,7 +115,14 @@ def _arm_stats(finals: List[dict], jax_final: dict, curves: List[Dict[int, dict]
         "limit": limit,
         "within": abs(mean - jax_final["val_miou"]) <= limit,
         "port_iou_per_class_mean": per_class,
+        "port_iou_per_class": [r["val_iou_per_class"] for r in finals],
         "jax_iou_per_class": jax_final["val_iou_per_class"],
+        "small_disc_iou": {
+            "class": SMALL_DISC_CLASS,
+            "port": [r["val_iou_per_class"][SMALL_DISC_CLASS] for r in finals],
+            "port_mean": per_class[SMALL_DISC_CLASS],
+            "jax": jax_final["val_iou_per_class"][SMALL_DISC_CLASS],
+        },
         "loss_at": {
             str(e): {"port": [c[e]["loss"] if e in c else None for c in curves],
                      "jax": jax_curve[e]["loss"] if e in jax_curve else None}
@@ -139,13 +153,13 @@ def _smi() -> Optional[str]:
 
 
 def run_all(args: argparse.Namespace) -> dict:
-    """Start every run, preempt ``PREEMPTED`` once it logged
-    ``--preempt-at``, resume it, wait for all; returns what happened to
-    each."""
-    out, root = args.out, args.root
+    """Start the runs of ``args.runs``, preempt ``PREEMPTED`` (where it is
+    one of them) once it logged ``--preempt-at``, resume it, wait for all;
+    returns what happened to each."""
+    out, root, runs = args.out, args.root, args.runs
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
     # The runs share the host's cores: a share each, not all of them each.
-    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // len(RUNS))))
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // len(runs))))
     procs, logs, started, report = {}, {}, {}, {}
 
     def start(name: str) -> None:
@@ -155,19 +169,20 @@ def run_all(args: argparse.Namespace) -> dict:
                                        env=env, stdout=logs[name], stderr=subprocess.STDOUT)
         started.setdefault(name, time.time())
 
-    for name in RUNS:
+    for name in runs:
         shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         start(name)
     preempt = {"run": PREEMPTED, "sigterm_after_epoch": None, "exit": None,
                "resumed_at_epoch": None}
+    preempting = PREEMPTED in runs
     last_export = time.time()
     try:
         while procs:
             time.sleep(2.0)
             if time.time() - last_export > 60:  # what a cut-off call still returns
-                export(out, root)
+                export(out, root, runs)
                 last_export = time.time()
-            if preempt["sigterm_after_epoch"] is None:
+            if preempting and preempt["sigterm_after_epoch"] is None:
                 recs = epoch_records(os.path.join(root, PREEMPTED))
                 if recs and recs[-1]["epoch"] >= args.preempt_at:
                     preempt["sigterm_after_epoch"] = recs[-1]["epoch"]
@@ -193,12 +208,13 @@ def run_all(args: argparse.Namespace) -> dict:
             p.wait()
         for f in logs.values():
             f.close()
-    recs = epoch_records(os.path.join(root, PREEMPTED))
-    resumed = [r["epoch"] for r in recs if r["epoch"] > (preempt["sigterm_after_epoch"] or 0)]
-    preempt["resumed_at_epoch"] = resumed[0] if resumed else None
-    report[PREEMPTED]["preemption"] = preempt
-    export(out, root)
-    for name in RUNS:
+    if preempting:
+        recs = epoch_records(os.path.join(root, PREEMPTED))
+        resumed = [r["epoch"] for r in recs if r["epoch"] > (preempt["sigterm_after_epoch"] or 0)]
+        preempt["resumed_at_epoch"] = resumed[0] if resumed else None
+        report[PREEMPTED]["preemption"] = preempt
+    export(out, root, runs)
+    for name in runs:
         ckpt_dir = os.path.join(root, name, "checkpoints")
         report[name]["checkpoint_disk_bytes"] = {
             f: os.path.getsize(os.path.join(ckpt_dir, f))
@@ -206,9 +222,9 @@ def run_all(args: argparse.Namespace) -> dict:
     return report
 
 
-def export(out: str, root: str) -> None:
-    """Each run's epoch records so far into ``<out>/<run>.jsonl``."""
-    for name in RUNS:
+def export(out: str, root: str, runs) -> None:
+    """Each of ``runs``' epoch records so far into ``<out>/<run>.jsonl``."""
+    for name in runs:
         text = "".join(json.dumps(r) + "\n" for r in epoch_records(os.path.join(root, name)))
         atomic_write_text(os.path.join(out, f"{name}.jsonl"), text, durable=False)
 
@@ -226,17 +242,33 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=400)
     p.add_argument("--eval-every", type=int, default=5)
     p.add_argument("--preempt-at", type=int, default=200)
+    p.add_argument("--runs", type=lambda v: v.split(","), default=list(RUNS),
+                   help="comma-separated runs to train (default: all of them); the "
+                        "others' files in --out are kept")
     args = p.parse_args(argv)
+    unknown = sorted(set(args.runs) - set(RUNS))
+    if unknown:
+        p.error(f"unknown runs {unknown} (known: {', '.join(RUNS)})")
     os.makedirs(args.out, exist_ok=True)
     os.makedirs(args.root, exist_ok=True)
     t0 = time.time()
     report = run_all(args)
-    summary = {"card": _smi(), "epochs": args.epochs, "wall_s": time.time() - t0,
-               "runs": {n: dict(report[n], final=epoch_records(os.path.join(args.root, n))[-1])
-                        for n in RUNS}}
-    if args.epochs == 400:
+    path = os.path.join(args.out, "summary.json")
+    earlier = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            earlier = json.load(f)
+    card = _smi()
+    summary = {"card": card, "epochs": args.epochs, "wall_s": time.time() - t0,
+               "runs": {**{n: {"card": earlier.get("card"), **r}
+                           for n, r in earlier.get("runs", {}).items()},
+                        **{n: dict(report[n], card=card,
+                                   final=epoch_records(os.path.join(args.root, n))[-1])
+                           for n in args.runs}}}
+    if args.epochs == 400 and all(
+            os.path.exists(os.path.join(args.out, f"{n}.jsonl")) for n in RUNS):
         summary["comparison"] = compare(args.out)
-    atomic_write_json(os.path.join(args.out, "summary.json"), summary)
+    atomic_write_json(path, summary)
     print(json.dumps(summary.get("comparison", summary["runs"]), indent=1))
     return 0
 

@@ -487,7 +487,7 @@ class Trainer:
             # Read before this run writes its first breadcrumb.
             restart_gap_s=obs_flops.restart_gap_seconds(cfg.workdir),
         )
-        obs_hbm.publish_hbm_gauges(self.registry, self.state, self.shard_update)
+        obs_hbm.publish_hbm_gauges(self.registry, self.state)
         variant = obs_comm.step_variant(cfg.compression, self.shard_update, self.spatial)
         flat = self.state.params
         self.comm = obs_comm.CommAccountant(
@@ -498,7 +498,8 @@ class Trainer:
         )
         if cfg.train.trace and self.world > 1 and not self.spatial:
             self._comm_probe = obs_comm.make_comm_probe(
-                cfg.compression, flat, self.world, level=self.shard_update, seed=cfg.train.seed)
+                cfg.compression, flat, self.world,
+                chunked_grads=self.state.placement.chunked["grads"], seed=cfg.train.seed)
 
     # ------------------------------------------------------------------
     # resume

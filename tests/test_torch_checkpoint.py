@@ -319,13 +319,6 @@ def test_config_hash_equals_jax():
     assert tlineage.config_hash(tcfg) == jlineage.config_hash(jcfg)
 
 
-def test_monolithic_format_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.save_snapshot(str(tmp_path), {("x",): np.zeros(3)}, step=1, format="monolithic")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AsyncCheckpointer(format="monolithic")
-
-
 def test_async_snapshot_is_a_copy(tmp_path):
     """The step updates params and moments in place: a snapshot taken
     before it must not see the update, even while the write is queued."""

@@ -179,7 +179,7 @@ def test_state_hbm_bytes_against_jax(level, world):
         assert got["grads"] == world * k * 4
         assert got["opt_state"] == 2 * world * k * 4
     reg = MetricsRegistry()
-    assert hbm.publish_hbm_gauges(reg, state, level) == got
+    assert hbm.publish_hbm_gauges(reg, state) == got
     assert reg.snapshot()['ddlpc_hbm_bytes{kind="opt_state"}'] == got["opt_state"]
 
 
