@@ -411,6 +411,19 @@ over 2**23 values spanning 1e-12..1e2.
    it must exit 42 with ``stall.log`` naming the phase ``data`` and the
    breadcrumb ``stalled``.
 
+7. ``analysis``: the port's invariant checker, ``python -m
+   ddlpc_tpu_torch.analysis.check --sanitize``, in a process of its own
+   started after the kernel-timing phases (it runs beside the reference
+   and main-path phases): the import tiers, the AST rules, the lock
+   smoke on this card, and the host batch kernel's self-test under ASan,
+   UBSan and (where the toolchain runs it) TSan; it must exit 0 with no
+   violation and no suppression.  Then, in this process, the lock smoke
+   with the detector on (``analysis/lock_fixtures.run_smoke``): the
+   loader ring's arm on pinned slots with live CUDA events, the
+   checkpointer's saving a state on the card; no lock-order cycle, no
+   guarded-by violation, every arm run.  Its row is printed on a line of
+   its own before the card's line.
+
 With ``--profile``, after each single-process main path (once its launch
 counts are read) it runs one more optimizer step of that path under
 ``torch.profiler`` and
@@ -520,10 +533,9 @@ DP_PHASES = {
 DP_SHARED = {"dp4_zero2_fp16": ("dp4_zero1_int8_ring", "dp4_zero3_fp16_bucket"),
              "dp2_off_int8_sr": ("dp2_off_int8_sr_traced",)}
 DP_FOLLOWERS = {f for fs in DP_SHARED.values() for f in fs}
-# Substrings of the codec kernels' names (the C entries' and the CUDA
-# kernels', as the profiler names them).
-CODEC_KERNEL_NAMES = ("ddlpc_encode", "ddlpc_decode", "fake_quantize", "absmax", "encode_kernel",
-                      "encode_sr_kernel", "decode_kernel")
+# Substrings of the codec's CUDA kernels' names, as the profiler names them.
+CODEC_KERNEL_NAMES = ("encode_kernel", "encode_sr_kernel", "encode_noise_kernel", "decode_kernel",
+                      "fake_quantize", "absmax")
 # The flagship with every optimizer option the JAX trainer has, and remat.
 FLAGSHIP_OPTIONS = ("train.optimizer=adamw", "train.weight_decay=1e-4", "train.lr_schedule=cosine",
                     "train.warmup_steps=1", "train.grad_clip_norm=1.0", "train.remat=true")
@@ -2153,6 +2165,66 @@ def png_checks(label: str, trainer, epochs: int = EPOCHS) -> None:
         f"palette[label] and the image; predicted classes {np.bincount(preds.ravel(), minlength=len(pal)).tolist()}")
 
 
+ANALYSIS_DEADLINE_S = 300
+
+
+def start_analysis() -> tuple:
+    """The analysis phase's checker: ``python -m ddlpc_tpu_torch.analysis.check
+    --sanitize`` in a process of its own (the import tiers, the AST rules,
+    the lock smoke on this card, and the host batch kernel's self-test
+    under ASan, UBSan and, where it works, TSan), its ``kind="analysis"``
+    stream into ``WORKDIR``.  Started after the kernel-timing phases."""
+    out = os.path.join(WORKDIR, "analysis.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddlpc_tpu_torch.analysis.check", "--sanitize", "--out", out],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def analysis_phase(started: tuple) -> dict:
+    """The checker's process must exit 0 with no violation and no
+    suppression (its output printed); then, in this process, the lock
+    smoke with the detector on: its ring arm on pinned slots with live
+    CUDA events, its checkpointer saving a state on the card; no cycle,
+    no guarded-by violation, every arm run."""
+    from ddlpc_tpu_torch.analysis import lockcheck
+    from ddlpc_tpu_torch.analysis.lock_fixtures import run_smoke
+
+    proc, out = started
+    try:
+        text, _ = proc.communicate(timeout=ANALYSIS_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[analysis] the checker ran past {ANALYSIS_DEADLINE_S} s")
+    log("[analysis] checker: " + " | ".join(text.strip().splitlines()))
+    if proc.returncode != 0:
+        fail(f"[analysis] the checker exited {proc.returncode}")
+    with open(out) as f:
+        summary = [json.loads(line) for line in f][-1]
+    if summary["violations"] or summary["suppressed"]:
+        fail(f"[analysis] the checker's summary: {summary}")
+    lockcheck.enable()
+    lockcheck.reset()
+    try:
+        smoke = run_smoke(workdir=WORKDIR, device="cuda")
+    finally:
+        lockcheck.disable()
+        lockcheck.reset()
+    arms = ["MicroBatcher", "Tracer", "HealthMonitor", "CircuitBreaker", "StageTimer", "_Ring",
+            "AsyncCheckpointer"]
+    if smoke["cycles"] or smoke["guard_violations"] or smoke["arms"] != arms:
+        fail(f"[analysis] lock smoke on the card: {smoke}")
+    row = {"files": summary["files_scanned"], "checker_s": summary["duration_s"],
+           "rules": summary["rules_run"],
+           "violations": 0, "suppressed": 0, "lock_smoke": smoke,
+           "sanitizers": [line for line in text.splitlines()
+                          if line.startswith(("asan:", "ubsan:", "tsan"))]}
+    return row
+
+
 def sqrt_phase() -> dict:
     """Adam's square root (ROADMAP C7): how many of 2**23 fp32 values,
     log-uniform over 1e-12..1e2, ``torch.sqrt`` rounds otherwise than the
@@ -2517,11 +2589,9 @@ def stall_config(workdir: str) -> str:
                   "stall_timeout_s": 2.0, "stall_action": "abort"},
         "compression": {"mode": "float16"},
     }
-    os.makedirs(workdir, exist_ok=True)
-    path = os.path.join(workdir, "tiny.json")
-    with open(path, "w") as f:
-        json.dump(cfg, f)
-    return path
+    from ddlpc_tpu_torch.utils.fsio import atomic_write_json
+
+    return atomic_write_json(os.path.join(workdir, "tiny.json"), cfg, indent=None)
 
 
 def stall_run(workdir: str) -> None:
@@ -2781,6 +2851,16 @@ def _canonical_digest(state) -> str:
     return _digest(*tensors, torch.tensor([opt["count"], state.step]))
 
 
+def write_rank_result(workdir: str, rank: int, result: dict) -> str:
+    """A rank process's result, ``rank{rank}.json`` in ``workdir``, which
+    the parent reads when the world has ended: written atomically, so a
+    rank that fails while writing leaves no torn file (and a file from an
+    earlier run stays whole)."""
+    from ddlpc_tpu_torch.utils.fsio import atomic_write_json
+
+    return atomic_write_json(os.path.join(workdir, f"rank{rank}.json"), result, indent=None)
+
+
 def dp_rank(label: str, workdir: str, backend: str, device: str) -> None:
     """One rank of a data-parallel phase (``mesh.spawn_world`` starts it
     with ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``), then of each phase that
@@ -3034,8 +3114,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
             "chunk_block": chunk_block, "twin_block": allocator_block(twin.state.params.data),
         }
     result["wall_s"] = time.perf_counter() - start
-    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump(result, f)
+    write_rank_result(workdir, rank, result)
 
 
 def zero3_restore_into_off(label: str, workdir: str, want: str) -> dict:
@@ -3849,15 +3928,14 @@ def fleet_phase(serve: dict) -> dict:
 
     from ddlpc_tpu_torch.config import FleetConfig
     from ddlpc_tpu_torch.train import checkpoint as ckpt
+    from ddlpc_tpu_torch.utils.fsio import atomic_write_json
 
     run, ref, scene = serve["run"], serve.pop("int8_engine"), serve.pop("scene")
     with open(FLEET_CONFIG) as f:
         raw = json.load(f)
     raw["quantize"] = "int8"
     cfg = FleetConfig.from_dict(raw).replace(workdir=run)
-    cfg_path = os.path.join(run, "fleet_int8.json")
-    with open(cfg_path, "w") as f:
-        json.dump(raw, f, indent=2)
+    cfg_path = atomic_write_json(os.path.join(run, "fleet_int8.json"), raw)
     fleet_dir = cfg.resolved_fleet_dir()
     shutil.rmtree(fleet_dir, ignore_errors=True)
     step = ckpt.latest_step(os.path.join(run, "checkpoints"))
@@ -4463,8 +4541,7 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     result["wall_s"] = time.perf_counter() - start
-    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump(result, f)
+    write_rank_result(workdir, rank, result)
 
 
 def reshards_in_steps(trainer, stats: dict) -> dict:
@@ -4799,8 +4876,7 @@ def pipe_rank(workdir: str) -> None:
     if rank == 0:
         sd, _ = gather_canonical(can)
         torch.save({k: v.clone() for k, v in sd.items()}, os.path.join(workdir, "staged.pt"))
-    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump(result, f)
+    write_rank_result(workdir, rank, result)
 
 
 def pipe_phase() -> dict:
@@ -4970,6 +5046,9 @@ def main() -> int:
     sr_rows = timed("stochastic_kernels", stochastic_kernel_phase, n, sass, fq_sass)
     chunk_rows = timed("chunk_kernels", shard_kernel_rows, n)
     sqrt_row = timed("sqrt", sqrt_phase)
+    # The checker runs beside the reference and main-path phases, after
+    # the kernels are timed; its result is read at the end.
+    analysis_started = start_analysis()
 
     def references():
         reference_phase({"mode": "float16"}, loss_rtol=1e-4, param_share=2e-2)
@@ -5058,6 +5137,7 @@ def main() -> int:
     pipe = timed("pipe2_flagship", pipe_phase)
     dp = {label: timed(label, dp_phase, label) for label in DP_PHASES}
     traced_dp = traced_dp_checks(dp)
+    analysis = timed("analysis", analysis_phase, analysis_started)
     for run in (main, traced, sr, opts, *dp.values(), *data_runs.values()):
         if run["n_params"] != n:
             fail(f"main path flat gradient {run['n_params']} != kernel phase size {n}")
@@ -5109,10 +5189,11 @@ def main() -> int:
                       "traced_dp": traced_dp, "spatial": spatial["row"],
                       "spatial_unetpp": spatial_pp["row"],
                       "spatial_deeplabv3p": spatial_dl["row"], UNEVEN_LABEL: uneven["row"],
-                      "pipeline": pipe["row"],
+                      "pipeline": pipe["row"], "analysis": analysis,
                       "phase_seconds": PHASE_SECONDS}))
     PHASE_SECONDS["total"] = round(time.perf_counter() - start, 1)
     log("phase_seconds: " + json.dumps(PHASE_SECONDS) + f" ({smi})")
+    log("analysis: " + json.dumps(analysis) + f" ({smi})")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

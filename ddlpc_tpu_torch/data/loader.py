@@ -35,7 +35,6 @@ compute dtype first, and the labels are widened to int64 there.
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -44,6 +43,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ddlpc_tpu_torch.analysis import lockcheck
 from ddlpc_tpu_torch.data.datasets import TileDataset, gather_into
 from ddlpc_tpu_torch.utils import native
 
@@ -252,14 +252,15 @@ class _Slot:
         self.copied: Optional[torch.cuda.Event] = None
 
 
+@lockcheck.guarded
 class _Ring:
     """A fixed pool of slots.  ``acquire`` blocks until a slot is free and
     its last copy to the device has finished, so a gather never overwrites
     a batch still in flight (the JAX ring's ``block_until_ready``)."""
 
     def __init__(self, slots: List[_Slot]):
-        self._slots = slots
-        self._cv = threading.Condition()
+        self._cv = lockcheck.condition("_Ring._cv")
+        self._slots = slots  # guarded-by: _cv
 
     def acquire(self) -> _Slot:
         with self._cv:

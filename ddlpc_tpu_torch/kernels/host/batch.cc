@@ -11,6 +11,8 @@
 // translates them).
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared batch.cc -o libdwbatch.so -lpthread
+// Self-test: g++ -DDWB_TEST_MAIN batch.cc -o batch_check -lpthread, run with
+// --stress under the sanitizers (ddlpc_tpu_torch/analysis/check.py).
 
 #include <atomic>
 #include <cstdint>
@@ -135,3 +137,134 @@ int dwb_gather_pack(const float* images, const int32_t* labels,
 }
 
 }  // extern "C"
+
+#ifdef DWB_TEST_MAIN
+// Self-test (the port's copy of csrc/batch.cc's): exercises both paths and
+// the error codes without Python in the loop.  `--stress` adds a
+// multithreaded gather/pack stress (big enough to fan out over the thread
+// pool, checked element-wise) — the workload the sanitizer arms of
+// `python -m ddlpc_tpu_torch.analysis.check --sanitize` run under ASan,
+// UBSan and TSan to prove the pool, the atomic min/max reduction, and the
+// branchless cast loop are data-race- and UB-free.
+#include <cmath>
+#include <cstdio>
+#include <cstring>
+
+static int fail(const char* what) {
+  std::fprintf(stderr, "batch_check FAILED: %s\n", what);
+  return 1;
+}
+
+static int stress() {
+  // Many small tiles over many threads: maximize hand-off/interleaving
+  // (the TSan-relevant shape) while still checking every output byte.
+  const size_t n_src = 257, ie = 513, le = 129, n_out = 1024;
+  std::vector<float> imgs(n_src * ie);
+  std::vector<int32_t> labs(n_src * le);
+  for (size_t i = 0; i < imgs.size(); ++i) {
+    imgs[i] = 0.37f * static_cast<float>(i % 1999) - 3.7f;
+  }
+  for (size_t i = 0; i < labs.size(); ++i) {
+    labs[i] = static_cast<int32_t>(i % 129) - 1;  // full [-1, 127] range
+  }
+  std::vector<int64_t> idx(n_out);
+  for (size_t i = 0; i < n_out; ++i) {
+    idx[i] = static_cast<int64_t>((i * 131) % n_src);
+  }
+  for (int round = 0; round < 4; ++round) {
+    // fp32 path
+    std::vector<float> io(n_out * ie);
+    std::vector<int32_t> lo(n_out * le);
+    if (dwb_gather_pack(imgs.data(), labs.data(), idx.data(), n_out, n_src,
+                        ie, le, 0, io.data(), lo.data(), nullptr, 8) != 0) {
+      return fail("stress fp32 rc");
+    }
+    for (size_t i = 0; i < n_out; ++i) {
+      if (std::memcmp(&io[i * ie], &imgs[idx[i] * ie], ie * sizeof(float)) ||
+          std::memcmp(&lo[i * le], &labs[idx[i] * le],
+                      le * sizeof(int32_t))) {
+        return fail("stress fp32 content");
+      }
+    }
+    // compact path: every element re-derived on the host side
+    std::vector<uint16_t> ib(n_out * ie);
+    std::vector<int8_t> lb(n_out * le);
+    int32_t range[2] = {0, 0};
+    if (dwb_gather_pack(imgs.data(), labs.data(), idx.data(), n_out, n_src,
+                        ie, le, 1, ib.data(), lb.data(), range, 8) != 0) {
+      return fail("stress compact rc");
+    }
+    for (size_t i = 0; i < n_out; ++i) {
+      const uint32_t* bits =
+          reinterpret_cast<const uint32_t*>(&imgs[idx[i] * ie]);
+      for (size_t k = 0; k < ie; ++k) {
+        if (ib[i * ie + k] != f32_to_bf16(bits[k])) {
+          return fail("stress bf16 cast");
+        }
+      }
+      for (size_t k = 0; k < le; ++k) {
+        if (lb[i * le + k] !=
+            static_cast<int8_t>(labs[idx[i] * le + k])) {
+          return fail("stress int8 cast");
+        }
+      }
+    }
+    if (range[0] != -1 || range[1] != 127) return fail("stress range");
+  }
+  std::printf("batch_check stress OK\n");
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  if (argc > 1 && std::strcmp(argv[1], "--stress") == 0) {
+    if (int rc = stress()) return rc;
+  }
+  const size_t n_src = 5, ie = 7, le = 3;
+  std::vector<float> imgs(n_src * ie);
+  std::vector<int32_t> labs(n_src * le);
+  for (size_t i = 0; i < imgs.size(); ++i) imgs[i] = 0.1f * i - 1.5f;
+  for (size_t i = 0; i < labs.size(); ++i) labs[i] = (i % 129) - 1;
+  std::vector<int64_t> idx = {4, 0, 0, 2};  // repeats = wrap-fill tails
+  // fp32 path: exact copy at packed offsets.
+  std::vector<float> io(idx.size() * ie);
+  std::vector<int32_t> lo(idx.size() * le);
+  if (dwb_gather_pack(imgs.data(), labs.data(), idx.data(), idx.size(),
+                      n_src, ie, le, 0, io.data(), lo.data(), nullptr,
+                      4) != 0) {
+    return fail("fp32 rc");
+  }
+  for (size_t i = 0; i < idx.size(); ++i) {
+    if (std::memcmp(&io[i * ie], &imgs[idx[i] * ie], ie * sizeof(float)) ||
+        std::memcmp(&lo[i * le], &labs[idx[i] * le], le * sizeof(int32_t))) {
+      return fail("fp32 gather content");
+    }
+  }
+  // compact path: bf16 RNE + int8, plus the range report.
+  std::vector<uint16_t> ib(idx.size() * ie);
+  std::vector<int8_t> lb(idx.size() * le);
+  int32_t range[2] = {0, 0};
+  if (dwb_gather_pack(imgs.data(), labs.data(), idx.data(), idx.size(),
+                      n_src, ie, le, 1, ib.data(), lb.data(), range,
+                      4) != 0) {
+    return fail("compact rc");
+  }
+  if (ib[0] != f32_to_bf16(*reinterpret_cast<uint32_t*>(&imgs[4 * ie]))) {
+    return fail("bf16 cast");
+  }
+  if (range[0] < -1 || range[1] > 127) return fail("range report");
+  // Error codes: bad index, out-of-range label.
+  std::vector<int64_t> bad_idx = {99};
+  if (dwb_gather_pack(imgs.data(), labs.data(), bad_idx.data(), 1, n_src,
+                      ie, le, 0, io.data(), lo.data(), nullptr, 1) != -2) {
+    return fail("index bound rc");
+  }
+  std::vector<int32_t> wide(le, 200);
+  std::vector<int64_t> one = {0};
+  if (dwb_gather_pack(imgs.data(), wide.data(), one.data(), 1, 1, ie, le, 1,
+                      ib.data(), lb.data(), range, 1) != -3) {
+    return fail("label range rc");
+  }
+  std::printf("batch_check OK\n");
+  return 0;
+}
+#endif  // DWB_TEST_MAIN

@@ -53,6 +53,8 @@ import time
 from contextlib import ExitStack, contextmanager
 from typing import Callable, Optional
 
+from ddlpc_tpu_torch.utils.fsio import atomic_write_json
+
 # One capture at a time per process: the profiler supports a single active
 # session, and a trainer trigger and a serve endpoint may share a process.
 _capture_lock = threading.Lock()
@@ -102,8 +104,7 @@ def _stop_profiler(prof, trace_dir: str) -> None:
         }
         for ev in prof.key_averages()
     ]
-    with open(os.path.join(trace_dir, OPS_FILE), "w") as f:
-        json.dump(ops, f)
+    atomic_write_json(os.path.join(trace_dir, OPS_FILE), ops, indent=None)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 

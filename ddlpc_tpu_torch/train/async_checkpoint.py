@@ -30,17 +30,24 @@ import concurrent.futures
 import time
 from typing import Optional
 
+from ddlpc_tpu_torch.analysis import lockcheck
 from ddlpc_tpu_torch.parallel.mesh import world_rank
 from ddlpc_tpu_torch.train import checkpoint as ckpt
 
 
+@lockcheck.guarded
 class AsyncCheckpointer:
     """Background-threaded saves; ``background=False`` (the config's
     ``checkpoint_async=false``) runs the same write inline.
 
     No lock: ``save``/``wait``/``close`` are called from the training
     thread only, the future is the hand-off, and ``wait()`` orders every
-    read of what the writer set (``last_write_s``, ``last_path``)."""
+    read of what the writer set (``last_write_s``, ``last_path``).  The
+    ``# guarded-by: <owner-thread>`` annotations pin that shape: under
+    ``DDLPC_LOCKCHECK=1`` a second mutating thread is a violation, not a
+    silent race.  ``last_write_s`` and ``last_path`` are the writer
+    thread's: written before the future resolves and read only after the
+    ``wait()`` barrier, so they carry no annotation."""
 
     def __init__(
         self,
@@ -55,12 +62,12 @@ class AsyncCheckpointer:
         self.chunk_bytes = chunk_bytes
         self.compression = compression
         self.background = background
-        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
-        self._inflight: Optional[concurrent.futures.Future] = None
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None  # guarded-by: <owner-thread>
+        self._inflight: Optional[concurrent.futures.Future] = None  # guarded-by: <owner-thread>
         self._host: dict = {}  # reusable host buffers of the snapshot
         # What the training thread paid for the last save (snapshot plus
         # any barrier on the previous write), and what the write cost.
-        self.last_stall_s = 0.0
+        self.last_stall_s = 0.0  # guarded-by: <owner-thread>
         self.last_write_s = 0.0
         self.last_path: Optional[str] = None
 

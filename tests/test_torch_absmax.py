@@ -26,6 +26,9 @@ import torch
 
 from ddlpc_tpu.ops import quantize as jq
 from ddlpc_tpu_torch.ops import cuda_quantize as cq
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 _TINY = np.float32(np.finfo(np.float32).tiny)  # the smallest normal float32
 

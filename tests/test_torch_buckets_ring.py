@@ -47,6 +47,9 @@ from ddlpc_tpu_torch.parallel import grad_sync as tsync
 from ddlpc_tpu_torch.parallel.train_step import FlatParams
 from test_torch_dist_sync import _flat, _jax_world, _trees
 from test_torch_dist_worker import run_world
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 BUCKET_MB = 400 / 2**20  # 400 bytes: three buckets of the int8 tree, four of the fp16 one
 CASES = {  # name: (tree mode, config, scatter)

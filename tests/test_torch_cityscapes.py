@@ -44,6 +44,9 @@ from ddlpc_tpu_torch.obs import flops as obs_flops  # noqa: E402
 from ddlpc_tpu_torch.ops import losses as tlosses  # noqa: E402
 from ddlpc_tpu_torch.ops import metrics as tmetrics  # noqa: E402
 from ddlpc_tpu_torch.train.__main__ import main as cli_main  # noqa: E402
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 CITYSCAPES = os.path.join(REPO, "configs", "cityscapes_unet_v5e64.json")
 

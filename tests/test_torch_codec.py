@@ -29,6 +29,9 @@ from ddlpc_tpu_torch.config import CompressionConfig
 from ddlpc_tpu_torch.ops import cuda_quantize as cq
 from ddlpc_tpu_torch.ops import quantize as tq
 from ddlpc_tpu_torch.parallel import grad_sync as tsync
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 MODES = ["int8", "float16"]
 

@@ -16,6 +16,9 @@ from ddlpc_tpu.data import loader as jloader
 from ddlpc_tpu_torch.config import DataConfig
 from ddlpc_tpu_torch.data import datasets as tdatasets
 from ddlpc_tpu_torch.data.loader import DeviceLoader, EpochSampler, eval_batches
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 
 @pytest.mark.parametrize(

@@ -27,6 +27,9 @@ from ddlpc_tpu.data import datasets as jd
 from ddlpc_tpu_torch.config import DataConfig
 from ddlpc_tpu_torch.data import datasets as td
 from ddlpc_tpu_torch.data import png
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 EPOCHS = 3
 

@@ -48,6 +48,9 @@ from ddlpc_tpu_torch.parallel import shard_update as tzero
 from test_torch_codec import _tree
 from test_torch_stochastic import _jax_stage_keys, _leaf_fields
 from test_torch_dist_worker import run_world
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 CASES = {  # name: (tree mode, config, noise from JAX's key)
     "fp16": ("float16", dict(mode="float16"), False),

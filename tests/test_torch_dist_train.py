@@ -49,6 +49,9 @@ from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_model import flax_like_variables
 from test_torch_train_step import _OFF, LR, TINY, _flat, _tiny_cli_config
 from test_torch_dist_worker import run_world
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 A, BL, STEPS = 2, 2, 2  # micro-batches a step, per-replica micro-batch, steps
 

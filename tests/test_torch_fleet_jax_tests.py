@@ -39,6 +39,9 @@ from ddlpc_tpu_torch.serve import fleet as tfleet
 from ddlpc_tpu_torch.serve import metrics as tmetrics
 from ddlpc_tpu_torch.serve import router as trouter
 from ddlpc_tpu_torch.serve import server as tserver
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 # Module-level names of the JAX tests → the port's objects.
 PORT_NAMES = {

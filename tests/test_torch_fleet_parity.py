@@ -42,6 +42,9 @@ from ddlpc_tpu_torch.serve import autoscale as tautoscale
 from ddlpc_tpu_torch.serve import cache as tcache
 from ddlpc_tpu_torch.serve import fleet as tfleet
 from ddlpc_tpu_torch.serve import router as trouter
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX = dict(config=jconfig, router=jrouter, health=jhealth, autoscale=jautoscale, cache=jcache,

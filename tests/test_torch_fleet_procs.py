@@ -35,6 +35,9 @@ from ddlpc_tpu_torch.config import FleetConfig
 from ddlpc_tpu_torch.train import checkpoint as tckpt
 from test_torch_serve import NCLASS, TILE, write_run
 from test_torch_serve_http import _assert_maps_equal_but_near_ties
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")

@@ -1,7 +1,8 @@
 """One rank of a gloo world laid out as a ``pipe × data × space`` grid, for
 the port's space-axis and pipeline tests (it holds no test of its own:
 ``tests/test_torch_halo.py``, ``tests/test_torch_spatial.py`` and
-``tests/test_torch_pipeline.py`` start it through :func:`run_grid`).
+``tests/test_torch_pipeline.py`` start it through :func:`run_grid`, or
+:func:`start_grid` to compute their references while the world runs).
 
 Run as ``python tests/test_torch_grid_worker.py <task> <dir>`` with ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK`` set (``mesh.spawn_world`` sets them): the
@@ -62,6 +63,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -378,6 +380,19 @@ def run_grid(name: str, grid, work: str, task: dict, inputs: dict,
     mesh.spawn_world([sys.executable, os.path.abspath(__file__), name, work], world,
                      deadline_s, env=env, cwd=REPO)
     return [dict(np.load(os.path.join(work, f"out_{r}.npz"))) for r in range(world)]
+
+
+def start_grid(name: str, grid, work: str, task: dict, inputs: dict,
+               deadline_s: float = 180.0) -> Future:
+    """:func:`run_grid` on a thread of its own, so that the world's ranks
+    run while the caller computes its references; the future's
+    ``result()`` is the ranks' outputs, or raises the world's failure.
+    ``inputs`` must not change once the world has started."""
+    pool = ThreadPoolExecutor(1, thread_name_prefix=f"grid-{name}")
+    try:
+        return pool.submit(run_grid, name, grid, work, task, inputs, deadline_s)
+    finally:
+        pool.shutdown(wait=False)
 
 
 def main() -> int:

@@ -26,6 +26,9 @@ from ddlpc_tpu.parallel.halo import halo_exchange as jhalo_exchange
 from ddlpc_tpu.utils.compat import shard_map
 from ddlpc_tpu_torch.parallel.halo import halo_exchange, sharded_same_conv
 from test_torch_grid_worker import run_grid
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 KTOL = dict(rtol=1e-4, atol=1e-5)

@@ -14,6 +14,9 @@ from ddlpc_tpu.config import DataConfig as JDataConfig
 from ddlpc_tpu.data import datasets as jdatasets
 from ddlpc_tpu_torch.config import DataConfig
 from ddlpc_tpu_torch.data import datasets as tdatasets
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 
 def _same(a, b) -> None:

@@ -13,6 +13,9 @@ import sys
 import textwrap
 
 import pytest
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,6 +67,12 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.utils.wire",
     # The serving slice.
     "ddlpc_tpu_torch.analysis.lockcheck",
+    # The invariant checker.
+    "ddlpc_tpu_torch.analysis.check",
+    "ddlpc_tpu_torch.analysis.core",
+    "ddlpc_tpu_torch.analysis.lock_fixtures",
+    "ddlpc_tpu_torch.analysis.rules",
+    "ddlpc_tpu_torch.analysis.tiers",
     "ddlpc_tpu_torch.obs.health",
     "ddlpc_tpu_torch.obs.http",
     "ddlpc_tpu_torch.obs.profiling",
@@ -189,6 +198,9 @@ FLEET_TIER = {
     # imports torch only where a capture starts.
     "ddlpc_tpu_torch.obs.http": ("torch", "numpy"),
     "ddlpc_tpu_torch.obs.profiling": ("torch", "numpy"),
+    # The invariant checker's command, which runs without torch as JAX's
+    # runs without jax (its lock smoke reaches the torch arms lazily).
+    "ddlpc_tpu_torch.analysis.check": ("torch", "numpy"),
 }
 
 

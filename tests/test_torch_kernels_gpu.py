@@ -22,6 +22,9 @@ from ddlpc_tpu_torch.ops import cuda_quantize as cq
 from ddlpc_tpu_torch.ops import philox
 from ddlpc_tpu_torch.ops import quantize as tq
 from ddlpc_tpu_torch.parallel import grad_sync
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 WIRES = [("float16", torch.float16), ("int8", torch.int8), ("int8", torch.int16)]
 

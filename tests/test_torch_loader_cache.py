@@ -30,6 +30,9 @@ from ddlpc_tpu_torch.data.loader import (
     _Slot,
 )
 from ddlpc_tpu_torch.utils import native
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 EPOCHS = 3
 A, GLOBAL_B, SEED = 2, 8, 4  # the JAX global micro-batch: 8 = the mesh's data axis

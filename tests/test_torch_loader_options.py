@@ -37,6 +37,9 @@ from ddlpc_tpu_torch.data.loader import (
 )
 from ddlpc_tpu_torch.utils import native
 from test_torch_datasets_dir import write_scenes, write_tiles
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 A, GLOBAL_B, SEED, EPOCHS = 2, 8, 4, 2
 CPU = torch.device("cpu")

@@ -32,6 +32,9 @@ from ddlpc_tpu_torch.convert import flax_from_torch, torch_state_from_flax
 from ddlpc_tpu_torch.models import build_model
 from ddlpc_tpu_torch.ops import losses as tlosses
 from ddlpc_tpu_torch.ops import metrics as tmetrics
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 TINY = dict(
     features=(8, 16), bottleneck_features=16, width_divisor=1, stem="s2d",

@@ -65,6 +65,9 @@ from ddlpc_tpu_torch.models import build_model, layers
 from ddlpc_tpu_torch.obs import flops
 from ddlpc_tpu_torch.parallel.train_step import loss_from_logits
 from test_torch_model import flax_like_variables
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PP = dict(name="unetpp", features=(8, 16, 32))

@@ -11,6 +11,11 @@ import torch
 from ddlpc_tpu_torch.config import ModelConfig
 from ddlpc_tpu_torch.models import build_model
 from test_torch_models_zoo import FP32_TOL, VARIANTS, _forward_both, _images
+from test_torch_threads import intra_op_threads
+
+# Two threads keep PyTorch's 1x1 convolutions on oneDNN, whose rounding the
+# fp32 tolerances below were taken on (tests/test_torch_threads.py).
+two_intra_op_threads = intra_op_threads(2)  # autouse
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 from test_torch_models_zoo import F32_MEAN, VARIANTS, _forward_both
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -48,6 +48,9 @@ from test_torch_checkpoint import (
     port_state,
     small_tree,
 )
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 
 @pytest.fixture(autouse=True)

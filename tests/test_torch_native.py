@@ -35,6 +35,9 @@ from ddlpc_tpu_torch.train import checkpoint as tckpt
 from ddlpc_tpu_torch.utils import native
 from ddlpc_tpu_torch.utils import wire as twire
 from test_torch_checkpoint import jax_state, metadata, port_state
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 SIZES = (0, 1, 1 << 10, (1 << 16) + 3, (1 << 20) + 17, 3 << 20)
 

@@ -38,6 +38,9 @@ from ddlpc_tpu_torch.obs import schema as tschema
 from ddlpc_tpu_torch.obs import tracing as ttracing
 from ddlpc_tpu_torch.train import observability as tobservability
 from ddlpc_tpu_torch.train import watchdog as twatchdog
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 # Module-level names of the JAX tests → the port's objects.
 PORT_NAMES = {

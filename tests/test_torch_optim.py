@@ -37,6 +37,9 @@ from ddlpc_tpu.train.optim import build_schedule as jbuild_schedule
 from ddlpc_tpu_torch.config import TrainConfig
 from ddlpc_tpu_torch.convert import optax_core, optax_tree
 from ddlpc_tpu_torch.train.optim import build_optimizer, build_schedule
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 SHAPES = {"a": (3, 3, 4, 8), "b": (8,), "c": (1031,), "d": (7, 13)}
 TOTAL = 10

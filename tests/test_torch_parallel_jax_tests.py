@@ -26,6 +26,9 @@ from ddlpc_tpu.parallel import partition as jpartition
 from ddlpc_tpu_torch.parallel import partition as tpartition
 from ddlpc_tpu_torch.parallel import pipeline as tpipeline
 from ddlpc_tpu_torch.parallel import shard_update as tshard_update
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 PORT_NAMES = {
     "partition": tpartition,

@@ -31,6 +31,9 @@ from ddlpc_tpu_torch.models import build_model
 from ddlpc_tpu_torch.parallel import partition
 from ddlpc_tpu_torch.parallel.pipeline import build_stage_plan, param_tree, stage_param_bytes
 from ddlpc_tpu_torch.train.optim import build_optimizer
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 NAMES = ("vaihingen_unet_tpu_flagship.json", "cityscapes_unet_v5e64.json")

@@ -50,6 +50,9 @@ from ddlpc_tpu_torch.train.__main__ import parse_args
 from ddlpc_tpu_torch.train.observability import class_palette
 from ddlpc_tpu_torch.train.optim import Adam
 from ddlpc_tpu_torch.train.trainer import Trainer
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_MODELS = {

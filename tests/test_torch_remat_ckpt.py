@@ -39,6 +39,9 @@ from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_checkpoint import TINY, _leaves, _rebuild, assert_flat_equal, jax_state
 from test_torch_dist_worker import run_world
 from test_torch_train_step import _OFF, _tiny_cli_config
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REMAT_MODELS = {
     "unet": dict(TINY),

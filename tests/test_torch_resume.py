@@ -50,6 +50,9 @@ from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_dist_worker import run_world
 from test_torch_model import flax_like_variables
 from test_torch_train_step import LR, TINY, _batches, _close, _flat, _params_agree
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OFF = ["--set", "train.dump_images_per_epoch=0", "--set", "train.perf_accounting=False",

@@ -40,6 +40,9 @@ from ddlpc_tpu_torch.convert import _flatten, _kernel_to_torch, flax_param_path
 from ddlpc_tpu_torch.serve import engine as tengine
 from ddlpc_tpu_torch.serve import quantized as tquantized
 from ddlpc_tpu_torch.serve.server import ServingFrontend
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 TILE = 32
 NCLASS = 4

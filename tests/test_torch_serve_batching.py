@@ -18,6 +18,9 @@ import test_serve as jserve_tests
 from ddlpc_tpu.serve.metrics import ServeMetrics as JServeMetrics
 from ddlpc_tpu_torch.serve import batching, cbatch
 from ddlpc_tpu_torch.serve.metrics import ServeMetrics
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 PORT_NAMES = {
     "MicroBatcher": batching.MicroBatcher,

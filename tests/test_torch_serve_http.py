@@ -27,6 +27,9 @@ from ddlpc_tpu.serve import server as jserver
 from ddlpc_tpu_torch.config import ServeConfig
 from ddlpc_tpu_torch.serve import server as tserver
 from test_torch_serve import NCLASS, TILE, engines, write_run
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARGIN = 1e-4
@@ -229,16 +232,24 @@ def test_predict_cli_writes_the_png_class_maps_of_jax(run_dir, tmp_path):
     rng = np.random.default_rng(2)
     for name, hw in (("a.png", (50, 70)), ("b.png", (33, 40))):
         Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(src / name)
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    for mod, out, extra in (("ddlpc_tpu.predict", "jax", []),
-                            ("ddlpc_tpu_torch.predict", "port", ["--device", "cpu"])):
-        proc = subprocess.run(
-            [sys.executable, "-m", mod, "--workdir", run_dir, "--input", str(src),
-             "--output", str(tmp_path / out), *extra],
-            capture_output=True, text=True, timeout=600, env=env, cwd=REPO,
-        )
-        assert proc.returncode == 0, proc.stderr[-2000:]
-        assert "wrote 2 predictions" in proc.stdout
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    # Both CLIs at once.
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", mod, "--workdir", run_dir, "--input", str(src),
+         "--output", str(tmp_path / out), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO,
+    ) for mod, out, extra in (("ddlpc_tpu.predict", "jax", []),
+                              ("ddlpc_tpu_torch.predict", "port", ["--device", "cpu"]))]
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stderr[-2000:]
+            assert "wrote 2 predictions" in stdout
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     pal = class_palette(NCLASS)
     je = JEngine.from_workdir(run_dir, echo=False)
     for stem in ("a", "b"):

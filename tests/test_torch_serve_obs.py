@@ -31,6 +31,9 @@ from ddlpc_tpu_torch.obs import profiling as tprofiling
 from ddlpc_tpu_torch.obs import registry as tregistry
 from ddlpc_tpu_torch.obs import tracing as ttracing
 from ddlpc_tpu_torch.resilience import chaos as tchaos
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 SPECS = [
     "kill@3",

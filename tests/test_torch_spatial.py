@@ -46,6 +46,7 @@ The loaders' rows are JAX's shards byte for byte.
 """
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -75,9 +76,12 @@ from ddlpc_tpu_torch.train.__main__ import parse_args
 from ddlpc_tpu_torch.train.optim import build_optimizer
 from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_dist_worker import run_world
-from test_torch_grid_worker import run_grid
+from test_torch_grid_worker import run_grid, start_grid
 from test_torch_model import flax_like_variables
 from test_torch_train_step import _OFF, LR, TINY, _flat, _tiny_cli_config
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 A, B, STEPS, H = 2, 4, 2, 32  # micro-batches a step, global micro-batch, steps, rows
 CODEC = {"mode": "float16", "quantize_local": False}
@@ -132,19 +136,27 @@ def _tiny(tmp_path_factory):
         inputs = {f"sd/{k}": v.numpy() for k, v in sd.items()}
         inputs.update(images=images, labels=labels)
         runs = [{"level": lv} for lv in LEVELS]
-        for name, h in UNEVEN.items():
-            x, y = _batches(h)
+        uneven = {name: _batches(h) for name, h in UNEVEN.items()}
+        for name, (x, y) in uneven.items():
             inputs.update({f"{name}/sd/{k}": v.numpy() for k, v in sd.items()})
             inputs.update({f"{name}/images": x, f"{name}/labels": y})
             runs.append({"level": "off", "prefix": f"{name}/"})
-            grids = {(2, 2), UNEVEN_GRID[name]}
-            _RUNS[name] = {g: _jax_gspmd(params0, stats0, x, y, TINY, CODEC, grid=g)
-                           for g in grids}
         task = {"model": {k: list(v) if isinstance(v, tuple) else v for k, v in TINY.items()},
                 "lr": LR, "compression": CODEC, "runs": runs, "every_step": True}
-        outs = run_grid("spatial", (1, 2, 2), str(tmp_path_factory.mktemp("spatial")), task,
-                        inputs)
-        _RUNS["tiny"] = (_jax_gspmd(params0, stats0, images, labels, TINY, CODEC), outs, labels)
+        # The world runs while JAX's steps are computed.
+        world = start_grid("spatial", (1, 2, 2), str(tmp_path_factory.mktemp("spatial")), task,
+                           inputs)
+        # JAX's steps on threads of their own: JAX traces under the GIL,
+        # and compiles and runs outside it.
+        with ThreadPoolExecutor(4) as pool:
+            steps = {(name, g): pool.submit(_jax_gspmd, params0, stats0, x, y, TINY, CODEC,
+                                            grid=g)
+                     for name, (x, y) in uneven.items()
+                     for g in {(2, 2), UNEVEN_GRID[name]}}
+            want = _jax_gspmd(params0, stats0, images, labels, TINY, CODEC)
+            for (name, g), step in steps.items():
+                _RUNS.setdefault(name, {})[g] = step.result()
+        _RUNS["tiny"] = (want, world.result(), labels)
     return _RUNS["tiny"]
 
 

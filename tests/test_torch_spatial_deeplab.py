@@ -59,6 +59,7 @@ trainer bit for bit.
 
 import json
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -94,10 +95,13 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ddlpc_tpu_torch.train.__main__ import parse_args
 from ddlpc_tpu_torch.train.optim import build_optimizer
 from ddlpc_tpu_torch.train.trainer import Trainer
-from test_torch_grid_worker import run_grid
+from test_torch_grid_worker import run_grid, start_grid
 from test_torch_model import flax_like_variables
 from test_torch_spatial import _port_part
 from test_torch_train_step import LR, _flat, _tiny_cli_config
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 A, B, STEPS = 2, 4, 2  # micro-batches a step, global micro-batch, steps
 F64 = dict(compute_dtype="float64", head_dtype="float64")
@@ -214,11 +218,12 @@ def worlds(tmp_path_factory):
     its models: ``{space: (inputs, references by model, [rank outputs])}``,
     a rank's training keys ``<run>:<key>`` in ``WORLDS[space]``'s order; a
     model's references are JAX's GSPMD outputs and, under ``"port"``, the
-    port's unsharded params."""
-    out = {}
+    port's unsharded params.  Both worlds start first and run while the
+    references are computed."""
+    started = {}
     for space, names in WORLDS.items():
         cases, inputs = _halo_inputs(space, np.random.default_rng(space))
-        runs, want = [], {}
+        runs, models = [], {}
         for i, name in enumerate(names):
             kw, (h, w) = MODELS[name]
             images, labels = _batches(h, w, seed=7 + i)
@@ -228,12 +233,30 @@ def worlds(tmp_path_factory):
             inputs.update({f"{name}/sd/{k}": v.numpy() for k, v in sd.items()})
             inputs.update({f"{name}/images": images, f"{name}/labels": labels})
             runs.append({"level": "off", "model": _listed(kw), "prefix": f"{name}/"})
-            want[name] = _jax_gspmd(params0, stats0, images, labels, kw, space)
-            want[name]["port"] = _port_unsharded(sd, images, labels, kw)
-        outs = run_grid("spatial", (1, 1, space), str(tmp_path_factory.mktemp(f"dl{space}")),
-                        {"lr": LR, "compression": CODEC, "runs": runs, "cases": cases,
-                         "every_step": True}, inputs, deadline_s=300.0)
-        out[space] = (inputs, want, outs)
+            models[name] = (params0, stats0, sd, images, labels, kw)
+        world = start_grid("spatial", (1, 1, space), str(tmp_path_factory.mktemp(f"dl{space}")),
+                           {"lr": LR, "compression": CODEC, "runs": runs, "cases": cases,
+                            "every_step": True}, inputs, deadline_s=300.0)
+        started[space] = (inputs, models, world)
+    # JAX's steps on threads of their own (it traces under the GIL, and
+    # compiles and runs outside it; x64 mode is a thread's own setting),
+    # the port's unsharded steps meanwhile on this one.
+    with ThreadPoolExecutor(4) as pool:
+        jax_refs = {
+            (space, name): pool.submit(_jax_gspmd, params0, stats0, images, labels, kw, space)
+            for space, (_, models, _) in started.items()
+            for name, (params0, stats0, _, images, labels, kw) in models.items()
+        }
+        port_refs = {
+            (space, name): _port_unsharded(sd, images, labels, kw)
+            for space, (_, models, _) in started.items()
+            for name, (_, _, sd, images, labels, kw) in models.items()
+        }
+        out = {}
+        for space, (inputs, models, world) in started.items():
+            want = {name: dict(jax_refs[space, name].result(), port=port_refs[space, name])
+                    for name in models}
+            out[space] = (inputs, want, world.result())
     return out
 
 

@@ -66,6 +66,7 @@ trainer bit for bit.
 """
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -91,10 +92,13 @@ from ddlpc_tpu_torch.obs import flops as obs_flops
 from ddlpc_tpu_torch.parallel.halo import halo_exchange, row_layout
 from ddlpc_tpu_torch.train.__main__ import parse_args
 from ddlpc_tpu_torch.train.trainer import Trainer
-from test_torch_grid_worker import run_grid
+from test_torch_grid_worker import run_grid, start_grid
 from test_torch_model import flax_like_variables
 from test_torch_spatial import _jax_gspmd, _port_part
 from test_torch_train_step import LR, TINY, _tiny_cli_config
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 A, B, STEPS = 2, 2, 2  # micro-batches a step, micro-batch, steps
 F32 = dict(compute_dtype="float32", head_dtype="float32")
@@ -130,8 +134,9 @@ def _listed(kw: dict) -> dict:
 def zoo(tmp_path_factory):
     """Each model through JAX's GSPMD step and through the port's ranks,
     the port's three in one world: ``{name: (jax, [rank outputs])}``, a
-    rank's keys ``<run>:<key>`` in ``MODELS``' order."""
-    inputs, runs, want = {}, [], {}
+    rank's keys ``<run>:<key>`` in ``MODELS``' order.  The world starts
+    first and runs while JAX's steps are computed."""
+    inputs, runs, models = {}, [], {}
     for i, (name, (kw, h)) in enumerate(MODELS.items()):
         images, labels = _batches(h, seed=4 + i)
         variables = flax_like_variables(jbuild_model(JModelConfig(**kw)))
@@ -140,14 +145,21 @@ def zoo(tmp_path_factory):
         inputs.update({f"{name}/sd/{k}": v.numpy() for k, v in sd.items()})
         inputs.update({f"{name}/images": images, f"{name}/labels": labels})
         runs.append({"level": "off", "model": _listed(kw), "prefix": f"{name}/"})
-        if kw["compute_dtype"] == "float64":
-            with jax.enable_x64(True):  # flax carries the statistics in the compute dtype
-                f64 = jax.tree.map(lambda a: np.asarray(a, np.float64), stats0)
-                want[name] = _jax_gspmd(params0, f64, images, labels, kw, CODEC, grid=(1, 2))
-        else:
-            want[name] = _jax_gspmd(params0, stats0, images, labels, kw, CODEC, grid=(1, 2))
-    outs = run_grid("spatial", (1, 1, 2), str(tmp_path_factory.mktemp("zoo")),
-                    {"lr": LR, "compression": CODEC, "runs": runs}, inputs)
+        models[name] = (params0, stats0, images, labels, kw)
+    world = start_grid("spatial", (1, 1, 2), str(tmp_path_factory.mktemp("zoo")),
+                       {"lr": LR, "compression": CODEC, "runs": runs}, inputs)
+    def jax_ref(params0, stats0, images, labels, kw):
+        if kw["compute_dtype"] != "float64":
+            return _jax_gspmd(params0, stats0, images, labels, kw, CODEC, grid=(1, 2))
+        with jax.enable_x64(True):  # flax carries the statistics in the compute dtype
+            f64 = jax.tree.map(lambda a: np.asarray(a, np.float64), stats0)
+            return _jax_gspmd(params0, f64, images, labels, kw, CODEC, grid=(1, 2))
+
+    # One thread a model: JAX traces under the GIL, and compiles and runs
+    # outside it (x64 mode is a thread's own setting).
+    with ThreadPoolExecutor(len(models)) as pool:
+        want = dict(zip(models, pool.map(lambda args: jax_ref(*args), models.values())))
+    outs = world.result()
     return {name: (want[name], i, outs) for i, name in enumerate(MODELS)}
 
 

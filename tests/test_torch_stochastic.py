@@ -40,6 +40,9 @@ from ddlpc_tpu_torch.train.__main__ import main as cli_main
 from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_codec import _exact, _jax_sync, _tree
 from test_torch_train_step import LR, TINY, _OFF
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 MODES = ["int8", "float16"]
 _WIRES = {"int8": (jnp.int8, torch.int8), "float16": (jnp.float16, torch.float16)}

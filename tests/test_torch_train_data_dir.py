@@ -58,6 +58,9 @@ from ddlpc_tpu_torch.train.trainer import Trainer
 from test_torch_datasets_dir import write_scenes, write_tiles
 from test_torch_model import flax_like_variables
 from test_torch_train_step import LR, TINY, _close, _flat, _params_agree
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {"features": [8, 16], "bottleneck_features": 16, "stem": "s2d", "stem_factor": 2,

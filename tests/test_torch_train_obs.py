@@ -47,6 +47,9 @@ from ddlpc_tpu_torch.train.trainer import Trainer
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import check_metrics_schema as lint  # noqa: E402 — the JAX package's stream lint
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 BASE = {
     "model": {"features": [8], "bottleneck_features": 8, "num_classes": 3},

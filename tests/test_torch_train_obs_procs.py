@@ -29,6 +29,9 @@ import pytest
 
 from test_torch_dist_worker import run_world
 from test_torch_train_step import _tiny_cli_config
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXIT_PREEMPTED = 43

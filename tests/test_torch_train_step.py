@@ -48,6 +48,9 @@ from ddlpc_tpu_torch.parallel.train_step import create_train_state, make_train_s
 from ddlpc_tpu_torch.train.__main__ import main as cli_main
 from ddlpc_tpu_torch.train.optim import Adam, build_optimizer, sqrt_rn
 from test_torch_model import flax_like_variables
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 LR = 2e-3
 FLAGSHIP = os.path.join(

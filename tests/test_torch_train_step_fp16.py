@@ -6,6 +6,9 @@ that each file's JAX compile stays short)."""
 import numpy as np
 
 from test_torch_train_step import _close, _params_agree, _run_both
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 
 def test_two_steps_fp16_codec_match_jax_up_to_lattice_flips():

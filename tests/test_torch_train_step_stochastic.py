@@ -33,6 +33,9 @@ from ddlpc_tpu_torch.train.optim import build_optimizer
 from test_torch_model import flax_like_variables
 from test_torch_stochastic import _jax_stage_keys
 from test_torch_train_step import LR, TINY, _batches, _close, _flat, _params_agree
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 SEED = 5
 

@@ -59,6 +59,9 @@ from ddlpc_tpu_torch.train.optim import Adam, build_optimizer
 from ddlpc_tpu_torch.train.trainer import check_exclusive
 from ddlpc_tpu_torch.utils import wire as twire
 from test_torch_model import flax_like_variables
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 2e-3

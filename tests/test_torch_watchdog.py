@@ -18,6 +18,9 @@ import pytest
 from ddlpc_tpu.train.watchdog import StallWatchdog as JStallWatchdog
 from ddlpc_tpu_torch.resilience.protocol import EXIT_STALL, read_breadcrumb
 from ddlpc_tpu_torch.train.watchdog import StallWatchdog
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,6 +12,9 @@ import pytest
 
 from ddlpc_tpu.utils import wire as jwire
 from ddlpc_tpu_torch.utils import wire as twire
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 SIZES = (0, 1, 1 << 10, (1 << 20) + 17, 3 << 20)
 

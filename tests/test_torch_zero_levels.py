@@ -59,6 +59,9 @@ from ddlpc_tpu_torch.train.optim import build_optimizer
 from test_torch_model import flax_like_variables
 from test_torch_train_step import LR, TINY, _flat
 from test_torch_dist_worker import run_world
+from test_torch_threads import intra_op_threads
+
+one_intra_op_thread = intra_op_threads(1)  # autouse
 
 W, A, BL, STEPS = 2, 2, 2, 3
 JAX_STEPS = 2  # against JAX, the horizon of tests/test_torch_dist_train.py
