@@ -396,6 +396,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``comm_s_per_step`` within ``PROBE_SYNC_MARGIN`` of the phase's own
    sync a step and below the record's ``step_time_s``, and a
    ``comm_fraction`` in [0, 1].
+   Every rank of every data-parallel phase trains under the collective
+   census (``parallel/mesh.census``) and holds its run to the program
+   auditor's four contracts at full width (``analysis/program.check_step``):
+   the census' ``wire`` collectives against ``obs/comm.comm_plan`` byte for
+   byte and row for row a bucket (the traced twin's probe syncs
+   counted), the wire dtype no wider than declared, the state's bytes a
+   kind (the param storage and chunks, the synced gradient, the moments;
+   zero3's param buffer released as a step leaves it) against its
+   ``StateLayout``, and the codec's entry calls against the closed form a
+   sync a bucket and against ``LAUNCHES``; the trainer's own
+   ``ddlpc_comm_bytes_total{stage="wire"}`` rows must be the audit's.
+   Each rank prints its census on a line of its own.
 
 Before the main paths it also times the zero2 path's chunk-size kernels
 (decode, the max-abs pass, the fake-quantize against a given max-abs) at
@@ -421,8 +433,14 @@ over 2**23 values spanning 1e-12..1e2.
    with the detector on (``analysis/lock_fixtures.run_smoke``): the
    loader ring's arm on pinned slots with live CUDA events, the
    checkpointer's saving a state on the card; no lock-order cycle, no
-   guarded-by violation, every arm run.  Its row is printed on a line of
-   its own before the card's line.
+   guarded-by violation, every arm run.  Beside the checker, the program
+   auditor: ``python -m ddlpc_tpu_torch.analysis.check --programs``
+   (JAX's 15 data-parallel arms, one step each in a world of 8 gloo ranks
+   on ``cuda:0``, its ``kind="program"`` stream into ``WORKDIR``) must exit
+   0 with no violation, its codec calls equal to the kernels' launches;
+   then ``--programs --inject extra-collective`` must exit 1 naming
+   ``int8_simulate`` and ``comm-closed-form``.  Its row is printed on a
+   line of its own before the card's line.
 
 With ``--profile``, after each single-process main path (once its launch
 counts are read) it runs one more optimizer step of that path under
@@ -452,6 +470,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -2166,6 +2185,25 @@ def png_checks(label: str, trainer, epochs: int = EPOCHS) -> None:
 
 
 ANALYSIS_DEADLINE_S = 300
+PROGRAMS_DEADLINE_S = 420  # each of the program auditor's two runs
+
+
+def _programs_runs(out: str, into: dict) -> None:
+    """The program auditor's two runs, one after the other: every arm
+    (``--out``), then the extra-collective injection.  Each runs in a
+    session of its own, killed whole (its ranks too) at the deadline."""
+    base = [sys.executable, "-m", "ddlpc_tpu_torch.analysis.check", "--programs"]
+    for name, argv in (("arms", ["--out", out]), ("inject", ["--inject", "extra-collective"])):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(base + argv, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=PROGRAMS_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            text, _ = proc.communicate()
+            text += f"\n(killed at {PROGRAMS_DEADLINE_S} s)"
+        into[name] = {"rc": proc.returncode, "text": text, "s": time.perf_counter() - t0}
 
 
 def start_analysis() -> tuple:
@@ -2180,7 +2218,13 @@ def start_analysis() -> tuple:
     proc = subprocess.Popen(
         [sys.executable, "-m", "ddlpc_tpu_torch.analysis.check", "--sanitize", "--out", out],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out
+    programs_out = os.path.join(WORKDIR, "programs.jsonl")
+    if os.path.exists(programs_out):
+        os.remove(programs_out)
+    programs: dict = {}
+    thread = threading.Thread(target=_programs_runs, args=(programs_out, programs), daemon=True)
+    thread.start()
+    return proc, out, thread, programs, programs_out
 
 
 def analysis_phase(started: tuple) -> dict:
@@ -2192,7 +2236,7 @@ def analysis_phase(started: tuple) -> dict:
     from ddlpc_tpu_torch.analysis import lockcheck
     from ddlpc_tpu_torch.analysis.lock_fixtures import run_smoke
 
-    proc, out = started
+    proc, out, thread, programs, programs_out = started
     try:
         text, _ = proc.communicate(timeout=ANALYSIS_DEADLINE_S)
     except subprocess.TimeoutExpired:
@@ -2222,7 +2266,42 @@ def analysis_phase(started: tuple) -> dict:
            "violations": 0, "suppressed": 0, "lock_smoke": smoke,
            "sanitizers": [line for line in text.splitlines()
                           if line.startswith(("asan:", "ubsan:", "tsan"))]}
+    row["programs"] = programs_checks(thread, programs, programs_out)
     return row
+
+
+def programs_checks(thread, programs: dict, out: str) -> dict:
+    """The program auditor's runs: every arm clean on the card (exit 0, 15
+    audits, no violation, each arm's codec calls equal to its launches,
+    which ``check_step`` holds), and the injection caught (exit 1, naming
+    ``int8_simulate`` and ``comm-closed-form``)."""
+    from ddlpc_tpu_torch.analysis import program
+
+    thread.join(2 * PROGRAMS_DEADLINE_S)
+    if thread.is_alive() or set(programs) != {"arms", "inject"}:
+        fail(f"[analysis] the program auditor's runs did not end: {sorted(programs)}")
+    arms, inject = programs["arms"], programs["inject"]
+    log("[analysis] program auditor: " + " | ".join(arms["text"].strip().splitlines()[-20:]))
+    log("[analysis] program auditor --inject extra-collective: "
+        + " | ".join(inject["text"].strip().splitlines()[-6:]))
+    if arms["rc"] != 0:
+        fail(f"[analysis] the program auditor exited {arms['rc']}")
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    summary, audits = recs[-1], [r for r in recs if r.get("record") == "audit"]
+    if (summary.get("record") != "summary" or summary["violations"] or summary["world"] != 8
+            or summary["device"] != "cuda:0" or [a["arm"] for a in audits] != list(program.ARMS)):
+        fail(f"[analysis] the program auditor's stream: {summary}, "
+             f"arms {[a['arm'] for a in audits]}")
+    caught = "VIOLATION int8_simulate/step+extra-collective: [comm-closed-form]"
+    if inject["rc"] != 1 or caught not in inject["text"]:
+        fail(f"[analysis] --inject extra-collective exited {inject['rc']} without {caught!r}")
+    return {"arms": len(audits), "violations": 0, "world": summary["world"],
+            "device": summary["device"], "audit_s": summary["seconds"],
+            "process_s": round(arms["s"], 3), "inject_rc": inject["rc"],
+            "inject_process_s": round(inject["s"], 3),
+            "wire_bytes": {a["arm"]: a["wire_bytes"] for a in audits},
+            "codec_calls": {a["arm"]: a["codec_calls"] for a in audits}}
 
 
 def sqrt_phase() -> dict:
@@ -2887,6 +2966,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
     parent."""
     import torch.distributed as dist
 
+    from ddlpc_tpu_torch.analysis import program
     from ddlpc_tpu_torch.obs import hbm
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.ops.philox import step_key
@@ -2916,10 +2996,24 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     cq.reset_launch_counts()
     t0 = time.perf_counter()
-    last = trainer.fit()
-    torch.cuda.synchronize()
+    with mesh.census() as census:
+        last = trainer.fit()
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = dict(cq.LAUNCHES)
+    # The program auditor's contracts over the run: the zero3 param buffer
+    # released as a step leaves it (the epoch's eval gathered it).
+    trainer.state.release_params()
+    traced = "train.trace=True" in extra
+    audit = program.check_step(f"{label}/rank{rank}", census, trainer.state, cfg.compression, world,
+                               syncs=DP_EPOCHS + (PROBE_SYNCS if traced else 0), steps=DP_EPOCHS,
+                               launches=launches)
+    audit = {"violations": [v.format() for v in audit["violations"]],
+             "exceptions": audit["exceptions"], "gauge_wire": audit["gauge_wire"],
+             "placement": audit["placement"], "codec_calls": audit["codec_calls"],
+             "declared_wire": audit["declared_wire"], "census": program.census_strings(census.rows)}
+    log(f"[{label}] rank {rank} census: " + json.dumps(audit["census"]))
+    del census
     peak = torch.cuda.max_memory_allocated()
     free, total = torch.cuda.mem_get_info()
     placement = trainer.state.placement
@@ -3054,6 +3148,7 @@ def _dp_rank_run(label: str, workdir: str, backend: str, device: str) -> None:
         "last": last, "n_params": n, "padded": flat.data.numel(), "shard": flat.shard,
         "n_buckets": len(flat.regions), **cost,
         "ring_batches": ring_batches, "comm_wire": comm_wire, "state_layout": state_layout,
+        "audit": audit,
     }
     del buf
     if label == "dp4_zero2_fp16":
@@ -3204,6 +3299,7 @@ def dp_phase(label: str) -> dict:
     if len(set(ranks[0]["params_hashes"])) != 1:
         fail(f"[{label}] the replicas' params differ: {ranks[0]['params_hashes']}")
     layout = state_layout_checks(label, ranks, level)
+    audit = audit_checks(label, ranks)
     restored = [rr.get("zero2_restore") for rr in ranks]
     if label == "dp4_zero2_fp16":
         for rr, z in zip(ranks, restored):
@@ -3249,7 +3345,31 @@ def dp_phase(label: str) -> dict:
                                               "step_time_s")}
                        for r in lines if r.get("kind") == "comm"],
         "debit_probe_s": [r.get("debit_probe_s") for r in perf],
+        "audit": audit,
     }
+
+
+def audit_checks(label: str, ranks: list) -> dict:
+    """Every rank's run held to the program auditor's contracts (no
+    violation) and the trainer's ``ddlpc_comm_bytes_total{stage="wire"}``
+    rows equal to the audit's, which the census backs."""
+    for rr in ranks:
+        a = rr["audit"]
+        if a["violations"]:
+            fail(f"[{label}] rank {rr['rank']}: the program auditor's contracts: "
+                 + " | ".join(a["violations"]))
+        if {k: int(v) for k, v in rr["comm_wire"].items()} != a["gauge_wire"]:
+            fail(f"[{label}] rank {rr['rank']}: the trainer's wire counter {rr['comm_wire']} != "
+                 f"the audited {a['gauge_wire']}")
+    a = ranks[0]["audit"]
+    log(f"[{label}] program audit on every rank: comm-closed-form, dtype-flow ({a['declared_wire']}"
+        f"{'; ' + '; '.join(a['exceptions']) if a['exceptions'] else ''}), placement "
+        + json.dumps({k: v["measured"] for k, v in a["placement"].items()})
+        + f", codec-calls {json.dumps(a['codec_calls'])} == LAUNCHES; the trainer's wire counter "
+        f"== the census' {json.dumps(a['gauge_wire'])} ({smi_line()})")
+    return {"gauge_wire": a["gauge_wire"], "codec_calls": a["codec_calls"],
+            "placement": {k: v["measured"] for k, v in a["placement"].items()},
+            "exceptions": a["exceptions"]}
 
 
 def allocator_block(t: torch.Tensor) -> dict:

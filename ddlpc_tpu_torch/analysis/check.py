@@ -28,7 +28,21 @@ Usage:
 Violations print as ``path:line: [rule] message``; suppressed ones are
 counted in the summary.  The ``--out`` stream is flat ``kind="analysis"``
 records, stamped by the port's ``obs/schema.py`` and written atomically.
-``--programs`` (the compiled-program audit) is not ported yet.
+``--programs`` is the program auditor (``analysis/program.py``, part (a):
+JAX's 15 data-parallel arms, one real step each in a world of 8 gloo
+ranks, held to ``comm-closed-form``, ``dtype-flow``, ``placement`` and
+``codec-calls``)::
+
+    python -m ddlpc_tpu_torch.analysis.check --programs --device cpu
+    python -m ddlpc_tpu_torch.analysis.check --programs            # ranks on cuda:0
+    python -m ddlpc_tpu_torch.analysis.check --programs --arms int8_zero2,int8_ring
+    python -m ddlpc_tpu_torch.analysis.check --programs --inject fp32-widen   # must exit 1
+    python -m ddlpc_tpu_torch.analysis.check --programs --out runs/programs.jsonl
+
+Its violations print as ``program_audit: VIOLATION <program>: [<contract>]
+<message>``; ``--out`` writes flat ``kind="program"`` records ending with
+a ``record="summary"`` one.  ``--inject drop-fence`` has no eager
+counterpart and exits 2.
 
 Exit status: 0 clean, 1 unsuppressed violations, 2 usage/internal error.
 """
@@ -167,13 +181,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="also build and run kernels/host/batch.cc's self-test under "
                     "ASan, UBSan and (where it works) TSan")
     ap.add_argument("--programs", action="store_true",
-                    help="the compiled-program audit (not ported: ROADMAP A8.3)")
+                    help="the program auditor: one step of each data-parallel arm under the "
+                    "collective census, held to its closed forms")
+    ap.add_argument("--device", default="cuda",
+                    help="--programs: the ranks' device, a card (default; every rank on "
+                    "cuda:0) or cpu")
+    ap.add_argument("--arms", default=None,
+                    help="--programs: comma-separated arms (default: all)")
+    ap.add_argument("--inject", default=None,
+                    help="--programs: run one injected fault instead (extra-collective, "
+                    "fp32-widen, replicated-leaf); must exit 1")
     args = ap.parse_args(argv)
 
     if args.programs:
-        print("ddlpc_check: --programs is not ported yet: the port's program auditor "
-              "(a step's collectives and launches pinned per config) is ROADMAP A8.3",
-              file=sys.stderr)
+        return programs_main(args)
+    if args.device != "cuda" or args.arms or args.inject:
+        print("ddlpc_check: --device, --arms and --inject go with --programs", file=sys.stderr)
         return 2
     if args.list_rules:
         for r in make_rules():
@@ -226,6 +249,69 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"ddlpc_check: {result.files_scanned} files, {len(unsuppressed)} violation(s), "
           f"{len(suppressed)} suppressed (with reasons), {duration:.1f}s", file=sys.stderr)
     return 1 if unsuppressed else 0
+
+
+def programs_main(args) -> int:
+    """``--programs``: the program auditor over the arms (or one
+    injection), its violations printed, its ``kind="program"`` stream
+    written; 0 clean, 1 violations, 2 usage."""
+    # torch-tier, reached here only: this module stays stdlib.
+    from ddlpc_tpu_torch.analysis import program
+
+    if args.inject in program.NO_EAGER_INJECTIONS:
+        print(f"program_audit: --inject {args.inject} has no eager counterpart: the port runs no "
+              "compiled program whose fences could be dropped (analysis/program.py)",
+              file=sys.stderr)
+        return 2
+    if args.inject is not None and args.inject not in program.INJECTIONS:
+        print(f"program_audit: unknown injection {args.inject!r} (one of "
+              f"{', '.join(program.INJECTIONS + program.NO_EAGER_INJECTIONS)})", file=sys.stderr)
+        return 2
+    if args.inject is not None:
+        arms = []
+    elif args.arms:
+        arms = [a.strip() for a in args.arms.split(",") if a.strip()]
+    else:
+        arms = list(program.ARMS)
+    unknown = [a for a in arms if a not in program.ARMS]
+    if unknown or (args.arms is not None and not arms):
+        print(f"program_audit: unknown arm(s): {', '.join(unknown) or repr(args.arms)} "
+              f"(one of {', '.join(program.ARMS)})", file=sys.stderr)
+        return 2
+    try:
+        program.resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"program_audit: {e}", file=sys.stderr)
+        return 2
+    result = program.audit(arms, args.device, [args.inject] if args.inject else [])
+    violations = [v for a in result["audits"] for v in a["violations"]]
+    for a in result["audits"]:
+        for e in a["exceptions"]:
+            print(f"program_audit: {a['program']}: named exception {e}")
+    for v in violations:
+        print(f"program_audit: {v.format()}")
+    if args.out:
+        recs = [stamp(program.to_record(a), kind="program") for a in result["audits"]]
+        recs += [stamp({"record": "violation", "program": v.program, "contract": v.contract,
+                        "message": v.message}, kind="program") for v in violations]
+        recs.append(stamp({"record": "summary", "programs": len(result["audits"]),
+                           "violations": len(violations), "device": result["device"],
+                           "world": result["world"], "seconds": round(result["seconds"], 3)},
+                          kind="program"))
+        for rec in recs:
+            errs = check_record(rec)
+            if errs:
+                print(f"program_audit: malformed record: {errs}", file=sys.stderr)
+                return 2
+        atomic_write_text(args.out, "".join(json.dumps(r) + "\n" for r in recs))
+    what = f"--inject {args.inject}" if args.inject else f"{len(result['audits'])} arm(s)"
+    print(f"program_audit: {what} on {result['device']} in a world of {result['world']}: "
+          f"{len(violations)} violation(s), {result['seconds']:.1f}s", file=sys.stderr)
+    if args.inject is not None and not violations:
+        print(f"program_audit: INJECTION NOT CAUGHT: {args.inject} produced no violation",
+              file=sys.stderr)
+        return 2
+    return 1 if violations else 0
 
 
 if __name__ == "__main__":

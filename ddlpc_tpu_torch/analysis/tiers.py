@@ -63,6 +63,8 @@ MODULE_TIERS: Dict[str, str] = {
     "ddlpc_tpu_torch.analysis.core": STDLIB,
     "ddlpc_tpu_torch.analysis.lock_fixtures": HOST,
     "ddlpc_tpu_torch.analysis.lockcheck": STDLIB,
+    # the program auditor runs the train step under the collective census.
+    "ddlpc_tpu_torch.analysis.program": TORCH,
     "ddlpc_tpu_torch.analysis.rules": STDLIB,
     "ddlpc_tpu_torch.analysis.tiers": STDLIB,
     "ddlpc_tpu_torch.data": STDLIB,

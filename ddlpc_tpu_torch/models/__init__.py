@@ -47,19 +47,36 @@ def _heads(cfg: ModelConfig) -> dict:
     )
 
 
-_REGISTRY = {
-    "unet": lambda cfg, *common: UNet(
-        bottleneck_features=cfg.bottleneck_features, **_heads(cfg), **_common(cfg, *common)
-    ),
-    "unetpp": lambda cfg, *common: UNetPP(
-        deep_supervision=cfg.deep_supervision, detail_head_scope=cfg.detail_head_scope,
-        **_heads(cfg), **_common(cfg, *common)
-    ),
-    "deeplabv3p": lambda cfg, *common: DeepLabV3Plus(
-        output_stride=cfg.output_stride, aspp_rates=tuple(cfg.aspp_rates),
-        **_common(cfg, *common)
-    ),
-}
+_REGISTRY: dict = {}
+
+
+def register(name: str):
+    """A decorator that registers a builder ``fn(cfg, in_channels, seed)``
+    under ``name`` for :func:`build_model`, as the reference's
+    ``register`` does; returns the builder unchanged."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+@register("unet")
+def _build_unet(cfg: ModelConfig, *common) -> nn.Module:
+    return UNet(bottleneck_features=cfg.bottleneck_features, **_heads(cfg), **_common(cfg, *common))
+
+
+@register("unetpp")
+def _build_unetpp(cfg: ModelConfig, *common) -> nn.Module:
+    return UNetPP(deep_supervision=cfg.deep_supervision, detail_head_scope=cfg.detail_head_scope,
+                  **_heads(cfg), **_common(cfg, *common))
+
+
+@register("deeplabv3p")
+def _build_deeplabv3p(cfg: ModelConfig, *common) -> nn.Module:
+    return DeepLabV3Plus(output_stride=cfg.output_stride, aspp_rates=tuple(cfg.aspp_rates),
+                         **_common(cfg, *common))
 
 
 def validate(cfg: ModelConfig) -> None:

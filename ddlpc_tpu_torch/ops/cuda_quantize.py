@@ -22,7 +22,9 @@ pointer.  The fused all-reduce takes its shared scale from the same pass.
 
 Every wrapper counts its kernel launches in ``LAUNCHES`` (a count is added
 only where a kernel is launched), so a run can show that its main path
-went through the kernels.
+went through the kernels.  While a census is on (``parallel/mesh.census``),
+``CALLS`` counts the entry calls by the same names, on either device: the
+launches each call makes on a card, which on the CPU count nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ _ABSMAX_SCRATCH_WORDS = 1025
 _ABSMAX_SCRATCH: dict = {}
 
 _WIRE_SUFFIX = {torch.int8: "i8", torch.int16: "i16", torch.float16: "f16"}
+# The census' count of entry calls (``mesh.census`` sets it; None is off).
+CALLS: Optional[dict] = None
 
 
 def reset_launch_counts() -> None:
@@ -122,6 +126,14 @@ def _absmax_scratch(x: torch.Tensor, stream: int) -> torch.Tensor:
     return _ABSMAX_SCRATCH[key]
 
 
+def _tally(*counters: str) -> None:
+    """Count the launches an entry call makes on a card, where a census is
+    on; one flag test where it is off."""
+    if CALLS is not None:
+        for c in counters:
+            CALLS[c] += 1
+
+
 def _launch(name: str, counter: str, *args) -> None:
     from ddlpc_tpu_torch.kernels.build import load_library
 
@@ -137,8 +149,13 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     JAX package this is ``global_absmax`` (``ddlpc_tpu/ops/quantize.py:119``),
     an XLA reduction outside the Pallas calls."""
     _check_flat("x", x, torch.float32)
+    _tally("absmax")
     if not _kernel_device(x):
         return plain.global_absmax([x] if x.numel() else []).reshape(1)
+    return _absmax_launch(x)
+
+
+def _absmax_launch(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(1, dtype=torch.float32, device=x.device)
     stream = _stream(x)
     scratch = _absmax_scratch(x, stream)
@@ -169,6 +186,8 @@ def encode_to_wire(
     _check_flat("x", x, torch.float32)
     _check_scalar("safe_scale", safe_scale, x)
     _check_draw(x, key, offset, noise)
+    _tally("encode_sr" if key is not None
+           else "encode_to_wire" if noise is None else "encode_noise")
     if not _kernel_device(x):
         return plain.encode_with_scale(
             x, safe_scale, levels, wire, key=key, offset=offset, noise=noise
@@ -208,6 +227,7 @@ def decode_from_wire(
     _check_flat("out", out, torch.float32)
     if out.shape != q.shape or out.device != q.device:
         raise ValueError(f"out must have shape {tuple(q.shape)} on {q.device}")
+    _tally("decode_from_wire")
     if not _kernel_device(q):
         return plain.decode_with_inv(q, inv, out=out)
     _launch(f"ddlpc_decode_{_WIRE_SUFFIX[q.dtype]}", "decode_from_wire",
@@ -266,6 +286,9 @@ def fake_quantize_fused(
     _check_flat("out", out, torch.float32)
     if out.shape != x.shape or out.device != x.device:
         raise ValueError(f"out must have shape {tuple(x.shape)} on {x.device}")
+    kernel = ("fake_quantize_sr" if key is not None
+              else "fake_quantize_fused" if noise is None else "fake_quantize_noise")
+    _tally(kernel, *(("absmax",) if amax is None else ()))
     if not _kernel_device(x):
         return out.copy_(
             fake_quantize_plain(x, cfg, key=key, offset=offset, noise=noise, amax=amax)
@@ -277,15 +300,15 @@ def fake_quantize_fused(
     # The max-abs pass reads x whole before the kernel, the next launch on
     # the stream, writes out: so out may be x.
     if amax is None:
-        amax = absmax(x)
+        amax = _absmax_launch(x)
     common = (x.numel(), amax.data_ptr(), levels, int(cfg.mode == "float16"))
     if key is not None:
-        _launch("ddlpc_fake_quantize_sr", "fake_quantize_sr", x.data_ptr(),
+        _launch("ddlpc_fake_quantize_sr", kernel, x.data_ptr(),
                 out.data_ptr(), *common, *key, offset, _stream(x))
     elif noise is None:
-        _launch("ddlpc_fake_quantize", "fake_quantize_fused", x.data_ptr(),
+        _launch("ddlpc_fake_quantize", kernel, x.data_ptr(),
                 out.data_ptr(), *common, _stream(x))
     else:
-        _launch("ddlpc_fake_quantize_noise", "fake_quantize_noise", x.data_ptr(),
+        _launch("ddlpc_fake_quantize_noise", kernel, x.data_ptr(),
                 noise.data_ptr(), out.data_ptr(), *common, _stream(x))
     return out

@@ -51,15 +51,32 @@ def softmax_cross_entropy_sum(
     logits: torch.Tensor,
     labels: torch.Tensor,
     ignore_index: Optional[int] = None,
+    label_smoothing: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(summed NLL, valid-pixel count) — the eval path's globally
-    pixel-weighted loss: sum both over batches, divide once."""
+    pixel-weighted loss: sum both over batches, divide once.  With
+    ``label_smoothing`` ε the NLL is ``(1 − ε)·nll + ε·(lse − mean(l))``,
+    as the reference's ``_per_pixel_nll``; at 0 it is the plain NLL."""
     lf = logits.float()
-    nll = torch.logsumexp(lf, dim=-1) - lf.gather(
-        -1, _clipped(labels, logits.shape[-1])
-    ).squeeze(-1)
+    lse = torch.logsumexp(lf, dim=-1)
+    nll = lse - lf.gather(-1, _clipped(labels, logits.shape[-1])).squeeze(-1)
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * (lse - lf.mean(dim=-1))
     if ignore_index is None:
         valid = torch.ones_like(nll)
     else:
         valid = (labels != ignore_index).float()
     return (nll * valid).sum(), valid.sum()
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: Optional[int] = None,
+    label_smoothing: float = 0.0,
+) -> torch.Tensor:
+    """Mean pixel cross-entropy over the valid pixels (torch's
+    ``CrossEntropyLoss`` mean), the reference's ``softmax_cross_entropy``:
+    :func:`softmax_cross_entropy_sum` over its count, at least 1."""
+    nll_sum, count = softmax_cross_entropy_sum(logits, labels, ignore_index, label_smoothing)
+    return nll_sum / torch.clamp_min(count, 1.0)

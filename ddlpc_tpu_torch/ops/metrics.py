@@ -2,7 +2,27 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def pixel_accuracy(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: Optional[int] = None
+) -> torch.Tensor:
+    """Share of pixels whose label's logit is the row max, an exact tie
+    counting 1/#tied (the chance a uniform tie-break picks the label), over
+    the pixels whose label is not ``ignore_index`` (all without one)."""
+    lf = logits.float()
+    idx = labels.clamp(0, logits.shape[-1] - 1).long().unsqueeze(-1)
+    picked = lf.gather(-1, idx).squeeze(-1)
+    row_max = lf.amax(dim=-1)
+    ties = (lf == row_max.unsqueeze(-1)).sum(dim=-1).float()
+    correct = (picked >= row_max).float() / torch.clamp_min(ties, 1.0)
+    if ignore_index is None:
+        return correct.mean()
+    valid = (labels != ignore_index).float()
+    return (correct * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
 
 
 def confusion_matrix(

@@ -116,7 +116,7 @@ def ring_allreduce_mean_(
     x = flat[: axis_size * chunk]
     rank = mesh.replica_index()
 
-    scale = mesh.all_reduce_(cuda_quantize.absmax(x), "max")
+    scale = mesh.all_reduce_(cuda_quantize.absmax(x), "max", role="wire")
     if "noise" in local:
         local = {"noise": local["noise"][: x.numel()]}
     q = cuda_quantize.encode_to_wire(x, safe_divisor(scale), cfg, wdt, **local).view(axis_size, chunk)
@@ -126,7 +126,8 @@ def ring_allreduce_mean_(
     # rank r holds the whole sum of chunk (r + 2) mod N.
     partial = q[(rank + 1) % axis_size].float()
     for k in range(1, axis_size):
-        partial = mesh.ring_shift(partial.to(wdt)).float() + q[(rank + 1 - k) % axis_size].float()
+        hop = mesh.ring_shift(partial.to(wdt), role="wire")
+        partial = hop.float() + q[(rank + 1 - k) % axis_size].float()
     own = (rank + 2) % axis_size
 
     # The server's loss point: the sum's mean, in lattice units, snapped
@@ -144,7 +145,7 @@ def ring_allreduce_mean_(
     out[own] = mean_q
     travelling = mean_q
     for k in range(1, axis_size):
-        travelling = mesh.ring_shift(travelling)
+        travelling = mesh.ring_shift(travelling, role="wire")
         out[(rank - k + 2) % axis_size] = travelling
     cuda_quantize.decode_from_wire(out.view(-1), times_reciprocal(scale, levels), out=x)
     return flat

@@ -41,7 +41,8 @@ ring of ``compressed_allreduce.py``, which puts the int8/int16 chunks
 themselves on the wire.
 
 The reduces over replicas run over the process group
-(``parallel/mesh.py``); with one replica they are the identity.
+(``parallel/mesh.py``), each issued as the census' ``wire``; with one
+replica they are the identity.
 """
 
 from __future__ import annotations
@@ -111,7 +112,7 @@ def _allreduce_sum(t: torch.Tensor, axis_size: int) -> torch.Tensor:
     if axis_size == 1:
         return t
     mesh.check_world(axis_size)
-    return mesh.all_reduce_(t, "sum")
+    return mesh.all_reduce_(t, "sum", role="wire")
 
 
 def _allreduce_max(t: torch.Tensor, axis_size: int) -> torch.Tensor:
@@ -119,7 +120,7 @@ def _allreduce_max(t: torch.Tensor, axis_size: int) -> torch.Tensor:
     if axis_size == 1:
         return t
     mesh.check_world(axis_size)
-    return mesh.all_reduce_(t, "max")
+    return mesh.all_reduce_(t, "max", role="wire")
 
 
 def _reduce_scatter_sum(t: torch.Tensor, axis_size: int) -> torch.Tensor:
@@ -127,7 +128,7 @@ def _reduce_scatter_sum(t: torch.Tensor, axis_size: int) -> torch.Tensor:
     if axis_size == 1:
         return t.clone()
     mesh.check_world(axis_size)
-    return mesh.reduce_scatter(t)
+    return mesh.reduce_scatter(t, role="wire")
 
 
 def _replica_index(axis_size: int) -> int:

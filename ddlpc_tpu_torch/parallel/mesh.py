@@ -24,15 +24,27 @@ scalar type"), so an int16 operand is widened to int32 for a collective
 that sums and narrowed back: exact, because every sum the codec puts on
 that wire is bounded by ``world · levels ≤ 32767``.  That moves twice the
 bytes of the JAX package's s16 ``psum``.
+
+The census (:func:`census`): while it is on, every collective issued here
+records one row (:func:`_record`): the op, the axis, the dtype that goes to
+``torch.distributed`` (after the int16 widening), the elements and bytes,
+and the caller's ``role``, ``wire`` where the gradient sync or a ZeRO
+level's params all-gather issues it (the call sites pass it), ``aux`` for
+everything else (sync-BN, the batch statistics' mean, the metrics, the
+trainer's header).  It also counts the codec's entry calls
+(``ops/cuda_quantize.py``).  Off, each collective tests one flag and
+records nothing.  ``analysis/program.py`` holds a step's census to its
+closed forms.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -278,22 +290,95 @@ def _widened(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32) if t.dtype == torch.int16 else t
 
 
+ROLES = ("wire", "aux")
+# HLO's names for the dtypes a collective may carry (JAX's census names).
+DTYPE_NAMES = {
+    torch.int8: "s8", torch.uint8: "u8", torch.int16: "s16", torch.int32: "s32",
+    torch.int64: "s64", torch.float16: "f16", torch.bfloat16: "bf16",
+    torch.float32: "f32", torch.float64: "f64", torch.bool: "pred",
+}
+
+
+@dataclass
+class Census:
+    """What a stretch of a run issued: ``rows``, one a collective, and
+    ``codec``, the codec's entry calls by ``cuda_quantize.LAUNCHES`` name
+    (on a CPU tensor the calls that would launch)."""
+
+    rows: List[Dict[str, object]] = field(default_factory=list)
+    codec: Dict[str, int] = field(default_factory=dict)
+    # The optimizer-boundary gradient of the last sync (note_grads).
+    grads: List[torch.Tensor] = field(default_factory=list)
+
+
+_CENSUS: Optional[Census] = None
+
+
+@contextlib.contextmanager
+def census() -> Iterator[Census]:
+    """Take a census of the collectives and codec calls issued inside the
+    block (not nested); yields it, and turns it off again on the way out."""
+    global _CENSUS
+    from ddlpc_tpu_torch.ops import cuda_quantize
+
+    if _CENSUS is not None:
+        raise RuntimeError("a census is already on")
+    _CENSUS = Census(codec={k: 0 for k in cuda_quantize.LAUNCHES})
+    cuda_quantize.CALLS = _CENSUS.codec
+    try:
+        yield _CENSUS
+    finally:
+        _CENSUS = None
+        cuda_quantize.CALLS = None
+
+
+def census_on() -> bool:
+    return _CENSUS is not None
+
+
+def note_grads(grads: Sequence[torch.Tensor]) -> None:
+    """Keep the gradient a sync left for the update (the whole mean, or
+    this replica's chunks of it) in the census, where one is on."""
+    if _CENSUS is not None:
+        _CENSUS.grads = list(grads)
+
+
+def _record(op: str, t: torch.Tensor, axis: Optional[str], role: str,
+            reduce: Optional[str] = None, widened_from: Optional[torch.dtype] = None,
+            elements: Optional[int] = None) -> None:
+    """One census row: ``t`` is the tensor handed to ``torch.distributed``
+    (the full operand of a reduction, the full output of an all-gather),
+    ``elements`` overrides its count (the sum of an exchange's sends)."""
+    if role not in ROLES:
+        raise ValueError(f"unknown collective role {role!r} (expected one of {ROLES})")
+    n = t.numel() if elements is None else elements
+    row = {"op": op, "axis": axis or "world", "dtype": DTYPE_NAMES[t.dtype], "elements": n,
+           "bytes": n * t.element_size(), "role": role, "reduce": reduce}
+    if widened_from is not None:
+        row["widened_from"] = DTYPE_NAMES[widened_from]
+    _CENSUS.rows.append(row)
+
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum", axis: str = "data") -> torch.Tensor:
+def all_reduce_(t: torch.Tensor, op: str = "sum", axis: str = "data",
+                role: str = "aux") -> torch.Tensor:
     """Reduce ``t`` over this rank's ``axis`` group IN PLACE (``op``
-    ``sum`` or ``max``); returns ``t``.  The identity on a group of one."""
+    ``sum`` or ``max``); returns ``t``.  The identity on a group of one.
+    ``role`` is the census' (``wire`` or ``aux``)."""
     if axis_size(axis) == 1:
         return t
     wide = _widened(t)
+    if _CENSUS is not None:
+        _record("all_reduce", wide, axis, role, op, t.dtype if wide is not t else None)
     dist.all_reduce(wide, op=_OPS[op], group=process_group(axis))
     if wide is not t:
         t.copy_(wide)
     return t
 
 
-def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
+def reduce_scatter(t: torch.Tensor, role: str = "aux") -> torch.Tensor:
     """Sum ``t`` (``N · K`` elements, ``N`` the data axis) over the data
     axis and return this rank's ``K``-element chunk of the sum, a new
     tensor."""
@@ -303,12 +388,14 @@ def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
     if world == 1:
         return t.clone()
     wide = _widened(t)
+    if _CENSUS is not None:
+        _record("reduce_scatter", wide, "data", role, "sum", t.dtype if wide is not t else None)
     out = torch.empty(t.numel() // world, dtype=wide.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, wide, group=process_group("data"))
     return out.to(t.dtype)
 
 
-def all_gather_(buf: torch.Tensor) -> torch.Tensor:
+def all_gather_(buf: torch.Tensor, role: str = "aux") -> torch.Tensor:
     """Fill ``buf`` (``N · K`` elements, ``N`` the data axis) IN PLACE with
     every replica's ``K``-element chunk, each replica's own chunk being
     the one at its index; returns ``buf``."""
@@ -319,12 +406,14 @@ def all_gather_(buf: torch.Tensor) -> torch.Tensor:
     if world == 1:
         return buf
     r = replica_index()
+    if _CENSUS is not None:
+        _record("all_gather", buf, "data", role)
     dist.all_gather_into_tensor(buf, buf[r * k : (r + 1) * k], group=process_group("data"))
     return buf
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]],
-             axis: Optional[str] = None) -> None:
+             axis: Optional[str] = None, role: str = "aux") -> None:
     """Post every send ``(tensor, global rank)`` and receive ``(buffer,
     global rank)`` together and wait for all of them, so that no order of
     ranks can deadlock.  gloo takes CPU tensors only: a card's tensors go
@@ -332,11 +421,18 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[to
     way); bfloat16 travels as its int16 bits.  Buffers may differ in
     size; an empty one posts nothing (its peer, which sizes the same
     message alike, posts nothing either).  ``axis`` names the group the
-    peers share (None: the world)."""
+    peers share (None: the world).  Its census row counts the elements
+    sent, in the first send's dtype."""
     sends = [(t, peer) for t, peer in sends if t.numel()]
     recvs = [(t, peer) for t, peer in recvs if t.numel()]
     if not sends and not recvs:
         return
+    if _CENSUS is not None and sends:
+        _record("exchange", sends[0][0], axis, role, elements=sum(t.numel() for t, _ in sends))
+    _exchange(sends, recvs, axis)
+
+
+def _exchange(sends, recvs, axis: Optional[str]) -> None:
     host = dist.get_backend() == "gloo" and any(t.is_cuda for t, _ in (*sends, *recvs))
     group = process_group(axis) if axis else None
 
@@ -358,7 +454,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[to
             bits(t).copy_(buf)
 
 
-def ring_shift(t: torch.Tensor) -> torch.Tensor:
+def ring_shift(t: torch.Tensor, role: str = "aux") -> torch.Tensor:
     """One hop of a unidirectional ring along the data axis: send ``t`` to
     replica ``r + 1`` and return what replica ``r − 1`` sent (a new tensor
     of ``t``'s shape and dtype, on its device).  The send and the receive
@@ -368,13 +464,18 @@ def ring_shift(t: torch.Tensor) -> torch.Tensor:
     ranks, r = grid().ranks("data"), replica_index()
     world = len(ranks)
     recv = torch.empty_like(t)
-    exchange([(t, ranks[(r + 1) % world])], [(recv, ranks[(r - 1) % world])])
+    if t.numel():
+        if _CENSUS is not None:
+            _record("ring_shift", t, "data", role)
+        _exchange([(t, ranks[(r + 1) % world])], [(recv, ranks[(r - 1) % world])], None)
     return recv
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+def broadcast_(t: torch.Tensor, src: int = 0, role: str = "aux") -> torch.Tensor:
     """Overwrite ``t`` IN PLACE with global rank ``src``'s; returns ``t``."""
     if dist.is_initialized():
+        if _CENSUS is not None:
+            _record("broadcast", t, "world", role)
         dist.broadcast(t, src)
     return t
 

@@ -168,11 +168,13 @@ class FlatParams:
         for dst, src in zip(self.owned(buf, index), self.split_owned(owned)):
             dst.copy_(src)
 
-    def all_gather_(self, buf: torch.Tensor) -> torch.Tensor:
+    def all_gather_(self, buf: torch.Tensor, role: str = "aux") -> torch.Tensor:
         """Fill every region of ``buf`` with every replica's chunk, one
-        all-gather a region (each replica's own chunk in place)."""
+        all-gather a region (each replica's own chunk in place); ``role``
+        is the census' (``wire`` for a ZeRO level's params publish and
+        gather)."""
         for start, size in self.buckets():
-            mesh.all_gather_(buf[start : start + size])
+            mesh.all_gather_(buf[start : start + size], role=role)
         return buf
 
     def release(self) -> None:
@@ -235,7 +237,7 @@ class TrainState:
             return
         flat.materialize()
         flat.put_owned(self.owned, flat.data, mesh.replica_index())
-        flat.all_gather_(flat.data)
+        flat.all_gather_(flat.data, role="wire")
 
     def release_params(self) -> None:
         """Where the params persist chunked, free the param buffer (its
@@ -469,18 +471,19 @@ def sync_and_update(
     key = _rounding_rng(compression, seed, state.step)
     grads = sync_for_level(flat.grad, compression, axis_size, placement.chunked["grads"], key=key,
                            buckets=flat.buckets(), n_elements=flat.numel)
+    mesh.note_grads([flat.grad] if grads is None else grads)
     sq = None
     if grads is not None:
         tx.update(grads, state.opt_state, state.owned_params())
         if placement.chunked["params"]:
             state.release_params()
         else:
-            flat.all_gather_(flat.data)
+            flat.all_gather_(flat.data, role="wire")
         sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]).square().sum()
     elif placement.chunked["opt_state"]:
         index = mesh.replica_index()
         tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params())
-        flat.all_gather_(flat.data)
+        flat.all_gather_(flat.data, role="wire")
     else:
         tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
     state.step += 1

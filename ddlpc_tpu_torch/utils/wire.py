@@ -225,3 +225,20 @@ def compress_chunks(chunks, level: int = LEVEL, block_size: int = BLOCK_SIZE,
     finally:
         for f in pending:
             f.cancel()
+
+
+def pack_message(payload: bytes) -> bytes:
+    """Length-prefix a payload with its u32 length, little-endian (the
+    reference's framing, кластер.py:119)."""
+    return struct.pack("<I", len(payload)) + payload
+
+
+def unpack_message(buf: bytes) -> Tuple[bytes, bytes]:
+    """``(payload, rest)`` of a length-prefixed buffer; raises
+    ``ValueError`` where the prefix or the payload is cut short."""
+    if len(buf) < 4:
+        raise ValueError("truncated frame: missing length prefix")
+    (n,) = struct.unpack_from("<I", buf, 0)
+    if len(buf) < 4 + n:
+        raise ValueError(f"truncated frame: need {n} payload bytes, have {len(buf) - 4}")
+    return bytes(buf[4 : 4 + n]), bytes(buf[4 + n :])

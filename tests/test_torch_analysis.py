@@ -317,8 +317,13 @@ def test_cli_whole_tree_is_clean_and_its_stream_lints(tmp_path, capsys):
 
 def test_cli_usage_errors(capsys):
     assert check.main(["--rules", "no-such-rule"]) == 2
-    assert check.main(["--programs"]) == 2
-    assert "A8.3" in capsys.readouterr().err
+    # --programs is the program auditor now; its usage errors exit 2.
+    assert check.main(["--programs", "--inject", "drop-fence"]) == 2
+    assert "no eager counterpart" in capsys.readouterr().err
+    assert check.main(["--programs", "--device", "cpu", "--arms", "no_such_arm"]) == 2
+    assert "unknown arm(s): no_such_arm" in capsys.readouterr().err
+    assert check.main(["--device", "cpu"]) == 2  # an auditor flag without --programs
+    capsys.readouterr()
     assert check.main(["--list-rules"]) == 0
     listed = capsys.readouterr().out
     assert "jit-host-call" in listed and "codec-fence" in listed

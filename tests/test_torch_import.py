@@ -71,6 +71,7 @@ PORT_MODULES = (
     "ddlpc_tpu_torch.analysis.check",
     "ddlpc_tpu_torch.analysis.core",
     "ddlpc_tpu_torch.analysis.lock_fixtures",
+    "ddlpc_tpu_torch.analysis.program",
     "ddlpc_tpu_torch.analysis.rules",
     "ddlpc_tpu_torch.analysis.tiers",
     "ddlpc_tpu_torch.obs.health",
