@@ -109,7 +109,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    set to 0 just before and read just after (int8: ``absmax`` and
    ``encode_to_wire`` once a param leaf at each restore, ``decode_from_wire``
    once a leaf a forward; the other modes none; the ``serve_int8`` path of
-   the kernels line); ``hbm_bytes()`` exactly fp32 4 B, bf16 2 B, int8 1 B a
+   the kernels line); the warmup's and the scene's forwards under the
+   collective census, held to the program auditor's serve-arm contracts
+   (``program.check_serve_forward``: no collective, int8 one decode a
+   leaf and forward, 82 leaves, equal to the launches); ``hbm_bytes()`` exactly fp32 4 B, bf16 2 B, int8 1 B a
    param plus 4 B a leaf, and the bytes the restore's tensors request from
    the allocator the same (plus, at most, the max-abs pass's scratch); each bucket 1, 2, 4, 8: one forward's device
    ms on the kernel rows' clock and tiles/s, the whole ``forward_windows``
@@ -301,7 +304,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    space-2 phases, whose levels split evenly, none).  It prints the step
    times, each rank's peak, the gradient all-reduce's ms, and what the
    reshards moved a step: calls, bytes sent and seconds, each rank's
-   (``spatial_uneven row``);
+   (``spatial_uneven row``).
+
+   Every rank of the four space phases trains under the collective
+   census (``parallel/mesh.census``), every run held to the program
+   auditor's space-arm contracts at full width
+   (``program.check_spatial_step``): ``placement`` (the param storage, the
+   gradient, the moments against the state's ``StateLayout``) and
+   ``codec-calls`` (one max-abs and one fake-quantize a bucket a step,
+   equal to the launches); each rank's census is printed;
 
 4h. ``pipe2_flagship``: ``parallel/pipeline.PipelineTrainStep`` on the
    flagship at full width, pipe 2 × data 1, the same two gloo processes
@@ -322,7 +333,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    12, idle 2, bubble 0.1429; the last stage's carry stash
    ``pipeline_carry_stash_bytes``.  It prints the step times against
    the unstaged step's, each stage's resident bytes against
-   ``pipeline_stage_hbm_bytes`` and the stash (``pipeline row``).
+   ``pipeline_stage_hbm_bytes`` and the stash (``pipeline row``).  Each
+   rank's three steps run under the collective census and are held to
+   the program auditor's contracts for its stage's programs at full
+   width (``program.check_pipeline_rank``): the forward and backward
+   segments to ``stage-boundary`` (only the sync-BN sums, within their
+   budget, no codec call, every carry sent in bf16, the flagship's
+   compute dtype), the stage update to ``comm-closed-form``,
+   ``dtype-flow``, ``placement`` and ``codec-calls`` (the launches too);
+   each program's census is printed.
    zero2 within the stages is not run here: with one replica a stage it
    resolves to ``off``, so it is held to ``off`` on the CPU at data 2
    (``tests/test_torch_pipeline.py``).  The two ranks time-share one
@@ -433,13 +452,17 @@ over 2**23 values spanning 1e-12..1e2.
    with the detector on (``analysis/lock_fixtures.run_smoke``): the
    loader ring's arm on pinned slots with live CUDA events, the
    checkpointer's saving a state on the card; no lock-order cycle, no
-   guarded-by violation, every arm run.  Beside the checker, the program
+   guarded-by violation, every arm run.  Once the checker has exited
+   (so that it has the cores the auditor's 8 ranks would take), the program
    auditor: ``python -m ddlpc_tpu_torch.analysis.check --programs``
-   (JAX's 15 data-parallel arms, one step each in a world of 8 gloo ranks
-   on ``cuda:0``, its ``kind="program"`` stream into ``WORKDIR``) must exit
-   0 with no violation, its codec calls equal to the kernels' launches;
-   then ``--programs --inject extra-collective`` must exit 1 naming
-   ``int8_simulate`` and ``comm-closed-form``.  Its row is printed on a
+   (JAX's 28 arms and 36 programs, one step each in a world of 8 gloo
+   ranks on ``cuda:0``, its ``kind="program"`` stream into ``WORKDIR``)
+   must exit 0 with no violation, its codec calls equal to the kernels'
+   launches, and no ``census-drift`` against
+   ``docs/port_analysis/program_baseline.json``, which the CPU wrote: the
+   card's census is the CPU's; then ``--programs --inject
+   extra-collective`` must exit 1 naming ``int8_simulate`` and
+   ``comm-closed-form``.  Its row is printed on a
    line of its own before the card's line.
 
 With ``--profile``, after each single-process main path (once its launch
@@ -2188,10 +2211,16 @@ ANALYSIS_DEADLINE_S = 300
 PROGRAMS_DEADLINE_S = 420  # each of the program auditor's two runs
 
 
-def _programs_runs(out: str, into: dict) -> None:
+def _programs_runs(out: str, into: dict, after: subprocess.Popen) -> None:
     """The program auditor's two runs, one after the other: every arm
-    (``--out``), then the extra-collective injection.  Each runs in a
-    session of its own, killed whole (its ranks too) at the deadline."""
+    (``--out``), then the extra-collective injection, once the checker's
+    process ``after`` has exited (or its deadline passed), so that the
+    checker's seconds are not the auditor's ranks' share of the cores.
+    Each runs in a session of its own, killed whole (its ranks too) at the
+    deadline."""
+    end = time.monotonic() + ANALYSIS_DEADLINE_S
+    while after.poll() is None and time.monotonic() < end:
+        time.sleep(0.5)
     base = [sys.executable, "-m", "ddlpc_tpu_torch.analysis.check", "--programs"]
     for name, argv in (("arms", ["--out", out]), ("inject", ["--inject", "extra-collective"])):
         t0 = time.perf_counter()
@@ -2211,7 +2240,9 @@ def start_analysis() -> tuple:
     --sanitize`` in a process of its own (the import tiers, the AST rules,
     the lock smoke on this card, and the host batch kernel's self-test
     under ASan, UBSan and, where it works, TSan), its ``kind="analysis"``
-    stream into ``WORKDIR``.  Started after the kernel-timing phases."""
+    stream into ``WORKDIR``, and the program auditor's thread, whose runs
+    wait for the checker to exit.  Started after the kernel-timing
+    phases."""
     out = os.path.join(WORKDIR, "analysis.jsonl")
     if os.path.exists(out):
         os.remove(out)
@@ -2222,7 +2253,8 @@ def start_analysis() -> tuple:
     if os.path.exists(programs_out):
         os.remove(programs_out)
     programs: dict = {}
-    thread = threading.Thread(target=_programs_runs, args=(programs_out, programs), daemon=True)
+    thread = threading.Thread(target=_programs_runs, args=(programs_out, programs, proc),
+                              daemon=True)
     thread.start()
     return proc, out, thread, programs, programs_out
 
@@ -2271,17 +2303,21 @@ def analysis_phase(started: tuple) -> dict:
 
 
 def programs_checks(thread, programs: dict, out: str) -> dict:
-    """The program auditor's runs: every arm clean on the card (exit 0, 15
-    audits, no violation, each arm's codec calls equal to its launches,
-    which ``check_step`` holds), and the injection caught (exit 1, naming
-    ``int8_simulate`` and ``comm-closed-form``)."""
+    """The program auditor's runs: every arm clean on the card (exit 0, 28
+    arms, 36 programs in JAX's order, no violation, each program's codec
+    calls equal to its launches, which the contracts hold, and no
+    ``census-drift`` against the committed baseline, which the CPU wrote),
+    and the injection caught (exit 1, naming ``int8_simulate`` and
+    ``comm-closed-form``)."""
     from ddlpc_tpu_torch.analysis import program
 
     thread.join(2 * PROGRAMS_DEADLINE_S)
     if thread.is_alive() or set(programs) != {"arms", "inject"}:
         fail(f"[analysis] the program auditor's runs did not end: {sorted(programs)}")
     arms, inject = programs["arms"], programs["inject"]
-    log("[analysis] program auditor: " + " | ".join(arms["text"].strip().splitlines()[-20:]))
+    log("[analysis] program auditor: " + " | ".join(
+        line for line in arms["text"].strip().splitlines()[-40:]
+        if line.startswith("program_audit")))
     log("[analysis] program auditor --inject extra-collective: "
         + " | ".join(inject["text"].strip().splitlines()[-6:]))
     if arms["rc"] != 0:
@@ -2289,19 +2325,22 @@ def programs_checks(thread, programs: dict, out: str) -> dict:
     with open(out) as f:
         recs = [json.loads(line) for line in f]
     summary, audits = recs[-1], [r for r in recs if r.get("record") == "audit"]
-    if (summary.get("record") != "summary" or summary["violations"] or summary["world"] != 8
-            or summary["device"] != "cuda:0" or [a["arm"] for a in audits] != list(program.ARMS)):
+    if (summary.get("record") != "summary" or summary["violations"] or summary["census_drift"]
+            or summary["world"] != 8 or summary["device"] != "cuda:0"
+            or summary["arms"] != len(program.ARMS) or summary["baseline"] is None
+            or [a["program"] for a in audits] != list(program.PROGRAMS)):
         fail(f"[analysis] the program auditor's stream: {summary}, "
-             f"arms {[a['arm'] for a in audits]}")
+             f"programs {[a['program'] for a in audits]}")
     caught = "VIOLATION int8_simulate/step+extra-collective: [comm-closed-form]"
     if inject["rc"] != 1 or caught not in inject["text"]:
         fail(f"[analysis] --inject extra-collective exited {inject['rc']} without {caught!r}")
-    return {"arms": len(audits), "violations": 0, "world": summary["world"],
+    return {"arms": summary["arms"], "programs": len(audits), "violations": 0,
+            "census_drift": 0, "baseline": summary["baseline"], "world": summary["world"],
             "device": summary["device"], "audit_s": summary["seconds"],
             "process_s": round(arms["s"], 3), "inject_rc": inject["rc"],
             "inject_process_s": round(inject["s"], 3),
-            "wire_bytes": {a["arm"]: a["wire_bytes"] for a in audits},
-            "codec_calls": {a["arm"]: a["codec_calls"] for a in audits}}
+            "wire_bytes": {a["program"]: a["wire_bytes"] for a in audits if a["wire_bytes"]},
+            "codec_calls": {a["program"]: a["codec_calls"] for a in audits if a["codec_calls"]}}
 
 
 def sqrt_phase() -> dict:
@@ -2928,6 +2967,28 @@ def _canonical_digest(state) -> str:
     for key in sorted(state.opt_state.buffers()):
         tensors += [opt[key][k] for k in names]
     return _digest(*tensors, torch.tensor([opt["count"], state.step]))
+
+
+def audit_row(audit: dict, rows: list) -> dict:
+    """A program audit (``analysis/program``'s check functions) as a JSON
+    row: its violations, codec calls, placement and census, each census
+    row counted (``program.census_strings``)."""
+    from ddlpc_tpu_torch.analysis import program
+
+    return {"program": audit["program"],
+            "violations": [v.format() if hasattr(v, "format") else v for v in audit["violations"]],
+            "codec_calls": audit["codec_calls"],
+            "placement": {k: [v["measured"], v["bytes"]] for k, v in audit["placement"].items()},
+            "census": program.census_strings(rows)}
+
+
+def audit_gate(label: str, rank: int, audit: dict) -> None:
+    """Fail on a violation of a full-width rank's program audit; print its
+    census on a line of its own."""
+    log(f"[{label}] rank {rank} {audit['program']}: codec {json.dumps(audit['codec_calls'])}, "
+        f"placement {json.dumps(audit['placement'])}, census {json.dumps(audit['census'])}")
+    if audit["violations"]:
+        fail(f"[{label}] rank {rank}: the program auditor's contracts: {audit['violations']}")
 
 
 def write_rank_result(workdir: str, rank: int, result: dict) -> str:
@@ -3729,7 +3790,9 @@ def serve_engine_phase(run: str, scfg, scene) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ddlpc_tpu_torch.analysis import program
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
+    from ddlpc_tpu_torch.parallel import mesh
     from ddlpc_tpu_torch.serve import quantized as sq
     from ddlpc_tpu_torch.serve.engine import InferenceEngine
 
@@ -3753,12 +3816,24 @@ def serve_engine_phase(run: str, scfg, scene) -> dict:
         hbm = eng.hbm_bytes()
         leaves = len(eng.state.params)
         n = sum(p.numel() for p in eng.state.params.values())
-        t0 = time.perf_counter()
-        eng.warmup()
-        warmup_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        classes = eng.predict_classes(scene, overlap=scfg.overlap, batch=scfg.max_batch)
-        scene_s = time.perf_counter() - t0
+        # The in-process forwards under the census, held to the serve
+        # arms' contracts: no collective, one decode a leaf and forward
+        # under int8 (and the launches the calls).
+        before = dict(cq.LAUNCHES)
+        with mesh.census() as census:
+            t0 = time.perf_counter()
+            eng.warmup()
+            warmup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            classes = eng.predict_classes(scene, overlap=scfg.overlap, batch=scfg.max_batch)
+            scene_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        audit = program.check_serve_forward(
+            f"serve_{'fp32' if mode == 'off' else mode}/forward", census, mode, leaves,
+            forwards=eng.forward_calls, launches={k: cq.LAUNCHES[k] - before[k] for k in before})
+        audit = audit_row(audit, census.rows)
+        del census
+        audit_gate(f"serve {mode}", 0, audit)
         meta = eng.reload()
         torch.cuda.synchronize()
         launches = dict(cq.LAUNCHES)
@@ -3842,7 +3917,7 @@ def serve_engine_phase(run: str, scfg, scene) -> dict:
                       "scene_s": scene_s, "hbm_bytes": hbm, "requested_bytes": requested,
                       "allocated_bytes": resident,
                       "path_launches": {k: v for k, v in launches.items() if v},
-                      "path_forwards": forwards, "buckets": buckets,
+                      "path_forwards": forwards, "audit": audit, "buckets": buckets,
                       "cpu_max_abs_dlogit": d, "cpu_class_agree": agree}
         log(f"serve row [{mode}]: " + json.dumps(rows[mode]))
         engines[mode] = (eng, classes)
@@ -4597,6 +4672,7 @@ def spatial_rank(labels: str, data_dir: str) -> None:
 def _spatial_rank_phase(label: str, data_dir: str) -> None:
     import torch.distributed as dist
 
+    from ddlpc_tpu_torch.analysis import program
     from ddlpc_tpu_torch.ops import cuda_quantize as cq
     from ddlpc_tpu_torch.parallel import mesh
     from ddlpc_tpu_torch.parallel.halo import halo_exchange
@@ -4625,17 +4701,26 @@ def _spatial_rank_phase(label: str, data_dir: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         cq.reset_launch_counts()
         t0 = time.perf_counter()
-        last = trainer.fit()
-        torch.cuda.synchronize()
+        with mesh.census() as census:
+            last = trainer.fit()
+            torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = dict(cq.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        # The program auditor's space-arm contracts over the run at full
+        # width: placement and codec-calls (against the launches too).
+        audit = program.check_spatial_step(f"{label}:{run}/rank{rank}", census, trainer.state,
+                                           cfg.compression, steps=spec["steps"][run],
+                                           launches=launches)
+        audit = audit_row(audit, census.rows)
+        del census
         if run == spec.get("reference", (None,))[0]:
             steps["batch_digests"] = batch_digests(trainer.loader, 1)
         digest = _canonical_digest(trainer.state)
         hashes = [None] * space
         dist.all_gather_object(hashes, digest)
         row = {"launches": launches, "peak_bytes": peak, "fit_s": fit_s, "hashes": hashes,
+               "audit": audit,
                "last": last, "spatial": trainer.spatial, "space": list(trainer.space),
                "level": trainer.shard_update, "n_params": trainer.state.params.numel,
                "reshard": moved, **steps}
@@ -4795,6 +4880,7 @@ def spatial_phase(label: str, data_dir: str, reference: dict = None,
             if not row["spatial"] or row["launches"] != want:
                 fail(f"[{label}:{run}] rank {rr['rank']}: spatial {row['spatial']}, launches "
                      f"{row['launches']}, expected {want} ({steps} steps)")
+            audit_gate(f"{label}:{run}", rr["rank"], row["audit"])
             if len(set(row["hashes"])) != 1:
                 fail(f"[{label}:{run}] the ranks' states differ: {row['hashes']}")
             # Even layouts reshard nothing; the uneven phase's four a step
@@ -4941,6 +5027,7 @@ def pipe_rank(workdir: str) -> None:
     the canonical state's parameters and statistics)."""
     import torch.distributed as dist
 
+    from ddlpc_tpu_torch.analysis import program
     from ddlpc_tpu_torch.config import ExperimentConfig
     from ddlpc_tpu_torch.convert import gather_canonical
     from ddlpc_tpu_torch.obs import hbm
@@ -4971,15 +5058,22 @@ def pipe_rank(workdir: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     cq.reset_launch_counts()
     metrics, times = [], []
-    for images, labels in batches:
-        torch.cuda.synchronize()
-        dist.barrier()
-        t0 = time.perf_counter()
-        p, m = drv.step(p, images, labels)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        metrics.append(m)
+    with mesh.census() as census:
+        for images, labels in batches:
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            p, m = drv.step(p, images, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append(m)
     launches = dict(cq.LAUNCHES)
+    # The program auditor's stage programs at full width: the segments
+    # under stage-boundary with the flagship's carries, the update under
+    # the four contracts (against the launches too).
+    audits = [audit_row(a, a["census"]) for a in program.check_pipeline_rank(
+        PIPE_LABEL, census, drv, p, cfg.compression, steps=PIPE_STEPS, launches=launches)]
+    del census
     stash_want = 0
     if drv.stage > 0:
         shapes = drv.carry_shapes((PIPE_MICRO, *cfg.data.image_size, 3))
@@ -4992,6 +5086,7 @@ def pipe_rank(workdir: str) -> None:
         "stash_bytes": drv.stash_bytes, "stash_priced": stash_want,
         "peak_bytes": torch.cuda.max_memory_allocated(), "digest": _canonical_digest(can),
         "names": list(p.stages[0].params.names), "wall_s": time.perf_counter() - start,
+        "audits": audits,
     }
     if rank == 0:
         sd, _ = gather_canonical(can)
@@ -5042,6 +5137,8 @@ def pipe_phase() -> dict:
         want.update(codec_expect(PIPE_STEPS))
         if a["launches"] != want:
             fail(f"[{label}] stage {a['stage']} launches {a['launches']}, expected {want}")
+        for audit in a["audits"]:
+            audit_gate(label, a["rank"], audit)
     if len({a["digest"] for a in stages.values()}) != 1:
         fail(f"[{label}] the ranks' canonical states differ")
     # The unstaged step with the same codec on the same micro-batches: once

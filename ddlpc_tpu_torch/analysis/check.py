@@ -28,21 +28,25 @@ Usage:
 Violations print as ``path:line: [rule] message``; suppressed ones are
 counted in the summary.  The ``--out`` stream is flat ``kind="analysis"``
 records, stamped by the port's ``obs/schema.py`` and written atomically.
-``--programs`` is the program auditor (``analysis/program.py``, part (a):
-JAX's 15 data-parallel arms, one real step each in a world of 8 gloo
-ranks, held to ``comm-closed-form``, ``dtype-flow``, ``placement`` and
-``codec-calls``)::
+``--programs`` is the program auditor (``analysis/program.py``: JAX's 28
+arms and 36 programs, one real step each in a world of 8 gloo ranks, held
+to ``comm-closed-form``, ``dtype-flow``, ``placement``, ``codec-calls``
+and ``stage-boundary``, and to the committed baseline
+``docs/port_analysis/program_baseline.json``)::
 
     python -m ddlpc_tpu_torch.analysis.check --programs --device cpu
     python -m ddlpc_tpu_torch.analysis.check --programs            # ranks on cuda:0
-    python -m ddlpc_tpu_torch.analysis.check --programs --arms int8_zero2,int8_ring
+    python -m ddlpc_tpu_torch.analysis.check --programs --arms int8_zero2,pipe2_none
     python -m ddlpc_tpu_torch.analysis.check --programs --inject fp32-widen   # must exit 1
     python -m ddlpc_tpu_torch.analysis.check --programs --out runs/programs.jsonl
+    python -m ddlpc_tpu_torch.analysis.check --programs --device cpu --update-baseline
 
 Its violations print as ``program_audit: VIOLATION <program>: [<contract>]
-<message>``; ``--out`` writes flat ``kind="program"`` records ending with
-a ``record="summary"`` one.  ``--inject drop-fence`` has no eager
-counterpart and exits 2.
+<message>``, a structural difference from the baseline as ``[census-drift]``
+(the baseline's age or torch version only warn); ``--update-baseline``
+rewrites the audited programs' entries instead of comparing.  ``--out``
+writes flat ``kind="program"`` records ending with a ``record="summary"``
+one.  ``--inject drop-fence`` has no eager counterpart and exits 2.
 
 Exit status: 0 clean, 1 unsuppressed violations, 2 usage/internal error.
 """
@@ -62,7 +66,7 @@ from ddlpc_tpu_torch.analysis import lockcheck
 from ddlpc_tpu_torch.analysis.core import PACKAGE, Violation, run_analysis
 from ddlpc_tpu_torch.analysis.rules import ALL_RULE_IDS, make_rules
 from ddlpc_tpu_torch.obs.schema import check_record, stamp
-from ddlpc_tpu_torch.utils.fsio import atomic_write_text
+from ddlpc_tpu_torch.utils.fsio import atomic_write_json, atomic_write_text
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 EXTRA_RULES = ("import-tier", "tier-undeclared", "lock-order", "guarded-by", "bad-suppression")
@@ -181,8 +185,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="also build and run kernels/host/batch.cc's self-test under "
                     "ASan, UBSan and (where it works) TSan")
     ap.add_argument("--programs", action="store_true",
-                    help="the program auditor: one step of each data-parallel arm under the "
-                    "collective census, held to its closed forms")
+                    help="the program auditor: one step of each arm under the collective "
+                    "census, held to its closed forms and to the committed baseline")
     ap.add_argument("--device", default="cuda",
                     help="--programs: the ranks' device, a card (default; every rank on "
                     "cuda:0) or cpu")
@@ -191,12 +195,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--inject", default=None,
                     help="--programs: run one injected fault instead (extra-collective, "
                     "fp32-widen, replicated-leaf); must exit 1")
+    ap.add_argument("--baseline", default=None,
+                    help="--programs: the baseline to compare with or write (default "
+                    "docs/port_analysis/program_baseline.json)")
+    ap.add_argument("--update-baseline", action="store_true",
+                    help="--programs: write the audited programs' entries into the baseline "
+                    "instead of comparing")
     args = ap.parse_args(argv)
 
     if args.programs:
         return programs_main(args)
-    if args.device != "cuda" or args.arms or args.inject:
-        print("ddlpc_check: --device, --arms and --inject go with --programs", file=sys.stderr)
+    if (args.device != "cuda" or args.arms or args.inject or args.baseline
+            or args.update_baseline):
+        print("ddlpc_check: --device, --arms, --inject, --baseline and --update-baseline go "
+              "with --programs", file=sys.stderr)
         return 2
     if args.list_rules:
         for r in make_rules():
@@ -267,6 +279,10 @@ def programs_main(args) -> int:
         print(f"program_audit: unknown injection {args.inject!r} (one of "
               f"{', '.join(program.INJECTIONS + program.NO_EAGER_INJECTIONS)})", file=sys.stderr)
         return 2
+    if args.inject is not None and args.update_baseline:
+        print("program_audit: --inject and --update-baseline do not go together",
+              file=sys.stderr)
+        return 2
     if args.inject is not None:
         arms = []
     elif args.arms:
@@ -283,30 +299,57 @@ def programs_main(args) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"program_audit: {e}", file=sys.stderr)
         return 2
+    path = args.baseline or program.DEFAULT_BASELINE
+    baseline = None
+    if args.inject is None and (not args.update_baseline or os.path.exists(path)):
+        try:
+            baseline = program.load_baseline(path)
+        except (OSError, ValueError) as e:
+            print(f"program_audit: the baseline: {e}", file=sys.stderr)
+            return 2
     result = program.audit(arms, args.device, [args.inject] if args.inject else [])
-    violations = [v for a in result["audits"] for v in a["violations"]]
-    for a in result["audits"]:
+    audits = result["audits"]
+    drift: list = []
+    if args.update_baseline:
+        atomic_write_json(path, program.build_baseline(audits, baseline), indent=1)
+        print(f"program_audit: wrote {len(audits)} program(s) into {os.path.relpath(path, _REPO)}",
+              file=sys.stderr)
+    elif baseline is not None:
+        for w in program.baseline_warnings(baseline):
+            print(f"program_audit: WARNING {w}", file=sys.stderr)
+        drift = program.drift(audits, baseline, every_program=set(arms) == set(program.ARMS))
+        for v in drift:
+            for a in audits:
+                if a["program"] == v.program:
+                    a["violations"].append(v)
+    violations = [v for a in audits for v in a["violations"]]
+    violations += [v for v in drift if v.program not in {a["program"] for a in audits}]
+    for a in audits:
         for e in a["exceptions"]:
             print(f"program_audit: {a['program']}: named exception {e}")
     for v in violations:
         print(f"program_audit: {v.format()}")
     if args.out:
-        recs = [stamp(program.to_record(a), kind="program") for a in result["audits"]]
+        recs = [stamp(program.to_record(a), kind="program") for a in audits]
         recs += [stamp({"record": "violation", "program": v.program, "contract": v.contract,
                         "message": v.message}, kind="program") for v in violations]
-        recs.append(stamp({"record": "summary", "programs": len(result["audits"]),
-                           "violations": len(violations), "device": result["device"],
-                           "world": result["world"], "seconds": round(result["seconds"], 3)},
-                          kind="program"))
+        recs.append(stamp({"record": "summary", "arms": len(set(a["arm"] for a in audits)),
+                           "programs": len(audits), "violations": len(violations),
+                           "census_drift": sum(v.contract == "census-drift" for v in violations),
+                           "baseline": os.path.relpath(path, _REPO) if baseline else None,
+                           "device": result["device"], "world": result["world"],
+                           "seconds": round(result["seconds"], 3)}, kind="program"))
         for rec in recs:
             errs = check_record(rec)
             if errs:
                 print(f"program_audit: malformed record: {errs}", file=sys.stderr)
                 return 2
         atomic_write_text(args.out, "".join(json.dumps(r) + "\n" for r in recs))
-    what = f"--inject {args.inject}" if args.inject else f"{len(result['audits'])} arm(s)"
+    what = (f"--inject {args.inject}" if args.inject
+            else f"{len(arms)} arm(s), {len(audits)} program(s)")
     print(f"program_audit: {what} on {result['device']} in a world of {result['world']}: "
-          f"{len(violations)} violation(s), {result['seconds']:.1f}s", file=sys.stderr)
+          f"{len(violations)} violation(s), {len(drift)} of them census-drift, "
+          f"{result['seconds']:.1f}s", file=sys.stderr)
     if args.inject is not None and not violations:
         print(f"program_audit: INJECTION NOT CAUGHT: {args.inject} produced no violation",
               file=sys.stderr)

@@ -25,14 +25,22 @@ that sums and narrowed back: exact, because every sum the codec puts on
 that wire is bounded by ``world · levels ≤ 32767``.  That moves twice the
 bytes of the JAX package's s16 ``psum``.
 
+The pipeline's point-to-point carries go through here too
+(:func:`isend`, :func:`recv`): posted without waiting, through host copies
+under gloo, bfloat16 as its int16 bits.
+
 The census (:func:`census`): while it is on, every collective issued here
 records one row (:func:`_record`): the op, the axis, the dtype that goes to
 ``torch.distributed`` (after the int16 widening), the elements and bytes,
 and the caller's ``role``, ``wire`` where the gradient sync or a ZeRO
 level's params all-gather issues it (the call sites pass it), ``aux`` for
 everything else (sync-BN, the batch statistics' mean, the metrics, the
-trainer's header).  It also counts the codec's entry calls
-(``ops/cuda_quantize.py``).  Off, each collective tests one flag and
+trainer's header, the halo rows, the pipeline's carries).  A carry sent
+records one ``send`` row of the dtype handed in (bfloat16, before its
+int16 view), its header a ``send_header`` row (control traffic).  It also
+counts the codec's entry calls (``ops/cuda_quantize.py``).  A segment tag
+(:func:`census_segment`) marks the rows and codec calls of a stretch, as
+the pipeline's stage programs.  Off, each collective tests one flag and
 records nothing.  ``analysis/program.py`` holds a step's census to its
 closed forms.
 """
@@ -104,8 +112,9 @@ def initialize_distributed(backend: str, init_method: Optional[str] = None) -> N
 
 
 def destroy_distributed() -> None:
-    """Leave the world, if this process joined one, and forget its grid."""
+    """Leave the world, if this process joined one, and forget its grids."""
     reset_grid()
+    _GRIDS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -180,6 +189,8 @@ def grid_shape(world: int, pipe: int = 1, data: int = -1, space: int = 1) -> Tup
 
 
 _GRID: Optional[Grid] = None
+# Each shape's grid of this world, its groups built once (init_grid).
+_GRIDS: Dict[Tuple[int, int, int], Grid] = {}
 
 
 def init_grid(pipe: int = 1, data: int = -1, space: int = 1) -> Grid:
@@ -187,10 +198,14 @@ def init_grid(pipe: int = 1, data: int = -1, space: int = 1) -> Grid:
     and build every axis's process groups; every rank must call it with
     the same sizes (``dist.new_group`` is collective).  The grid becomes
     the one :func:`data_size`, :func:`replica_index` and the collectives
-    read."""
+    read.  A shape laid out before in this world takes its groups again
+    (no new group is built, on any rank)."""
     global _GRID
     world, rank = world_size(), world_rank()
     pipe, data, space = grid_shape(world, pipe, data, space)
+    if (pipe, data, space) in _GRIDS:
+        _GRID = _GRIDS[(pipe, data, space)]
+        return _GRID
     grid = Grid(pipe, data, space, rank)
     if pipe * space > 1:
         for axis, count in (("data", pipe * space), ("space", pipe * data), ("stage", pipe)):
@@ -207,7 +222,7 @@ def init_grid(pipe: int = 1, data: int = -1, space: int = 1) -> Grid:
                 if list(ranks) == mine:
                     grid.groups[axis] = g
             assert len(seen) == count
-    _GRID = grid
+    _GRID = _GRIDS[(pipe, data, space)] = grid
     return grid
 
 
@@ -309,9 +324,18 @@ class Census:
     codec: Dict[str, int] = field(default_factory=dict)
     # The optimizer-boundary gradient of the last sync (note_grads).
     grads: List[torch.Tensor] = field(default_factory=list)
+    # The codec's entry calls inside each segment (census_segment).
+    segment_codec: Dict[str, Dict[str, int]] = field(default_factory=dict)
+
+    def segment(self, name: str) -> "Census":
+        """The rows and codec calls tagged ``name``, as a census of their
+        own (the gradient note shared)."""
+        return Census([r for r in self.rows if r.get("segment") == name],
+                      dict(self.segment_codec.get(name, {})), self.grads)
 
 
 _CENSUS: Optional[Census] = None
+_SEGMENT: Optional[str] = None
 
 
 @contextlib.contextmanager
@@ -336,6 +360,27 @@ def census_on() -> bool:
     return _CENSUS is not None
 
 
+@contextlib.contextmanager
+def census_segment(name: str) -> Iterator[None]:
+    """Tag the census rows and codec calls inside the block ``name`` (the
+    innermost tag holds; re-entering a name adds to it).  Nothing happens
+    where no census is on."""
+    global _SEGMENT
+    if _CENSUS is None:
+        yield
+        return
+    census, prev = _CENSUS, _SEGMENT
+    before = dict(census.codec)
+    _SEGMENT = name
+    try:
+        yield
+    finally:
+        _SEGMENT = prev
+        seg = census.segment_codec.setdefault(name, {k: 0 for k in census.codec})
+        for k, v in census.codec.items():
+            seg[k] = seg.get(k, 0) + v - before.get(k, 0)
+
+
 def note_grads(grads: Sequence[torch.Tensor]) -> None:
     """Keep the gradient a sync left for the update (the whole mean, or
     this replica's chunks of it) in the census, where one is on."""
@@ -356,6 +401,8 @@ def _record(op: str, t: torch.Tensor, axis: Optional[str], role: str,
            "bytes": n * t.element_size(), "role": role, "reduce": reduce}
     if widened_from is not None:
         row["widened_from"] = DTYPE_NAMES[widened_from]
+    if _SEGMENT is not None:
+        row["segment"] = _SEGMENT
     _CENSUS.rows.append(row)
 
 
@@ -469,6 +516,38 @@ def ring_shift(t: torch.Tensor, role: str = "aux") -> torch.Tensor:
             _record("ring_shift", t, "data", role)
         _exchange([(t, ranks[(r + 1) % world])], [(recv, ranks[(r - 1) % world])], None)
     return recv
+
+
+def isend(t: torch.Tensor, dst: int, host: bool = False, op: str = "send",
+          axis: str = "pipe") -> Tuple[object, torch.Tensor]:
+    """Post a send of ``t`` to global rank ``dst`` without waiting; returns
+    ``(work, buffer)``, the buffer to be kept until the work is waited
+    for.  bfloat16 travels as its int16 bits, and ``host`` (gloo, which
+    takes CPU tensors only, with a card's tensor) sends a host copy.  Its
+    census row is ``op`` (``send`` for a carry, ``send_header`` for the
+    control header before it) in ``t``'s dtype as handed in, role
+    ``aux``."""
+    if _CENSUS is not None:
+        _record(op, t, axis, "aux")
+    buf = t.detach().contiguous()
+    if buf.dtype == torch.bfloat16:
+        buf = buf.view(torch.int16)
+    if host:
+        buf = buf.cpu()
+    return dist.isend(buf, dst), buf
+
+
+def recv(shape: Sequence[int], dtype: torch.dtype, src: int, device: torch.device,
+         host: bool = False) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from global rank
+    ``src`` (what :func:`isend` posted there) and wait for it; a new
+    tensor on ``device``, through a host buffer where ``host``."""
+    wire = torch.int16 if dtype == torch.bfloat16 else dtype
+    buf = torch.empty(tuple(shape), dtype=wire, device="cpu" if host else device)
+    dist.irecv(buf, src).wait()
+    if dtype == torch.bfloat16:
+        buf = buf.view(torch.bfloat16)
+    return buf.to(device) if host else buf.clone()
 
 
 def broadcast_(t: torch.Tensor, src: int = 0, role: str = "aux") -> torch.Tensor:

@@ -13,8 +13,15 @@ network on its device, re-homed into flat buffers (``FlatParams``), the
 rest of the network staying a host copy it never runs.  Carries (the
 stage's output ``{'x', 'skips'[, 'image']}``) and their cotangents cross
 stages by point-to-point sends between ``(s, d)`` and ``(s ± 1, d)``:
-posted without waiting (:class:`_Wire`), so that no schedule order can
-deadlock, and drained at the end of the step.
+posted without waiting (:class:`_Wire`, through ``mesh.isend`` and
+``mesh.recv``), so that no schedule order can deadlock, and drained at
+the end of the step.  Under the collective census each carry tensor sent
+is a ``send`` row, and the step tags its stretches as the JAX package's
+stage programs (:func:`stage_program_names`: ``stage<s>_fwd``,
+``stage<s>_bwd`` or the last stage's ``stage<S-1>_loss_bwd``,
+``stage<s>_update``; the closing metrics sum ``tail``), which
+``analysis/program.py`` holds to ``stage-boundary`` and the update's
+contracts.
 
 The schedule (:meth:`PipelineTrainStep.step`) is JAX's: forward cycles
 run stage ``s`` on micro-batch ``t − s`` for the stages before the last,
@@ -250,11 +257,13 @@ def _unflatten_carry(ts: List[torch.Tensor], n_skips: int, has_image: bool) -> d
 
 
 class _Wire:
-    """Point-to-point transfers between stages: sends are posted and not
-    waited for until :meth:`drain` (so no order of the schedule can
-    deadlock); a receive waits.  gloo takes CPU tensors only, so a card's
-    tensors go through host copies there; bfloat16 travels as its int16
-    bits."""
+    """Point-to-point transfers between stages, through ``mesh.isend`` and
+    ``mesh.recv``: sends are posted and not waited for until :meth:`drain`
+    (so no order of the schedule can deadlock); a receive waits.  gloo
+    takes CPU tensors only, so a card's tensors go through host copies
+    there; bfloat16 travels as its int16 bits.  Under a census every
+    carry tensor sent is one ``send`` row, every header one
+    ``send_header`` row."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -262,28 +271,13 @@ class _Wire:
         self.pending: list = []
         self._header_device = torch.device("cpu") if self.host else device
 
-    def _raw(self, t: torch.Tensor) -> torch.Tensor:
-        t = t.detach().contiguous()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return t.cpu() if self.host else t
-
     def send(self, tensors: Sequence[torch.Tensor], dst: int) -> None:
         for t in tensors:
-            buf = self._raw(t)
-            self.pending.append((dist.isend(buf, dst), buf))
+            self.pending.append(mesh.isend(t, dst, self.host))
 
     def recv(self, like: Sequence[Tuple[tuple, torch.dtype]], src: int) -> List[torch.Tensor]:
-        out = []
-        for shape, dtype in like:
-            wire_dt = torch.int16 if dtype == torch.bfloat16 else dtype
-            buf = torch.empty(shape, dtype=wire_dt, device="cpu" if self.host else self.device)
-            dist.irecv(buf, src).wait()
-            if dtype == torch.bfloat16:
-                buf = buf.view(torch.bfloat16)
-            # A new tensor either way: a leaf that may require grad.
-            out.append(buf.to(self.device) if self.host else buf.clone())
-        return out
+        # A new tensor each: a leaf that may require grad.
+        return [mesh.recv(shape, dtype, src, self.device, self.host) for shape, dtype in like]
 
     def send_carry(self, carry: dict, dst: int) -> None:
         ts = _flatten_carry(carry)
@@ -294,13 +288,11 @@ class _Wire:
             raise ValueError(f"a carry of {len(ts)} tensors does not fit the header")
         header = torch.zeros(_HEADER, dtype=torch.int64, device=self._header_device)
         header[: len(head)] = torch.tensor(head)
-        self.pending.append((dist.isend(header, dst), header))
+        self.pending.append(mesh.isend(header, dst, op="send_header"))
         self.send(ts, dst)
 
     def recv_carry(self, src: int) -> dict:
-        header = torch.empty(_HEADER, dtype=torch.int64, device=self._header_device)
-        dist.irecv(header, src).wait()
-        h = header.tolist()
+        h = mesh.recv((_HEADER,), torch.int64, src, self._header_device).tolist()
         n_skips, has_image, n = h[0], h[1], h[2]
         like, i = [], 3
         for _ in range(n):
@@ -487,53 +479,60 @@ class PipelineTrainStep:
         # a stage's input carries arrive in the cycle after their sender's
         # and stay stashed until their backward.
         self.stash_bytes = held = 0
-        for t in range(M + S - 2):
-            m = t - s
-            if s > 0 and 0 <= m + 1 < M:
-                stash[m + 1] = wire.recv_carry(self._peer[-1])
-                held += _carry_bytes(stash[m + 1])
-                self.stash_bytes = max(self.stash_bytes, held)
-            if s == last or not 0 <= m < M:
-                continue
-            with torch.no_grad():
-                out = forward(m, stash[m])
-            wire.send_carry(out, self._peer[1])
-            executed += 1
+        # The census' segments are JAX's stage programs
+        # (stage_program_names): the last stage folds its forward into its
+        # loss and backward, so its forward phase (receives only) is that.
+        bwd_name = stage_program_names(s, S)[-2]
+        with mesh.census_segment(f"stage{s}_fwd" if s < last else bwd_name):
+            for t in range(M + S - 2):
+                m = t - s
+                if s > 0 and 0 <= m + 1 < M:
+                    stash[m + 1] = wire.recv_carry(self._peer[-1])
+                    held += _carry_bytes(stash[m + 1])
+                    self.stash_bytes = max(self.stash_bytes, held)
+                if s == last or not 0 <= m < M:
+                    continue
+                with torch.no_grad():
+                    out = forward(m, stash[m])
+                wire.send_carry(out, self._peer[1])
+                executed += 1
 
         # Backward phase: stage s at cycle t runs micro-batch t − (S−1−s).
-        for t in range(M + S - 1):
-            m = t - (last - s)
-            if not 0 <= m < M:
-                continue
-            cin, stash[m] = stash[m], None
-            if s == last:
-                leaves = _flatten_carry(cin)
-                for x in leaves:
-                    x.requires_grad_(True)
-                loss, acc = loss_from_logits(forward(m, cin), labels[m], layout)
-                loss.backward()
-                losses.append(loss.detach())
-                accs.append(acc.detach())
-            else:
-                leaves = [] if cin is None else _flatten_carry(cin)
-                for x in leaves:
-                    x.requires_grad_(True)
-                with recomputing():
-                    out = _flatten_carry(forward(m, cin))
-                grads = wire.recv([(tuple(x.shape), x.dtype) for x in out], self._peer[1])
-                pairs = [(o, g) for o, g in zip(out, grads) if o.requires_grad]
-                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-            if s > 0:
-                wire.send([x.grad if x.grad is not None else torch.zeros_like(x)
-                           for x in leaves], self._peer[-1])
-            executed += 1
-        wire.drain()
+        with mesh.census_segment(bwd_name):
+            for t in range(M + S - 1):
+                m = t - (last - s)
+                if not 0 <= m < M:
+                    continue
+                cin, stash[m] = stash[m], None
+                if s == last:
+                    leaves = _flatten_carry(cin)
+                    for x in leaves:
+                        x.requires_grad_(True)
+                    loss, acc = loss_from_logits(forward(m, cin), labels[m], layout)
+                    loss.backward()
+                    losses.append(loss.detach())
+                    accs.append(acc.detach())
+                else:
+                    leaves = [] if cin is None else _flatten_carry(cin)
+                    for x in leaves:
+                        x.requires_grad_(True)
+                    with recomputing():
+                        out = _flatten_carry(forward(m, cin))
+                    grads = wire.recv([(tuple(x.shape), x.dtype) for x in out], self._peer[1])
+                    pairs = [(o, g) for o, g in zip(out, grads) if o.requires_grad]
+                    torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+                if s > 0:
+                    wire.send([x.grad if x.grad is not None else torch.zeros_like(x)
+                               for x in leaves], self._peer[-1])
+                executed += 1
+            wire.drain()
 
         flat.grad.div_(M)
         # The stage update: the unstaged step's sync, update and publish
         # over this stage's data group, then its statistics' mean.
-        sq = sync_and_update(state, self.tx, self.compression, self._n_data, self.seed)
-        mean_batch_stats(state.model, self._n_data)
+        with mesh.census_segment(f"stage{s}_update"):
+            sq = sync_and_update(state, self.tx, self.compression, self._n_data, self.seed)
+            mean_batch_stats(state.model, self._n_data)
         if sq is None:
             sq = flat.grad.square().sum() if self.replica == 0 else flat.grad.new_zeros(())
         on_last = s == last
@@ -543,7 +542,8 @@ class PipelineTrainStep:
             sq.to(flat.grad.dtype),
             flat.grad.new_tensor(float(executed if self.replica == 0 else 0)),
         ])
-        mesh.all_reduce_(vec, "sum", "world")
+        with mesh.census_segment("tail"):  # no stage program reads it
+            mesh.all_reduce_(vec, "sum", "world")
         vec = vec.tolist()
         slots = (S - 1) * (M + S - 2) + S * (M + S - 1)
         done = int(round(vec[3]))
@@ -557,6 +557,16 @@ class PipelineTrainStep:
             "pixel_acc": vec[1] / self._n_data,
             "grad_norm": float(np.sqrt(vec[2])),
         }
+
+
+def stage_program_names(stage: int, n_stages: int) -> Tuple[str, ...]:
+    """The programs stage ``stage`` of ``n_stages`` runs in a step, by the
+    JAX package's names (``ddlpc_tpu/analysis/program.py``
+    ``_program_table``): its forward, its backward (the last stage's
+    ``loss_bwd``, forward and loss folded in) and its update."""
+    if stage == n_stages - 1:
+        return (f"stage{stage}_loss_bwd", f"stage{stage}_update")
+    return (f"stage{stage}_fwd", f"stage{stage}_bwd", f"stage{stage}_update")
 
 
 def _carry_bytes(carry: dict) -> int:

@@ -227,17 +227,18 @@ class TrainState:
             return self.params.split_owned(self.owned)
         return self.params.owned(self.params.data, mesh.replica_index())
 
-    def gather_params(self) -> None:
+    def gather_params(self, role: str = "wire") -> None:
         """Where the params persist chunked, make the param buffer resident
         and all-gather the replicas' chunks into it (every replica must
         call it); a no-op where the buffer is resident, which it stays
-        until the next update."""
+        until the next update.  ``role`` is the census' (``aux`` in the
+        spatial step, whose collectives JAX's partitioner owns)."""
         flat = self.params
         if not self.placement.chunked["params"] or flat.resident:
             return
         flat.materialize()
         flat.put_owned(self.owned, flat.data, mesh.replica_index())
-        flat.all_gather_(flat.data, role="wire")
+        flat.all_gather_(flat.data, role=role)
 
     def release_params(self) -> None:
         """Where the params persist chunked, free the param buffer (its
@@ -559,7 +560,7 @@ def make_train_step_spatial(
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         if state.level != level:
             raise ValueError(f"a {state.level} state given to a {level} step")
-        state.gather_params()
+        state.gather_params(role="aux")
         losses, accs = _accumulate_grads(state, images, labels, remat, spatial_loss_from_logits)
         flat = state.params
         # Every rank's share of the gradient of the global loss, summed.
@@ -567,11 +568,15 @@ def make_train_step_spatial(
         codec_on_mean(flat, compression, _rounding_rng(compression, seed, state.step))
         norm = grad_norm(flat.grad)
         placement = state.placement
+        index = mesh.replica_index()
+        # The optimizer-boundary gradient: this replica's chunks where the
+        # placement chunks the gradients, else the whole mean.
+        mesh.note_grads(flat.owned(flat.grad, index) if placement.chunked["grads"]
+                        else [flat.grad])
         if not placement.chunked["opt_state"]:
             tx.update(flat.grad, state.opt_state, flat.data, segments=flat.segments())
         else:
             clip = tx.global_norm(flat.grad, flat.segments()) if tx.grad_clip_norm else None
-            index = mesh.replica_index()
             tx.update(flat.owned(flat.grad, index), state.opt_state, state.owned_params(),
                       norm=clip)
             if placement.chunked["params"]:

@@ -21,9 +21,13 @@ injections and the census-off probe.  Then:
   through the CLI (on the module world's result, and in a world of its
   own); ``--inject drop-fence`` exits 2;
 - a census that is off records nothing;
-- the CLI's ``kind="program"`` stream lints;
+- the CLI's ``kind="program"`` stream lints, the records of pipeline
+  segments, stage updates, serve forwards and eval steps too;
 - the census, not only ``comm_plan``, backs the wire rows of
-  ``ddlpc_comm_bytes_total``.
+  ``ddlpc_comm_bytes_total``;
+- every arm's program equals its entry in the committed baseline
+  (``docs/port_analysis/program_baseline.json``; the other 21 programs are
+  ``tests/test_torch_program_audit_b.py``'s).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from test_torch_threads import intra_op_threads
 one_intra_op_thread = intra_op_threads(1)  # autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARMS = list(prog.ARMS)
+ARMS = list(prog.DATA_PARALLEL_ARMS)
 JAX_KIND = {"all_reduce": "all-reduce", "reduce_scatter": "reduce-scatter",
             "all_gather": "all-gather", "ring_shift": "collective-permute"}
 ITEM = {"s8": 1, "s16": 2, "f16": 2, "f32": 4, "s32": 4}
@@ -277,19 +281,32 @@ def test_cli_stream_lints(tmp_path):
     from ddlpc_tpu.obs.schema import check_record as jax_check_record
 
     out = tmp_path / "programs.jsonl"
+    arms = ["int8_zero2", "fp16_bucketed_zero2", "pipe2_int8_zero2", "serve_int8", "eval"]
     r = subprocess.run([sys.executable, "-m", "ddlpc_tpu_torch.analysis.check", "--programs",
-                        "--device", "cpu", "--arms", "int8_zero2,fp16_bucketed_zero2",
+                        "--device", "cpu", "--arms", ",".join(arms),
                         "--out", str(out)], cwd=REPO, env=_env(), capture_output=True, text=True,
                        timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     assert all(check_record(rec) == [] and jax_check_record(rec) == [] for rec in recs)
     assert all(rec["kind"] == "program" for rec in recs)
-    assert [rec["arm"] for rec in recs[:-1]] == ["int8_zero2", "fp16_bucketed_zero2"]
+    assert [rec["program"] for rec in recs[:-1]] == [
+        "int8_zero2/step", "fp16_bucketed_zero2/step", "pipe2_int8_zero2/stage0_fwd",
+        "pipe2_int8_zero2/stage0_bwd", "pipe2_int8_zero2/stage1_loss_bwd",
+        "pipe2_int8_zero2/stage0_update", "pipe2_int8_zero2/stage1_update",
+        "serve_int8/forward", "eval/eval_step"]
+    assert [rec["program_kind"] for rec in recs[:-1]] == [
+        "step", "step", "stage_fwd", "stage_bwd", "stage_bwd", "stage_update", "stage_update",
+        "serve_forward", "eval_step"]
     assert recs[-1]["record"] == "summary"
-    assert recs[-1]["programs"] == 2 and recs[-1]["violations"] == 0 and recs[-1]["world"] == 8
+    assert recs[-1]["programs"] == 9 and recs[-1]["arms"] == 5
+    assert recs[-1]["violations"] == 0 and recs[-1]["census_drift"] == 0
+    assert recs[-1]["world"] == 8
     assert "reduce_scatter/sum|s8|data|wire|count=1|elements=19456|bytes=19456" in (
         recs[0]["wire_census"])
+    assert any(row.startswith("send|bf16|pipe|aux|") for row in recs[2]["aux_census"])
+    assert recs[7]["inputs"] == ["f32|leaves=57|bytes=50320", "s8|leaves=36|bytes=19366"]
+    assert recs[8]["aux_census"] == ["all_reduce/sum|f64|data|aux|count=1|elements=38|bytes=304"]
 
 
 def test_codec_calls_closed_form_is_chip_smokes_per_bucket_table():
@@ -358,3 +375,10 @@ def test_the_census_backs_the_comm_gauge(world, monkeypatch):
     assert gauge == {"all_reduce": 19_456}
     assert [v.contract for v in bad] == ["comm-closed-form"]
     assert "moves 19460 B" in bad[0].message and "says 19456 B" in bad[0].message
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_every_arm_equals_its_committed_baseline(world, arm):
+    baseline = prog.load_baseline()
+    a = _audits(world)[(arm, None)]
+    assert prog.compare_to_baseline(a, baseline["programs"].get(f"{arm}/step")) == []
